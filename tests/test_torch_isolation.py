@@ -1,0 +1,52 @@
+"""The port stands alone: neither ``titan_tpu_torch``, ``chip_smoke.py`` nor
+the port's GPU script ``scripts/cuda_fmad_ab.py`` imports JAX or anything
+of the JAX package, statically or at run time."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "titan_tpu")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def _port_files():
+    files = sorted((ROOT / "titan_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "scripts" / "cuda_fmad_ab.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, titan_tpu_torch, titan_tpu_torch.ops.fused_step, "
+            "titan_tpu_torch.runtime.simulation; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

@@ -1,0 +1,81 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``csrc/`` is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at first use, never at import, into
+``titan_tpu_torch/_build/`` (listed in ``.gitignore``); a library's file name
+carries a hash of its source and flags, so an edited source is never served
+a stale build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# -fmad=false: every multiply and add rounds on its own, as in the plain
+# PyTorch versions (see the note in csrc/fused_step.cu and
+# scripts/cuda_fmad_ab.py, which measures the build without it); no
+# --use_fast_math
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (on PATH, or under $CUDA_HOME/bin or "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    """Where the build of ``csrc/<name>.cu`` lives."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(name: str, verbose: bool = False) -> str:
+    """Compile ``csrc/<name>.cu`` if its build is missing; returns the
+    compiler's report (``-Xptxas -v`` register and spill counts when
+    ``verbose``), or "" when the library was already built."""
+    out = library_path(name)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stdout + proc.stderr
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building it first if
+    needed."""
+    with _LOCK:
+        key = (name, NVCC_FLAGS)    # a flags experiment gets its own build
+        lib = _LIBS.get(key)
+        if lib is None:
+            build(name)
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LIBS[key] = lib
+        return lib

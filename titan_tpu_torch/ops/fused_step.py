@@ -1,0 +1,347 @@
+"""The fused multi-step chunk: counterpart of ``titan_tpu/ops/pallas_step.py``.
+
+``fused_chunk`` advances a scene by n whole steps.  For state on the card it
+launches the hand-written CUDA kernel ``csrc/fused_step.cu`` (one launch per
+step, two for RK2); for state on the CPU it runs ``fused_chunk_plain``, a
+plain PyTorch transcription of the TPU kernel's body
+(``pallas_step.py::_build_kernel``) with ``torch.roll`` for its rolls and its
+accumulation order: the constant force first, then per family
+``f_acc - f + roll(f, d)``, then planes, balls, drag and the update.  There
+is no fallback between the two: a CUDA tensor goes to the kernel or raises.
+
+Envelope (``fused_reject_reason``): f32, persistent external force, springs
+all in stencil families, no magnets, no local constraints.  Unlike the TPU
+kernel there is no on-chip memory budget, so N has no cap.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from ..config import (ACTIVE_CONTRACT_THEN_EXPAND, ACTIVE_EXPAND_THEN_CONTRACT,
+                      ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator)
+from ..state import SceneShape, SimState
+
+_INTEGRATOR_CODE = {Integrator.EULER: 0, Integrator.VERLET: 1,
+                    Integrator.RK2: 2}
+
+
+def fused_reject_reason(shape: SceneShape):
+    """None if the fused step accepts this scene, else a one-line reason
+    naming the envelope condition that failed."""
+    cfg = shape.config
+    if cfg.integrator not in _INTEGRATOR_CODE:
+        return f"integrator {cfg.integrator.name} not supported in-kernel"
+    if cfg.dtype != "float32":
+        return (f"dtype {cfg.dtype} (the fused kernel is f32-only; other "
+                "dtypes run the eager step)")
+    if not cfg.use_stencil or not shape.stencil_deltas:
+        return "no stencil spring families (use_stencil off or none found)"
+    if not cfg.persistent_extern_force:
+        return ("strict per-step extern_force mode "
+                "(persistent_extern_force=False)")
+    if shape.has_remainder:
+        return ("irregular (remainder) springs are not in the fused kernel "
+                "yet")
+    if shape.has_magnets:
+        return "magnets are not in the fused kernel yet"
+    if any((shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)):
+        return "local constraints are not in the fused kernel yet"
+    return None
+
+
+def prep_invariants(shape: SceneShape, state: SimState) -> dict:
+    """Loop-invariant kernel inputs (``pallas_step.py::prep_invariants``):
+    validity folded into k / damping / arate (validity changes only at a
+    re-marshal), breathing sign and frequency, inverse mass, the frozen
+    mask (fixed or invalid), the constant force m g + extern, the
+    [dt, t] scalars and the plane / ball tables."""
+    m = state.masses
+    dtype = m.pos.dtype
+    pair_ok = state.stencil.mask
+    if not shape.all_valid:
+        pair_ok = torch.stack([
+            pair_ok[fi] & m.valid & torch.roll(m.valid, -d, dims=-1)
+            for fi, d in enumerate(shape.stencil_deltas)])
+    st = state.stencil
+    styp = st.type
+    inv = dict(
+        k_eff=torch.where(pair_ok, st.k, 0.0),
+        damp_eff=torch.where(pair_ok, st.damping, 0.0),
+        bsign=torch.where(
+            styp == ACTIVE_CONTRACT_THEN_EXPAND, -0.2,
+            torch.where(styp == ACTIVE_EXPAND_THEN_CONTRACT, 0.2,
+                        0.0)).to(dtype),
+        bomega=st.omega,
+        minv=(1.0 / m.m)[None, :],
+        move=m.valid & ~m.fixed,
+        const_f=m.extern_force + m.m * state.g[:, None],
+        scal=torch.stack([state.dt.float(), state.t.float()]),
+    )
+    inv["fixed"] = (~inv["move"]).to(dtype)[None, :]
+    planes = torch.zeros((max(shape.n_planes, 1), 6), dtype=torch.float32,
+                         device=m.pos.device)
+    if shape.n_planes:
+        g = state.gcon
+        planes[: shape.n_planes] = torch.cat([
+            g.plane_normal, g.plane_offset[:, None], g.plane_fk[:, None],
+            g.plane_fs[:, None]], dim=1).float()
+    balls = torch.zeros((max(shape.n_balls, 1), 4), dtype=torch.float32,
+                        device=m.pos.device)
+    if shape.n_balls:
+        balls[: shape.n_balls] = torch.cat([
+            state.gcon.ball_center, state.gcon.ball_radius[:, None]],
+            dim=1).float()
+    inv["planes"], inv["balls"] = planes, balls
+    if shape.has_actuated:
+        # +rate / -rate / 0 and the matching bound; invalid pairs never
+        # mutate rest (reference early-return, sim.cu:1163)
+        arate = torch.where(styp == ACTUATED_EXPAND, st.rate,
+                            torch.where(styp == ACTUATED_CONTRACT, -st.rate,
+                                        0.0))
+        inv["arate"] = torch.where(pair_ok, arate, 0.0).to(dtype)
+        inv["abound"] = torch.where(
+            styp == ACTUATED_EXPAND, st.l_max,
+            torch.where(styp == ACTUATED_CONTRACT, st.l_min, 0.0)).to(dtype)
+    return inv
+
+
+def _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest):
+    """The chunk's output state: fresh pos/vel/acc (+ rest), advanced T
+    and t."""
+    m = state.masses
+    dtn = n_steps * state.dt
+    new = dataclasses.replace(
+        state,
+        masses=dataclasses.replace(
+            m, pos=pos, vel=vel, acc=acc,
+            T=m.T + torch.where(inv["move"], dtn, 0.0)),
+        t=state.t + dtn)
+    if shape.has_actuated:
+        new = dataclasses.replace(new, stencil=dataclasses.replace(
+            state.stencil, rest=rest))
+    return new
+
+
+def fused_chunk_plain(shape: SceneShape, state: SimState,
+                      n_steps: int) -> SimState:
+    """Plain PyTorch version of the fused kernel: ``n_steps`` steps of the
+    TPU kernel body (``pallas_step.py::_build_kernel``), sqrt + divide
+    norms, on whatever device ``state`` lives on."""
+    cfg = shape.config
+    inv = prep_invariants(shape, state)
+    m = state.masses
+    dt, t0 = inv["scal"][0], inv["scal"][1]
+    frozen = inv["fixed"] != 0
+    minv = inv["minv"]
+    k, damp = inv["k_eff"], inv["damp_eff"]
+    planes, balls = inv["planes"], inv["balls"]
+    nc = cfg.normal_coeff
+
+    def compute_forces(pos, vel, t_now, rest):
+        f_acc = inv["const_f"]
+        new_rest = []
+        for fi, d in enumerate(shape.stencil_deltas):
+            diff = torch.roll(pos, -d, dims=-1) - pos
+            d2 = torch.sum(diff * diff, dim=0)
+            ln = torch.sqrt(d2)
+            inv_ln = torch.where(ln > 0,
+                                 1.0 / torch.where(ln > 0, ln, 1.0), 0.0)
+            r = rest[fi]
+            if shape.has_actuated:
+                ar, ab = inv["arate"][fi], inv["abound"][fi]
+                adv = ((ar > 0) & (r < ab)) | ((ar < 0) & (r > ab))
+                r = r + torch.where(adv, ar * dt, 0.0)
+                new_rest.append(r)
+            if shape.has_breathing:
+                r = r * (1.0 + inv["bsign"][fi]
+                         * torch.sin(inv["bomega"][fi] * t_now))
+            mag = k[fi] * (r - ln)
+            if shape.has_damping:
+                vr = torch.roll(vel, -d, dims=-1)
+                axial = torch.sum((vel - vr) * diff, dim=0) * inv_ln
+                mag = mag + axial * damp[fi]
+            f = (mag * inv_ln) * diff
+            f_acc = f_acc - f + torch.roll(f, d, dims=-1)
+        for p in range(shape.n_planes):
+            nvec = planes[p, :3][:, None]
+            off, fk, fs = planes[p, 3], planes[p, 4], planes[p, 5]
+            disp = torch.sum(pos * nvec, dim=0) - off
+            inside = disp < 0
+            if shape.plane_friction[p]:
+                fn_mag = torch.sum(f_acc * nvec, dim=0)
+                f_n = fn_mag * nvec
+                has_fric = (fs > 0) | (fk > 0)
+                v_perp = vel - torch.sum(vel * nvec, dim=0) * nvec
+                v_norm = torch.sqrt(torch.sum(v_perp * v_perp, dim=0))
+                kinetic = v_norm > 1e-16
+                fn_abs = torch.abs(fn_mag)
+                safe_vn = torch.where(kinetic, v_norm, 1.0)
+                f_kin = f_acc - v_perp * (fk * fn_abs / safe_vn)
+                f_perp = f_acc - f_n
+                fp_norm = torch.sqrt(torch.sum(f_perp * f_perp, dim=0))
+                f_sta = torch.where(fs * fn_abs > fp_norm, f_acc - f_perp,
+                                    f_acc)
+                f_fric = torch.where(kinetic, f_kin, f_sta)
+                f_acc = torch.where(inside & has_fric, f_fric, f_acc)
+            contact = torch.where(inside, -disp * nc, 0.0)
+            f_acc = f_acc + contact * nvec
+        for b in range(shape.n_balls):
+            dvec = pos - balls[b, :3][:, None]
+            dist = torch.sqrt(torch.sum(dvec * dvec, dim=0))
+            safe = torch.where(dist > 0, dist, 1.0)
+            push = torch.where((dist <= balls[b, 3]) & (dist > 0), nc / safe,
+                               0.0)
+            f_acc = f_acc + dvec * push
+        if shape.has_drag:
+            vn = torch.sqrt(torch.sum(vel * vel, dim=0))
+            f_acc = f_acc - m.drag * vn * vel
+        return f_acc, (torch.stack(new_rest) if shape.has_actuated else rest)
+
+    pos, vel, acc = m.pos, m.vel, m.acc
+    rest = state.stencil.rest
+    for step in range(n_steps):
+        t_base = t0 + step * dt
+        if cfg.integrator is Integrator.RK2:
+            f1, rest = compute_forces(pos, vel, t_base, rest)
+            acc1 = f1 * minv
+            pos_h = torch.where(frozen, pos, pos + 0.5 * vel * dt)
+            vel_h = torch.where(frozen, vel, vel + 0.5 * acc1 * dt)
+            f2, rest = compute_forces(pos_h, vel_h, t_base + 0.5 * dt, rest)
+            new_acc = f2 * minv
+            v2 = vel + new_acc * dt
+            p2 = pos + vel_h * dt
+        else:
+            f, rest = compute_forces(pos, vel, t_base, rest)
+            new_acc = f * minv
+            if cfg.integrator is Integrator.VERLET:
+                v2 = vel + 0.5 * (acc + new_acc) * dt
+                p2 = pos + (v2 * dt + 0.5 * new_acc * dt * dt)
+            else:
+                v2 = vel + new_acc * dt
+                if cfg.velocity_clamp:
+                    vn = torch.sqrt(torch.sum(v2 * v2, dim=0))
+                    v2 = torch.where(vn > 1.0,
+                                     v2 / torch.where(vn > 0, vn, 1.0), v2)
+                p2 = pos + v2 * dt
+        pos = torch.where(frozen, pos, p2)
+        vel = torch.where(frozen, vel, v2)
+        acc = torch.where(frozen, acc, new_acc)
+    return _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest)
+
+
+class _ChunkArgs(ctypes.Structure):
+    """Mirror of ``struct ChunkArgs`` in ``csrc/fused_step.cu``."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in (
+        "n", "nf", "n_planes", "n_balls", "n_steps", "integrator", "clamp",
+        "has_damping", "has_breathing", "has_actuated", "has_drag",
+        "device")]
+        + [("normal_coeff", ctypes.c_float)]
+        + [(f, ctypes.c_void_p) for f in (
+            "deltas", "scal", "planes", "balls", "pos_in", "vel_in",
+            "acc_in", "cforce", "minv", "fixed", "k", "rest_in", "damping",
+            "bsign", "bomega", "arate", "abound", "drag", "pos_out",
+            "vel_out", "acc_out", "pos_tmp", "vel_tmp", "acc_tmp",
+            "pos_half", "vel_half", "rest_out", "rest_tmp")])
+
+
+def _checked(name, t, shape, dtype=torch.float32):
+    """``t`` as the kernel takes it, or raise naming what is wrong."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or t.device.type != "cuda":
+        raise ValueError(
+            f"fused kernel input {name}: expected a contiguous {dtype} CUDA "
+            f"tensor of shape {tuple(shape)}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device} (contiguous="
+            f"{t.is_contiguous()})")
+    return t.data_ptr()
+
+
+def _fused_chunk_cuda(shape: SceneShape, state: SimState,
+                      n_steps: int) -> SimState:
+    from .. import _build
+    lib = _build.load("fused_step")
+    fn = lib.titan_fused_chunk
+    fn.argtypes = [ctypes.POINTER(_ChunkArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    cfg = shape.config
+    m = state.masses
+    dev = m.pos.device
+    n, nf = shape.n_masses, len(shape.stencil_deltas)
+    inv = prep_invariants(shape, state)
+    deltas = torch.tensor(shape.stencil_deltas, dtype=torch.int32, device=dev)
+    vec, fam = (3, n), (nf, n)
+    empty = lambda s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    pos_out, vel_out, acc_out = empty(vec), empty(vec), empty(vec)
+    scratch = [empty(vec) for _ in range(5)]     # pos/vel/acc tmp, pos/vel half
+    rest_in = state.stencil.rest
+    rest_out = empty(fam) if shape.has_actuated else rest_in
+    rest_tmp = empty(fam) if shape.has_actuated else rest_in
+    # The temporaries here are freed when this function returns, while the
+    # kernels may still be running: safe, because the caching allocator
+    # reuses memory freed on this stream only for later work on it.
+
+    a = _ChunkArgs()
+    a.n, a.nf, a.n_steps = n, nf, n_steps
+    a.n_planes, a.n_balls = shape.n_planes, shape.n_balls
+    a.integrator = _INTEGRATOR_CODE[cfg.integrator]
+    a.clamp = int(cfg.velocity_clamp)
+    a.has_damping, a.has_breathing = int(shape.has_damping), int(shape.has_breathing)
+    a.has_actuated, a.has_drag = int(shape.has_actuated), int(shape.has_drag)
+    a.device = dev.index if dev.index is not None else torch.cuda.current_device()
+    a.normal_coeff = float(cfg.normal_coeff)
+    a.deltas = _checked("deltas", deltas, (nf,), torch.int32)
+    a.scal = _checked("scal", inv["scal"], (2,))
+    a.planes = _checked("planes", inv["planes"], (max(shape.n_planes, 1), 6))
+    a.balls = _checked("balls", inv["balls"], (max(shape.n_balls, 1), 4))
+    a.pos_in = _checked("pos", m.pos, vec)
+    a.vel_in = _checked("vel", m.vel, vec)
+    a.acc_in = _checked("acc", m.acc, vec)
+    a.cforce = _checked("const_f", inv["const_f"], vec)
+    a.minv = _checked("minv", inv["minv"], (1, n))
+    a.fixed = _checked("fixed", inv["fixed"], (1, n))
+    a.k = _checked("k", inv["k_eff"], fam)
+    a.rest_in = _checked("rest", rest_in, fam)
+    a.damping = _checked("damping", inv["damp_eff"], fam)
+    a.bsign = _checked("bsign", inv["bsign"], fam)
+    a.bomega = _checked("bomega", inv["bomega"], fam)
+    if shape.has_actuated:
+        a.arate = _checked("arate", inv["arate"], fam)
+        a.abound = _checked("abound", inv["abound"], fam)
+    a.drag = _checked("drag", m.drag, (n,))
+    a.pos_out, a.vel_out, a.acc_out = (t.data_ptr()
+                                       for t in (pos_out, vel_out, acc_out))
+    (a.pos_tmp, a.vel_tmp, a.acc_tmp, a.pos_half,
+     a.vel_half) = (t.data_ptr() for t in scratch)
+    a.rest_out, a.rest_tmp = rest_out.data_ptr(), rest_tmp.data_ptr()
+
+    rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
+    fused_chunk.launches += n_steps * (2 if cfg.integrator is Integrator.RK2
+                                       else 1)
+    return _finish_chunk(shape, state, inv, n_steps, pos_out, vel_out,
+                         acc_out, rest_out)
+
+
+def fused_chunk(shape: SceneShape, state: SimState, n_steps) -> SimState:
+    """``n_steps`` fused steps: the CUDA kernel for state on the card, the
+    plain version for state on the CPU.  ``fused_chunk.launches`` counts
+    the kernel launches (one per step, two for RK2)."""
+    n_steps = int(n_steps)
+    if n_steps <= 0:
+        return state
+    dev = state.masses.pos.device
+    if dev.type == "cpu":
+        return fused_chunk_plain(shape, state, n_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_chunk: state on {dev}; expected cpu or cuda")
+    return _fused_chunk_cuda(shape, state, n_steps)
+
+
+fused_chunk.launches = 0
