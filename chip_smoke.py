@@ -23,14 +23,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      start are held against fused_chunk_plain over 200 steps;
   4. time each path's chunk with CUDA events from its landed state (kernel
      and plain version) beside the least time the card could take;
-  5. print the kernels line (one entry per path), the card's name and power
-     limit, and last the result line.
+  a. build csrc/adjoint.cu (the adjoint's trace and backward kernels) beside
+     fused_step.cu, each by its own nvcc, started together, with ptxas
+     reports;
+  b. hold both adjoint kernels against their plain versions on the 12 small
+     scenes over a 20-step segment: the trace bitwise against
+     trace_run_plain, the backward against bwd_run_plain fed the same trace
+     and seeded cotangents, within TOL_BWD of max |plain| for every output;
+  c. the gradient path from each landed main-path state (43^3 and 20^3):
+     diff.grad_rollout over 200 steps in segments of 100 and
+     torch.autograd.grad of seeded weights . (final pos, vel) over pos,
+     vel, k, rest, m, extern_force and g, with every launch count and the
+     eager step count set to 0 just before and read just after; each kernel
+     must launch, no eager step may run, every gradient must be finite.
+     Then both adjoint kernels against their plain versions on one
+     100-step segment's trace from that state;
+  d. a system-id fit at 43^3 (examples/system_id.py's idea): a
+     two-material k_true, 3 Adam iterations on log k, each loss over 2
+     segments of 100 steps; the loss must fall;
+  e. time at 43^3 and 20^3: forward + backward per step (host clock),
+     each adjoint kernel's device time per step and per launch
+     (torch.profiler) beside its bound and its wrapper's CUDA-event time,
+     the plain versions, and fast_rollout (eager-recompute backward) at
+     43^3;
+  5. print the kernels line (one entry per kernel and path), the card's
+     name and power limit, and last the result line.
 
 It imports neither JAX nor titan_tpu, and exits non-zero without printing a
 result when torch.cuda.is_available() is false.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,6 +70,17 @@ F32_FLOPS_PER_S = 67e12
 # integrate, clamp); a floor, sqrt and divide counted as one op
 OPS_PER_SPRING, OPS_PER_MASS = 22, 25
 TOL_STATE, TOL_REST = 1e-5, 1e-6
+# backward kernel vs bwd_run_plain on one shared trace, per output:
+# max |kernel - plain| / max |plain|.  The slack is summation order (RK2
+# adds its two passes' gradients one after the other) amplified by the
+# stiff contact over a segment.
+TOL_BWD = 1e-4
+# operations of one backward step on top of the forward recompute (22 per
+# spring, 25 per mass): the spring transpose (fbar 3, dot 5, dbar 4, the
+# length chain 10, 2 diff d2bar 9, both ends 6, gradients 3) and the
+# per-mass integrator, plane and carry transposes
+OPS_PER_SPRING_T, OPS_PER_MASS_T = 40, 45
+SEG, GRAD_STEPS = 100, 200
 VARIANTS = ("plain", "friction", "static_friction", "ball", "damping",
             "breathing", "actuated", "drag", "deleted", "verlet", "rk2",
             "clamp_off")
@@ -255,21 +290,28 @@ def event_ms(fn, steps, reps=3):
     return sorted(times)[len(times) // 2]
 
 
-def profile_kernel_us(fn, steps):
-    """Device time per fused_step_kernel launch from torch.profiler, or None
-    if the profiler recorded no device time."""
+def profile_device_us(fn, names):
+    """{kernel: (device us in all, launches)} for each kernel in `names`
+    from torch.profiler over fn(); a kernel with no device time recorded
+    is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn(steps)
+        fn()
         torch.cuda.synchronize()
-    total, count = 0.0, 0
+    out = {}
     for e in prof.key_averages():
-        if "fused_step_kernel" in e.key:
-            total += getattr(e, "self_device_time_total", 0.0) or 0.0
-            count += e.count
-    return total / count if count and total else None
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        for k in names:
+            if k in e.key and e.count and t:
+                out[k] = (t, e.count)
+    return out
+
+
+def profile_us(fn, names):
+    """Device us per launch of each kernel in `names` (profile_device_us)."""
+    return {k: t / c for k, (t, c) in profile_device_us(fn, names).items()}
 
 
 def bound_ms_per_step(shape, state, n_steps):
@@ -326,7 +368,8 @@ def time_path(name, shape, state):
     run_kernel(200)
     host_us = (time.perf_counter() - t0) / 200 * 1e6
     torch.cuda.synchronize()
-    kern_us = profile_kernel_us(run_kernel, 500)
+    kern_us = profile_us(lambda: run_kernel(500),
+                         ["fused_step_kernel"]).get("fused_step_kernel")
     print(f"{name}: host enqueue {host_us:.3f} us/step (200-step chunk, "
           f"prep included); torch.profiler: "
           + ("not measured (no device time recorded)" if kern_us is None
@@ -335,6 +378,356 @@ def time_path(name, shape, state):
                   f"event-timed step"))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+def build_kernels(names):
+    """Build each csrc/<name>.cu with its own nvcc, all started together;
+    prints each build's seconds and ptxas register / spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+    from titan_tpu_torch import _build
+
+    def one(name):
+        t0 = time.perf_counter()
+        return name, _build.build(name, verbose=True), \
+            time.perf_counter() - t0
+    with ThreadPoolExecutor(len(names)) as ex:
+        for name, report, secs in ex.map(one, names):
+            print(f"build {name}.cu: {secs:.2f} s")
+            for line in report.splitlines():
+                if "registers" in line or "spill" in line or \
+                        "Compiling entry" in line:
+                    print("  ptxas:", line.strip())
+            _build.load(name)
+
+
+def seeded_cotangents(n, device, seed=5):
+    """Three [3, n] f32 cotangents from a seeded numpy generator."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.normal(0, 1, (3, n)).astype(np.float32))
+            .to(device) for _ in range(3)]
+
+
+def adjoint_vs_plain(shape, state, seg, label):
+    """Both adjoint kernels against their plain versions from `state`: the
+    trace bitwise, the backward within TOL_BWD per output on the kernel's
+    trace.  Returns the trace's max |d| and the backward's max |d| and
+    max |d| / max |plain|."""
+    import torch
+    from titan_tpu_torch.ops import adjoint
+    trace = adjoint.trace_run(shape, state, seg)
+    want = adjoint.trace_run_plain(shape, state, seg)
+    torch.cuda.synchronize()
+    dtr = float((trace - want).abs().max())
+    check(torch.equal(trace, want),
+          f"{label}: trace kernel differs from trace_run_plain by {dtr:.3e}")
+    del want
+    cts = seeded_cotangents(shape.n_masses, trace.device)
+    got = adjoint.bwd_run(shape, state, trace, *cts)
+    ref = adjoint.bwd_run_plain(shape, state, trace, *cts)
+    torch.cuda.synchronize()
+    ok = ref["pair_ok"]
+    abs_err, rel, bad = 0.0, {}, []
+    for key, b in ref.items():
+        if key == "pair_ok":
+            continue
+        a = got[key]
+        if key in ("k", "damping", "aratedt"):   # masked in assemble_ct
+            a, b = torch.where(ok, a, 0.0), torch.where(ok, b, 0.0)
+        if not bool(torch.isfinite(a).all()):
+            bad.append(f"non-finite {key}")
+        d = float((a - b).abs().max())
+        abs_err = max(abs_err, d)
+        rel[key] = d / max(float(b.abs().max()), 1e-30)
+        if rel[key] > TOL_BWD:
+            bad.append(f"{key} {rel[key]:.3e}")
+    print(f"adjoint vs plain [{label}, {seg} steps]: trace bitwise; "
+          f"backward max |d| / max |plain|: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + (f"  FAIL {bad}" if bad else ""))
+    check(not bad, f"{label}: backward kernel disagrees with plain: {bad}")
+    return dtr, abs_err, max(rel.values())
+
+
+def grad_leaves(state):
+    """(leaves pos, vel, k, rest, m, extern_force, g requiring grad, the
+    state built on them)."""
+    import dataclasses
+    leaves = [t.clone().requires_grad_() for t in (
+        state.masses.pos, state.masses.vel, state.stencil.k,
+        state.stencil.rest, state.masses.m, state.masses.extern_force,
+        state.g)]
+    pos, vel, k, rest, m, ext, g = leaves
+    st = dataclasses.replace(
+        state,
+        masses=dataclasses.replace(state.masses, pos=pos, vel=vel, m=m,
+                                   extern_force=ext),
+        stencil=dataclasses.replace(state.stencil, k=k, rest=rest), g=g)
+    return leaves, st
+
+
+def grad_loss_weights(state, seed=11):
+    """Seeded weights on pos and vel of the valid masses."""
+    w = seeded_cotangents(state.masses.pos.shape[1], state.masses.pos.device,
+                          seed)[:2]
+    return [x * state.masses.valid for x in w]
+
+
+def run_grad(shape, state, rollout, n_steps=GRAD_STEPS):
+    """loss = weights . (final pos, vel) through `rollout`, and its
+    gradients over the leaves; synchronised."""
+    import torch
+    leaves, st = grad_leaves(state)
+    wpos, wvel = grad_loss_weights(state)
+    out = rollout(shape, st, n_steps)
+    loss = (torch.sum(out.masses.pos * wpos)
+            + torch.sum(out.masses.vel * wvel))
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return loss, grads
+
+
+def counters():
+    """The objects that carry the gradient path's launch and step counts."""
+    from titan_tpu_torch.ops import adjoint, fused_step
+    from titan_tpu_torch.ops import step as tstep
+    return (fused_step.fused_chunk, adjoint.trace_run, adjoint.bwd_run,
+            tstep.run_eager)
+
+
+def grad_path(name, shape, state):
+    """Phase c: diff.grad_rollout + torch.autograd.grad from `state`, with
+    the launch and eager counts zeroed just before and read just after;
+    then both adjoint kernels against their plain versions.  Returns the
+    launches of the trace and backward kernels and the errors of
+    adjoint_vs_plain."""
+    import torch
+    from titan_tpu_torch import diff
+    fwd, tr, bwd, eager = counters()
+    fwd.launches = tr.launches = bwd.launches = 0
+    eager.steps = 0
+    t0 = time.perf_counter()
+    loss, grads = run_grad(
+        shape, state,
+        lambda sh, st, k: diff.grad_rollout(sh, st, k, segment=SEG))
+    wall = time.perf_counter() - t0
+    got = (fwd.launches, tr.launches, bwd.launches, eager.steps)
+    print(f"gradient path {name}: {GRAD_STEPS} steps in segments of {SEG}: "
+          f"fused_step launches {got[0]}, adjoint trace launches {got[1]}, "
+          f"adjoint backward launches {got[2]}, eager steps {got[3]}; "
+          f"{wall:.3f} s wall (first call)")
+    check(min(got[:3]) > 0, f"{name}: a kernel of the gradient path never "
+          f"launched: {got}")
+    check(got[3] == 0, f"{name}: the gradient path ran {got[3]} eager steps")
+    names = ("pos", "vel", "k", "rest", "m", "extern_force", "g")
+    for nm, g in zip(names, grads):
+        check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
+              "not finite")
+    print(f"gradient path {name}: loss {float(loss.detach()):.6e}; |grad|max "
+          + ", ".join(f"{nm} {float(g.abs().max()):.3e}"
+                      for nm, g in zip(names, grads)))
+    err = adjoint_vs_plain(shape, state, SEG, f"{name} landed")
+    return got[1], got[2], err
+
+
+def system_id(shape, state, iters=3, lr=0.08):
+    """Phase d: fit log k to a two-material k_true from positions at two
+    segment boundaries (examples/system_id.py), 3 Adam iterations through
+    diff.grad_rollout.  Returns the losses."""
+    import dataclasses
+    import torch
+    from titan_tpu_torch import diff
+    mask = state.stencil.mask
+    valid = state.masses.valid
+    z = state.masses.pos[2]
+    z_mid = (z * valid).sum() / valid.sum()
+    k_true = torch.where(mask, torch.where(z > z_mid, 1800.0, 600.0), 0.0)
+
+    def boundaries(k):
+        s = dataclasses.replace(state, stencil=dataclasses.replace(
+            state.stencil, k=k))
+        out = []
+        for _ in range(2):
+            s = diff.grad_rollout(shape, s, SEG, segment=SEG)
+            out.append(s.masses.pos)
+        return torch.stack(out)
+
+    with torch.no_grad():
+        obs = boundaries(k_true)
+    logk = torch.where(mask, 1000.0, 1.0).log().requires_grad_()
+    opt = torch.optim.Adam([logk], lr=lr)
+    losses = []
+    for _ in range(iters):
+        opt.zero_grad()
+        pred = boundaries(torch.exp(logk) * mask)
+        loss = ((pred - obs) ** 2 * valid).sum() / (2 * 3 * valid.sum()) * 1e4
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    print("system id 43^3: loss over 3 Adam iterations "
+          + " -> ".join(f"{v:.6e}" for v in losses)
+          + f" (k_true 600 / 1800 split at z = {float(z_mid):.3f}, "
+          "start 1000)")
+    check(all(math.isfinite(v) for v in losses), "system id: non-finite "
+          "loss")
+    check(losses[-1] < losses[0], f"system id: the loss did not fall: "
+          f"{losses}")
+    return losses
+
+
+def adjoint_bound_ms(shape, state, seg):
+    """The least ms per step the card could take for each adjoint kernel
+    over a `seg`-step segment, and what bounds it: ((trace ms, by),
+    (backward ms, by)).  Bytes: each input read once and each output
+    written once; operations over the f32 peak."""
+    n, f = shape.n_masses, len(shape.stencil_deltas)
+    n_springs = int(state.stencil.mask.sum())
+    fam = f * (2 + shape.has_damping + 2 * shape.has_breathing
+               + 2 * shape.has_actuated)
+    # invariants: cf 3, minv, fixed, (drag) and the family planes
+    inv = 3 + 2 + shape.has_drag + fam
+    trace_bytes = 4 * n * (seg * 6 + 9 + inv)
+    grads = 9 + 3 + 1 + shape.has_drag + f * (
+        2 + shape.has_damping + shape.has_breathing + shape.has_actuated)
+    bwd_bytes = 4 * n * (seg * 6 + 9 + inv + grads)
+    rk2 = 2 if shape.config.integrator.name == "RK2" else 1
+    ops_fwd = rk2 * (OPS_PER_SPRING * n_springs + OPS_PER_MASS * n)
+    ops_bwd = ops_fwd + rk2 * (OPS_PER_SPRING_T * n_springs
+                               + OPS_PER_MASS_T * n)
+    out = []
+    for nbytes, ops in ((trace_bytes, ops_fwd), (bwd_bytes, ops_bwd)):
+        tb = nbytes / seg / HBM_BYTES_PER_S * 1e3
+        to = ops / F32_FLOPS_PER_S * 1e3
+        out.append((tb, "bytes") if tb >= to else (to, "operations"))
+    return out
+
+
+def profile_grad_path(name, shape, state):
+    """One forward + backward of the gradient path under torch.profiler:
+    the device's busy share of the wall time, the adjoint kernels' share
+    of the device time, host-to-device copies, and the host operations
+    that take the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from titan_tpu_torch import diff
+    run_grad(shape, state, lambda sh, st, k: diff.grad_rollout(
+        sh, st, k, segment=SEG))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_grad(shape, state, lambda sh, st, k: diff.grad_rollout(
+            sh, st, k, segment=SEG))
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev, ours, h2d = 0.0, 0.0, 0
+    ours_names = ("fused_step_kernel", "adjoint_trace_kernel",
+                  "bwd_force_kernel", "bwd_spring_kernel", "bwd_mid_kernel")
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue       # host ops also carry their kernels' device time
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        dev += t
+        if any(k in e.key for k in ours_names):
+            ours += t
+        if "HtoD" in e.key:
+            h2d += e.count
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    print(f"profile {name} gradient path ({GRAD_STEPS} steps, forward + "
+          f"backward, profiler on): wall {wall_us:.0f} us, device busy "
+          f"{dev:.0f} us ({100 * dev / wall_us:.1f}%), of which the port's "
+          f"kernels {ours:.0f} us; {h2d} host-to-device copies; host "
+          "self time: " + ", ".join(f"{e.key} {e.self_cpu_time_total:.0f} us "
+                                    f"x{e.count}" for e in host[:6]))
+
+
+def time_adjoint(name, shape, state, fast=False):
+    """Phase e from `state`: fwd + bwd per step through grad_rollout; each
+    adjoint kernel's device time per step and per launch (profiler; the
+    kernel entry's ms), its wrapper per step (CUDA events around the call,
+    the host's argument staging included); the plain versions, the
+    bounds, and optionally fast_rollout."""
+    import torch
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import adjoint
+
+    def host_ms(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[len(ts) // 2]
+
+    def grad_run(rollout, k):
+        return lambda: run_grad(shape, state, rollout, k)
+
+    fb_ms = host_ms(grad_run(lambda sh, st, k: diff.grad_rollout(
+        sh, st, k, segment=SEG), GRAD_STEPS)) / GRAD_STEPS
+    fwd_ms = host_ms(lambda: diff.adjoint_rollout(
+        shape, state, GRAD_STEPS, segment=SEG)) / GRAD_STEPS
+    trace = adjoint.trace_run(shape, state, SEG)
+    cts = seeded_cotangents(shape.n_masses, trace.device)
+    tr_wrap = event_ms(lambda k: adjoint.trace_run(shape, state, k), SEG)
+    bw_wrap = event_ms(lambda k: adjoint.bwd_run(shape, state, trace, *cts),
+                       SEG)
+    ptr = adjoint.trace_run_plain(shape, state, 10)
+    tr_plain = event_ms(lambda k: adjoint.trace_run_plain(shape, state, k),
+                        10)
+    bw_plain = event_ms(lambda k: adjoint.bwd_run_plain(
+        shape, state, ptr, *cts), 10)
+    reps = 3
+    bwd_names = ("bwd_mid_kernel", "bwd_force_kernel", "bwd_spring_kernel")
+    dev = profile_device_us(lambda: [(
+        adjoint.trace_run(shape, state, SEG),
+        adjoint.bwd_run(shape, state, trace, *cts)) for _ in range(reps)],
+        ("adjoint_trace_kernel",) + bwd_names)
+    per_launch = {k: t / c for k, (t, c) in dev.items()}
+    # a kernel's ms: its device time per step, without the wrapper's host
+    # staging; the wrapper's event time where the profiler saw nothing
+    tr_ms = (dev["adjoint_trace_kernel"][0] / (reps * SEG) / 1e3
+             if "adjoint_trace_kernel" in dev else tr_wrap)
+    bw_ms = (sum(dev[k][0] for k in bwd_names if k in dev)
+             / (reps * SEG) / 1e3
+             if "bwd_force_kernel" in dev else bw_wrap)
+    (tb, tby), (bb, bby) = adjoint_bound_ms(shape, state, SEG)
+    print(f"timing {name} gradient path: forward + backward "
+          f"{fb_ms * 1e3:.3f} us/step over {GRAD_STEPS} steps (host clock, "
+          f"the host's Python, launches and allocations included; forward "
+          f"alone "
+          f"{fwd_ms * 1e3:.3f} us/step)")
+    def src(kernel):
+        return ("profiler device time" if kernel in dev else
+                "NOT the device time: the profiler recorded none, so this "
+                "is the wrapper's CUDA-event time")
+    print(f"timing {name} adjoint_trace: {tr_ms * 1e3:.3f} us/step "
+          f"({SEG}-step segment, {src('adjoint_trace_kernel')}), bound {tb * 1e3:.4f} us/step "
+          f"by {tby}, {100 * tb / tr_ms:.2f}% of bound; wrapper "
+          f"{tr_wrap * 1e3:.3f} us/step (CUDA events, host staging "
+          f"included); plain {tr_plain * 1e3:.1f} us/step")
+    print(f"timing {name} adjoint_bwd: {bw_ms * 1e3:.3f} us/step "
+          f"({SEG}-step trace, {src('bwd_force_kernel')}), bound {bb * 1e3:.4f} us/step by "
+          f"{bby}, {100 * bb / bw_ms:.2f}% of bound; wrapper "
+          f"{bw_wrap * 1e3:.3f} us/step (CUDA events, host staging "
+          f"included); plain {bw_plain * 1e3:.1f} us/step")
+    print(f"{name}: torch.profiler us per launch: "
+          + (", ".join(f"{k} {v:.3f}" for k, v in per_launch.items())
+             if per_launch else "not measured (no device time recorded)"))
+    if fast:
+        profile_grad_path(name, shape, state)
+        _, _, _, eager = counters()
+        eager.steps = 0
+        fr_ms = host_ms(grad_run(lambda sh, st, k: diff.fast_rollout(
+            sh, st, k, segment=k), 20), reps=1) / 20
+        print(f"timing {name} fast_rollout (fused forward, eager-recompute "
+              f"backward): {fr_ms * 1e3:.1f} us/step over 20 steps "
+              f"({eager.steps} eager steps), {fr_ms / fb_ms:.1f}x the "
+              "adjoint's")
+    return (dict(ms=tr_ms, wrapper_ms=tr_wrap, plain_ms=tr_plain,
+                 bound_ms=tb, bound_by=tby),
+            dict(ms=bw_ms, wrapper_ms=bw_wrap, plain_ms=bw_plain,
+                 bound_ms=bb, bound_by=bby))
 
 
 def main() -> int:
@@ -345,21 +738,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import titan_tpu_torch as titan
-    from titan_tpu_torch import _build
     from titan_tpu_torch.ops import fused_step
 
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"{torch.cuda.get_device_name(0)}, devices: "
           f"{torch.cuda.device_count()}")
 
-    # 1. build
-    t0 = time.perf_counter()
-    report = _build.build("fused_step", verbose=True)
-    print(f"build fused_step.cu: {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
-    _build.load("fused_step")
+    # 1 and a. build both sources, one nvcc each, started together
+    build_kernels(("fused_step", "adjoint"))
 
     # 2. kernel vs plain, small scenes, 100 steps each
     for variant in VARIANTS:
@@ -377,12 +763,17 @@ def main() -> int:
             check(static > 0 and static == inside,
                   "static friction did not hold the resting masses")
 
+    # b. the adjoint kernels against their plain versions, small scenes
+    for variant in VARIANTS:
+        adjoint_vs_plain(*variant_scene(titan, variant), 20, variant)
+
     # 3. the main paths through the public API, then kernel vs plain from
     # each one's landed (contact) state; 4. timing from that state
-    kernels = []
+    kernels, landed = [], []
     for name, make, nx in (("bench 43^3", bench_scene, 43),
                            ("entry 20^3", entry_scene, 20)):
         launches, (shape, state) = drive(make(titan), name, 3.5)
+        landed.append((name, shape, state))
         check(not shape.has_remainder and len(shape.stencil_deltas) == 13,
               f"{name}: the scene did not bucket into 13 families")
         err, _ = kernel_vs_plain(shape, state, 200, f"{name} landed")
@@ -401,6 +792,27 @@ def main() -> int:
             replaces="titan_tpu/ops/pallas_step.py:185",
             launches=launches, max_abs_err=err,
             **time_path(name, shape, state), library_ms=None))
+
+    # c. the gradient path from each landed state; d. system id at 43^3;
+    # e. timing
+    for i, (name, shape, state) in enumerate(landed):
+        tr_launches, bwd_launches, (tr_err, abs_err, rel_err) = grad_path(
+            name, shape, state)
+        if i == 0:
+            system_id(shape, state)
+        tr_t, bwd_t = time_adjoint(name, shape, state, fast=i == 0)
+        for kname, line, n_launch, t in (
+                ("adjoint_trace", 1283, tr_launches, tr_t),
+                ("adjoint_bwd", 1384, bwd_launches, bwd_t)):
+            kernels.append(dict(
+                name=f"{kname} ({name})", route="cuda",
+                source="titan_tpu_torch/csrc/adjoint.cu",
+                replaces=f"titan_tpu/ops/adjoint.py:{line}",
+                launches=n_launch,
+                max_abs_err=tr_err if kname == "adjoint_trace" else abs_err,
+                **({} if kname == "adjoint_trace"
+                   else dict(max_rel_err=rel_err)),
+                **t, library_ms=None))
 
     # 5. result lines
     smi = subprocess.run(

@@ -43,7 +43,8 @@ def test_no_jax_import(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, titan_tpu_torch, titan_tpu_torch.ops.fused_step, "
-            "titan_tpu_torch.runtime.simulation; "
+            "titan_tpu_torch.runtime.simulation, titan_tpu_torch.diff, "
+            "titan_tpu_torch.ops.adjoint; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

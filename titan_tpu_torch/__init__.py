@@ -3,8 +3,9 @@
 The same ``Simulation`` / ``Mass`` / ``Spring`` / ``Container`` API as the
 JAX package, running on an NVIDIA GPU by default (``SimConfig.device``).
 Scenes inside the fused kernel's envelope step through the hand-written
-CUDA kernel ``csrc/fused_step.cu``; the kernel is built with ``nvcc`` at
-first use.  This package imports neither JAX nor ``titan_tpu``.
+CUDA kernel ``csrc/fused_step.cu``, and ``diff.grad_rollout`` differentiates
+them through the adjoint kernels of ``csrc/adjoint.cu``; the kernels are
+built with ``nvcc`` at first use.  This package imports neither JAX nor ``titan_tpu``.
 
     import titan_tpu_torch as titan
     sim = titan.Simulation()                    # SimConfig(device="cuda")
@@ -27,5 +28,6 @@ from .config import (  # noqa: F401
 from .entities import Mass, Spring  # noqa: F401
 from .containers import Container, Cube, Lattice, Beam, RobotLink  # noqa: F401
 from .runtime.simulation import Simulation  # noqa: F401
+from . import diff  # noqa: F401  (differentiable rollouts)
 
 __version__ = "0.1.0"

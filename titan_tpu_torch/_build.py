@@ -4,8 +4,9 @@ Each source under ``csrc/`` is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes``.  The build happens at first use, never at import, into
 ``titan_tpu_torch/_build/`` (listed in ``.gitignore``); a library's file name
-carries a hash of its source and flags, so an edited source is never served
-a stale build.
+carries a hash of its source, of every header under ``csrc/`` that the
+source includes (directly or through another header), and of the flags, so
+an edited source or shared header is never served a stale build.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,11 +44,29 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes with
+    ``#include "..."``, transitively, in first-seen order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, verbose: bool = False) -> str:

@@ -4,8 +4,9 @@ Counterpart of ``titan_tpu/ops/forces.py`` for the subset on the port's
 path.  All functions are pure: they consume and produce ``[3, N]``
 component-major tensors and never write into their inputs.  Norms are
 sqrt + divide, as the JAX package computes them on the CPU
-(``titan_tpu/ops/forces.py::use_rsqrt``).  Local constraints, magnets and
-SEGMENT scatter are later slices of the port.
+(``titan_tpu/ops/forces.py::use_rsqrt``), and every norm goes through
+``_safe_norm`` so that autograd through the step stays finite.  Local
+constraints, magnets and SEGMENT scatter are later slices of the port.
 """
 
 from __future__ import annotations
@@ -19,6 +20,16 @@ from ..config import (ACTIVE_CONTRACT_THEN_EXPAND, ACTIVE_EXPAND_THEN_CONTRACT,
 from ..state import GlobalConstraints, MassState, SpringState, Topology
 
 Tensor = torch.Tensor
+
+
+def _safe_norm(sq: Tensor) -> Tensor:
+    """sqrt of a sum of squares, gradient-safe at 0
+    (``titan_tpu/ops/forces.py::_safe_norm``).  d sqrt / dx is infinite at
+    0, and a ``torch.where`` that masks the value afterwards still sends
+    inf * 0 = NaN back in reverse mode; guarding the operand keeps the
+    forward values bitwise the same and the gradient zero there."""
+    pos = sq > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, sq, 1.0)), 0.0)
 
 
 def _inv_norm(length: Tensor) -> Tensor:
@@ -54,7 +65,7 @@ def spring_forces(masses: MassState, springs: SpringState, t: Tensor,
     the right endpoint and -f at the left, new rest [S])."""
     left, right = springs.left.long(), springs.right.long()
     d = masses.pos[:, right] - masses.pos[:, left]
-    length = torch.sqrt(torch.sum(d * d, dim=0))
+    length = _safe_norm(torch.sum(d * d, dim=0))
     unit = d * _inv_norm(length)
     pair_valid = springs.valid & masses.valid[left] & masses.valid[right]
     rest = springs.rest
@@ -84,7 +95,7 @@ def stencil_spring_forces(masses: MassState, st, deltas: tuple, t: Tensor,
     new_rest = []
     for fi, d in enumerate(deltas):
         diff = torch.roll(pos, -d, dims=-1) - pos               # right - left
-        length = torch.sqrt(torch.sum(diff * diff, dim=0))
+        length = _safe_norm(torch.sum(diff * diff, dim=0))
         unit = diff * _inv_norm(length)
         pair_ok = st.mask[fi]
         if not all_valid:
@@ -145,13 +156,13 @@ def apply_contact_plane(f: Tensor, pos: Tensor, vel: Tensor, normal: Tensor,
         f_n = fn_mag * nb
         has_friction = (fs > 0) | (fk > 0)
         v_perp = vel - _vdot(vel, normal) * nb
-        v_norm = torch.sqrt(torch.sum(v_perp * v_perp, dim=0))
+        v_norm = _safe_norm(torch.sum(v_perp * v_perp, dim=0))
         kinetic = v_norm > 1e-16
         fn_abs = torch.abs(fn_mag)
         safe_vn = torch.where(kinetic, v_norm, 1.0)
         f_kin = f - v_perp * (fk * fn_abs / safe_vn)
         f_perp = f - f_n
-        fp_norm = torch.sqrt(torch.sum(f_perp * f_perp, dim=0))
+        fp_norm = _safe_norm(torch.sum(f_perp * f_perp, dim=0))
         f_sta = torch.where(fs * fn_abs > fp_norm, f - f_perp, f)
         f_fric = torch.where(kinetic, f_kin, f_sta)
         f = torch.where(inside & has_friction, f_fric, f)
@@ -164,7 +175,7 @@ def apply_ball(f: Tensor, pos: Tensor, center: Tensor, radius: Tensor,
     """One global ball: radial penalty inside it (reference
     CudaBall::applyForce, object.cu:56-59), zero at dist == 0."""
     d = pos - center[:, None]
-    dist = torch.sqrt(torch.sum(d * d, dim=0))
+    dist = _safe_norm(torch.sum(d * d, dim=0))
     safe = torch.where(dist > 0, dist, 1.0)
     push = torch.where((dist <= radius) & (dist > 0), normal_coeff / safe, 0.0)
     return f + d * push

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -58,7 +59,9 @@ def prep_invariants(shape: SceneShape, state: SimState) -> dict:
     validity folded into k / damping / arate (validity changes only at a
     re-marshal), breathing sign and frequency, inverse mass, the frozen
     mask (fixed or invalid), the constant force m g + extern, the
-    [dt, t] scalars and the plane / ball tables."""
+    [dt, t] scalars and the plane / ball tables, and ``pair_ok`` (where a
+    spring exists between two valid masses), which the adjoint masks its
+    k / damping / rate gradients with."""
     m = state.masses
     dtype = m.pos.dtype
     pair_ok = state.stencil.mask
@@ -69,6 +72,7 @@ def prep_invariants(shape: SceneShape, state: SimState) -> dict:
     st = state.stencil
     styp = st.type
     inv = dict(
+        pair_ok=pair_ok,
         k_eff=torch.where(pair_ok, st.k, 0.0),
         damp_eff=torch.where(pair_ok, st.damping, 0.0),
         bsign=torch.where(
@@ -127,10 +131,12 @@ def _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest):
 
 
 def fused_chunk_plain(shape: SceneShape, state: SimState,
-                      n_steps: int) -> SimState:
+                      n_steps: int, trace: list = None) -> SimState:
     """Plain PyTorch version of the fused kernel: ``n_steps`` steps of the
     TPU kernel body (``pallas_step.py::_build_kernel``), sqrt + divide
-    norms, on whatever device ``state`` lives on."""
+    norms, on whatever device ``state`` lives on.  With a ``trace`` list,
+    each step's input (pos, vel) is appended to it: the plain version of
+    the adjoint's trace kernel (``ops/adjoint.py::trace_run_plain``)."""
     cfg = shape.config
     inv = prep_invariants(shape, state)
     m = state.masses
@@ -193,8 +199,11 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
             dvec = pos - balls[b, :3][:, None]
             dist = torch.sqrt(torch.sum(dvec * dvec, dim=0))
             safe = torch.where(dist > 0, dist, 1.0)
-            push = torch.where((dist <= balls[b, 3]) & (dist > 0), nc / safe,
-                               0.0)
+            # a tensor numerator: PyTorch evaluates float / tensor as
+            # reciprocal(tensor) * float, two roundings where the kernel
+            # has one
+            push = torch.where((dist <= balls[b, 3]) & (dist > 0),
+                               safe.new_full((), nc) / safe, 0.0)
             f_acc = f_acc + dvec * push
         if shape.has_drag:
             vn = torch.sqrt(torch.sum(vel * vel, dim=0))
@@ -204,6 +213,8 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
     pos, vel, acc = m.pos, m.vel, m.acc
     rest = state.stencil.rest
     for step in range(n_steps):
+        if trace is not None:
+            trace.append(torch.cat([pos, vel]))
         t_base = t0 + step * dt
         if cfg.integrator is Integrator.RK2:
             f1, rest = compute_forces(pos, vel, t_base, rest)
@@ -261,20 +272,28 @@ def _checked(name, t, shape, dtype=torch.float32):
     return t.data_ptr()
 
 
-def _fused_chunk_cuda(shape: SceneShape, state: SimState,
-                      n_steps: int) -> SimState:
-    from .. import _build
-    lib = _build.load("fused_step")
-    fn = lib.titan_fused_chunk
-    fn.argtypes = [ctypes.POINTER(_ChunkArgs), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+@functools.lru_cache(maxsize=None)
+def deltas_on(deltas: tuple, device: torch.device) -> torch.Tensor:
+    """The stencil deltas as an int32 tensor on ``device``, made once per
+    scene layout: every launch reads them, and each fresh copy to the card
+    would wait for the host."""
+    return torch.tensor(deltas, dtype=torch.int32, device=device)
 
+
+def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
+                inv: dict = None):
+    """(``_ChunkArgs``, what it points into) for ``n_steps`` steps of the
+    step kernel from ``state``; the second item holds every tensor the
+    launch reads or writes, starting with the invariants and the outputs
+    pos, vel, acc and rest.  ``inv`` is ``prep_invariants(shape, state)``
+    where the caller has it already."""
     cfg = shape.config
     m = state.masses
     dev = m.pos.device
     n, nf = shape.n_masses, len(shape.stencil_deltas)
-    inv = prep_invariants(shape, state)
-    deltas = torch.tensor(shape.stencil_deltas, dtype=torch.int32, device=dev)
+    if inv is None:
+        inv = prep_invariants(shape, state)
+    deltas = deltas_on(shape.stencil_deltas, dev)
     vec, fam = (3, n), (nf, n)
     empty = lambda s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     pos_out, vel_out, acc_out = empty(vec), empty(vec), empty(vec)
@@ -282,9 +301,6 @@ def _fused_chunk_cuda(shape: SceneShape, state: SimState,
     rest_in = state.stencil.rest
     rest_out = empty(fam) if shape.has_actuated else rest_in
     rest_tmp = empty(fam) if shape.has_actuated else rest_in
-    # The temporaries here are freed when this function returns, while the
-    # kernels may still be running: safe, because the caching allocator
-    # reuses memory freed on this stream only for later work on it.
 
     a = _ChunkArgs()
     a.n, a.nf, a.n_steps = n, nf, n_steps
@@ -319,12 +335,28 @@ def _fused_chunk_cuda(shape: SceneShape, state: SimState,
     (a.pos_tmp, a.vel_tmp, a.acc_tmp, a.pos_half,
      a.vel_half) = (t.data_ptr() for t in scratch)
     a.rest_out, a.rest_tmp = rest_out.data_ptr(), rest_tmp.data_ptr()
+    # The temporaries are freed when the caller drops them, while the
+    # kernels may still be running: safe, because the caching allocator
+    # reuses memory freed on this stream only for later work on it.
+    return a, (inv, pos_out, vel_out, acc_out, rest_out, deltas, scratch,
+               rest_tmp)
 
-    rc = fn(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+
+def _fused_chunk_cuda(shape: SceneShape, state: SimState,
+                      n_steps: int) -> SimState:
+    from .. import _build
+    lib = _build.load("fused_step")
+    fn = lib.titan_fused_chunk
+    fn.argtypes = [ctypes.POINTER(_ChunkArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    a, keep = _chunk_args(shape, state, n_steps)
+    inv, pos_out, vel_out, acc_out, rest_out = keep[:5]
+    rc = fn(ctypes.byref(a),
+            torch.cuda.current_stream(pos_out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
-    fused_chunk.launches += n_steps * (2 if cfg.integrator is Integrator.RK2
-                                       else 1)
+    fused_chunk.launches += n_steps * (2 if shape.config.integrator
+                                       is Integrator.RK2 else 1)
     return _finish_chunk(shape, state, inv, n_steps, pos_out, vel_out,
                          acc_out, rest_out)
 
