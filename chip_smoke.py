@@ -46,6 +46,45 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (torch.profiler) beside its bound and its wrapper's CUDA-event time,
      the plain versions, and fast_rollout (eager-recompute backward) at
      43^3;
+  f. build csrc/magnets.cu (pairwise field) and csrc/magnets_grid.cu (grid
+     field) beside the others, all four nvcc started together;
+  g. each field kernel against its plain version (forces.magnet_forces,
+     magnets_grid.grid_magnet_forces_plain) at the same positions on small
+     scenes -- 400 random magnets, an overflowing cell (cap 8, where the
+     grid field must also be the binned pass's), deleted and
+     zero-parameter sources, edge-clipped masses, a 16-link RobotLink --
+     within TOL_FIELD * max |plain|;
+  h. the fused step fed the plain field against fused_chunk_plain fed the
+     same field, bitwise (RobotLink under Euler, Verlet and RK2; a
+     2,000-particle grid swarm);
+  i. each whole magnet route (field kernel + fused step) against the plain
+     route over 100 steps, Euler, Verlet and RK2, within TOL_ROUTE, the
+     field and step launches equal to the force passes; and a binned scene
+     whose magnet_grid flag the JAX package's TPU rule turns off
+     (use_pallas=False, cap 12) still on the grid kernel, no binned pass;
+  j. the two magnet main paths through the public API, start -> wait ->
+     getAll -> resume at 4 breakpoints -> stop, every count set to 0 just
+     before and read just after: 1,024 RobotLinks (scripts/
+     tpu_robotlink_ab.py's build, 2,048 masses, 0.05 s at dt 1e-5; the
+     pairwise field) and examples/magnetic_swarm.py's 50,000 particles
+     (0.02 s at dt 1e-5; the grid field).  The field kernel's and the step
+     kernel's launches must equal the force passes, with no binned pass
+     and no eager step; the swarm's mean height must fall, and in the
+     RobotLink scene every mass with another link inside the cutoff must
+     feel that link's field.  From each final state, the fused step fed the
+     plain field against its plain version (bitwise) and the field kernel
+     against its plain version, each element within TOL_FIELD * the sum of
+     |terms| it adds up (the RobotLink field also with only the even, then
+     only the odd, masses valid: no link partner, whose collapsed 1/r^2
+     pull hides every other term);
+  k. time each path: the whole route per step (CUDA events), each kernel's
+     device time per launch (torch.profiler) beside its bound, the plain
+     versions, and the host time of the grid setup per pass (grid_setup
+     timed alone);
+  l. gradient routing: diff.grad_rollout over 20 steps of a 16-link scene
+     runs fast_rollout (the adjoint refuses magnets); its backward must
+     launch no adjoint and no magnet kernel, run 20 eager steps and give
+     finite gradients;
   5. print the kernels line (one entry per kernel and path), the card's
      name and power limit, and last the result line.
 
@@ -730,6 +769,691 @@ def time_adjoint(name, shape, state, fast=False):
                  bound_ms=bb, bound_by=bby))
 
 
+# ---------------------------------------------------------------------------
+# Magnets (phases f-l): the pairwise and grid field kernels, the fused
+# step's magnet route, the RobotLink and magnetic-swarm main paths
+# ---------------------------------------------------------------------------
+
+# field kernel vs its plain version at the same positions:
+# max |kernel - plain| <= TOL_FIELD * max |plain| (f32 pair sums in another
+# order: the pairwise kernel's 32 lane partial sums and shuffle tree)
+TOL_FIELD = 2e-5
+# a whole magnet route (field kernel + fused step) against the plain route
+# over 100 steps: |d| <= TOL_ROUTE (1 + |plain|) on pos and vel; the
+# pairwise field's other sum order, carried through 100 steps of contact
+TOL_ROUTE = 1e-4
+# ops of one candidate magnet pair: the test every pair needs (difference
+# 3, |d|^2 5, sqrt, cutoff compare) and the force of a pair inside the
+# cutoff (shell 4, pull 2, coefficient 2, accumulate 6); and the bytes per
+# mass that either field must move (position and four magnet parameters
+# as f32 and the validity flag as one byte read, the field written)
+OPS_PAIR_TEST, OPS_PAIR_FORCE, FIELD_BYTES_PER_MASS = 10, 14, 41
+
+
+def magnet_counters():
+    """The objects that carry the magnet paths' launch and pass counts."""
+    from titan_tpu_torch.ops import fused_step, magnets, magnets_grid
+    from titan_tpu_torch.ops import step as tstep
+    return dict(fused=fused_step.fused_chunk,
+                pairwise=magnets.pairwise_magnet_field,
+                grid=magnets_grid.grid_magnet_forces,
+                binned=magnets.binned_magnet_forces,
+                eager=tstep.run_eager)
+
+
+def zero_magnet_counts():
+    c = magnet_counters()
+    for k in ("fused", "pairwise", "grid"):
+        c[k].launches = 0
+    c["binned"].passes = 0
+    c["eager"].steps = 0
+
+
+def read_magnet_counts():
+    c = magnet_counters()
+    return dict(fused=c["fused"].launches, pairwise=c["pairwise"].launches,
+                grid=c["grid"].launches, binned=c["binned"].passes,
+                eager=c["eager"].steps)
+
+
+def link_sim(titan, n_links, magnetic_force=1.0, spread=1.0, z=1.2,
+             dt=1e-5, **cfg):
+    """``n_links`` RobotLinks as scripts/tpu_robotlink_ab.py builds them
+    (seed 0, positions U(-spread, spread)^3 + (0, 0, z), link 0.06 m, mass
+    0.1, lengths 0.08 / 0.04, rate 0.02, k 5000; odd links expand, even
+    ones contract) over a 0.4 / 0.6 friction plane, g = -9.8."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    sim = titan.Simulation(titan.SimConfig(device="cuda", **cfg))
+    links = []
+    for _ in range(n_links):
+        p = rng.uniform(-spread, spread, 3) + [0, 0, z]
+        links.append(sim.createRobotLink(
+            titan.Vec(*p), titan.Vec(*(p + [0.06, 0, 0])), 0.1, 0.08, 0.04,
+            0.02, 5000.0, magnetic_force))
+    for i, link in enumerate(links):
+        (link.expand if i % 2 else link.contract)()
+    sim.createPlane(titan.Vec(0, 0, 1), 0, 0.4, 0.6)
+    sim.setGlobalAcceleration(titan.Vec(0, 0, -9.8))
+    sim.setTimeStep(dt)
+    return sim
+
+
+def swarm_sim(titan, n=50_000, dt=1e-5, **cfg):
+    """examples/magnetic_swarm.py at ``n`` particles: the store filled as
+    the example fills it (seed 0, ~4 particles per grid cell), plane z < 0,
+    drag 0.5, g = -9.8."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    sim = titan.Simulation(titan.SimConfig(
+        device="cuda", host_store_dtype="float32", **cfg))
+    spread = 0.5 * 0.14 * (n / 4.0) ** 0.5
+    st = sim._store
+    st.reserve_masses(n)
+    st.pos[:n] = rng.uniform(-spread, spread, (n, 3))
+    st.pos[:, 2] += spread + 0.5
+    st.valid[:n] = True
+    st.n_masses = n
+    st.m[:n] = 0.1
+    st.mag_rad[:n] = rng.uniform(0.01, 0.04, n)
+    st.mag_stiffness[:n] = rng.uniform(50, 200, n)
+    st.mag_maxf[:n] = 1e-4
+    st.mag_scale[:n] = 1.0
+    st.drag[:n] = 0.5
+    sim.createPlane(titan.Vec(0, 0, 1), 0)
+    sim.setGlobalAcceleration(titan.Vec(0, 0, -9.8))
+    sim.setTimeStep(dt)
+    return sim
+
+
+def cloud_sim(titan, n=400, seed=0, spread=1.5, edit=None):
+    """tests/test_magnets_binned.py's random magnet cloud on the card."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sim = titan.Simulation(titan.SimConfig(device="cuda",
+                                           magnet_binned_threshold=10**9))
+    st = sim._store
+    for _ in range(n):
+        sim.createMass(titan.Vec(*rng.uniform(-spread, spread, 3)))
+    st.mag_rad[:n] = rng.uniform(0.01, 0.05, n)
+    st.mag_stiffness[:n] = rng.uniform(100, 500, n)
+    st.mag_maxf[:n] = rng.uniform(0.0, 2.0, n)
+    st.mag_scale[:n] = rng.choice([0.0, 1.0], n)
+    if edit == "deleted_zero_param":
+        st.valid[[7, 123]] = False
+        for i in (3, 50, 200):
+            st.mag_rad[i] = st.mag_stiffness[i] = 0.0
+            st.mag_maxf[i] = st.mag_scale[i] = 0.0
+        st.pos[300] = (2.5, 2.5, 0.0)
+        st.mag_rad[300], st.mag_stiffness[300] = 0.06, 200.0
+        st.pos[301] = (2.53, 2.5, 0.0)
+        st.mag_rad[301] = st.mag_stiffness[301] = 0.0
+        st.mag_maxf[301] = st.mag_scale[301] = 0.0
+    elif edit == "edge":
+        # clipped into the grid's edge cell, far outside its +-17.9 m span
+        st.pos[:n] = np.asarray([-30.0, -30.0, 0.0]) \
+            + rng.uniform(0, 0.3, (n, 3))
+        st.mag_rad[:n] = 0.04
+    return sim
+
+
+def marshalled(sim):
+    sim._T = 0.0
+    sim._marshal()
+    return sim._shape, sim._state
+
+
+def field_vs_plain(titan):
+    """Phase g: each field kernel against its plain version at the same
+    positions on small scenes.  Returns each kernel's largest max
+    |kernel - plain| and largest max |kernel - plain| / max |plain|."""
+    import torch
+    from titan_tpu_torch.ops import forces as F
+    from titan_tpu_torch.ops import magnets, magnets_grid
+    cut = 0.14
+    scenes = [("400 random magnets", cloud_sim(titan), 16),
+              ("overflow (64 in ~one cell, cap 8)",
+               cloud_sim(titan, n=64, seed=4, spread=0.01), 8),
+              ("deleted and zero-parameter sources",
+               cloud_sim(titan, seed=5, edit="deleted_zero_param"), 16),
+              ("edge-clipped masses", cloud_sim(titan, n=96, seed=6,
+                                                edit="edge"), 128),
+              ("16-link RobotLink", link_sim(titan, 16, spread=0.15,
+                                             z=0.2), 16)]
+    worst = dict(pairwise=(0.0, 0.0), grid=(0.0, 0.0))
+    for label, sim, cap in scenes:
+        _, state = marshalled(sim)
+        m = state.masses
+        pw = magnets.pairwise_magnet_field(m, cut)
+        pw_plain = F.magnet_forces(m, cut)
+        gr = magnets_grid.grid_magnet_forces(m, cut, cap)
+        gr_plain = magnets_grid.grid_magnet_forces_plain(m, cut, cap)
+        torch.cuda.synchronize()
+        out = []
+        for kname, a, b in (("pairwise", pw, pw_plain),
+                            ("grid", gr, gr_plain)):
+            check(bool(torch.isfinite(a).all()), f"{label}: {kname} field "
+                  "not finite")
+            d = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            worst[kname] = (max(worst[kname][0], d),
+                            max(worst[kname][1], d / max(scale, 1e-30)))
+            out.append(f"{kname} max |d| {d:.3e} of max |plain| "
+                       f"{scale:.3e}")
+            check(d <= TOL_FIELD * scale, f"{label}: {kname} kernel "
+                  f"disagrees with its plain version: {d:.3e} > "
+                  f"{TOL_FIELD} * {scale:.3e}")
+            check(scale > 0, f"{label}: {kname} field is all zero")
+        if cap == 8:
+            # the overflow rule: the grid field is the binned pass's
+            a_cells = sim._shape.n_masses
+            bn = magnets.binned_magnet_forces(m, cut, a_cells, cap)
+            d = float((gr_plain - bn).abs().max())
+            out.append(f"grid plain vs binned pass max |d| {d:.3e}")
+            check(d <= TOL_FIELD * float(bn.abs().max()),
+                  f"{label}: grid plain differs from the binned pass")
+        print(f"field kernels vs plain [{label}]: " + "; ".join(out)
+              + f" (tolerance {TOL_FIELD} * max |plain|)")
+    return worst
+
+
+def fed_field_bitwise(titan):
+    """Phase h: the fused step fed a given field (the plain one) against
+    fused_chunk_plain fed the same field, 50 steps: bitwise."""
+    import torch
+    from titan_tpu_torch.ops import fused_step
+    cases = []
+    for integ in ("EULER", "VERLET", "RK2"):
+        cases.append((f"16-link RobotLink, {integ}", link_sim(
+            titan, 16, magnetic_force=0.02, spread=0.15, z=0.2, dt=1e-4,
+            integrator=getattr(titan.Integrator, integ))))
+    cases.append(("2,000-particle swarm, grid", swarm_sim(
+        titan, 2000, dt=1e-4, magnet_binned_threshold=1,
+        magnet_grid_threshold=1)))
+    for label, sim in cases:
+        shape, state = marshalled(sim)
+        check(fused_step.fused_reject_reason(shape) is None, label)
+        field = fused_step.magnet_field_fn(shape, state, plain=True)
+        got = fused_step._fused_chunk_cuda(shape, state, 50, field=field)
+        want = fused_step.fused_chunk_plain(shape, state, 50, field=field)
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(got.masses, f),
+                               getattr(want.masses, f))
+                   for f in ("pos", "vel", "acc")) \
+            and torch.equal(got.stencil.rest, want.stencil.rest)
+        d = float((got.masses.vel - want.masses.vel).abs().max())
+        print(f"fused step fed the plain field vs fused_chunk_plain fed it "
+              f"[{label}, 50 steps]: {'bitwise' if same else 'DIFFERENT'}"
+              f" (max |d| vel {d:.3e})")
+        check(same, f"{label}: the fused step fed a field differs from its "
+              "plain version")
+
+
+def routes_vs_plain(titan):
+    """Phase i: each whole magnet route (field kernel + fused step) against
+    the plain route over 100 steps, for Euler, Verlet and RK2, and once
+    for a binned scene whose magnet_grid flag the JAX package's TPU rule
+    turns off (use_pallas=False, a cell cap of 12): the fused step takes
+    the grid kernel all the same.  Returns the largest max |d| of each
+    kernel's route."""
+    import torch
+    from titan_tpu_torch.ops import fused_step
+    worst = {}
+    cases = [(r, i) for r in ("pairwise", "grid")
+             for i in ("EULER", "VERLET", "RK2")]
+    cases.append(("grid, magnet_grid off", "EULER"))
+    for route, integ in cases:
+        kernel = route.split(",")[0]
+        kw = dict(dt=1e-4, integrator=getattr(titan.Integrator, integ))
+        if kernel == "pairwise":
+            sim = link_sim(titan, 16, magnetic_force=0.02, spread=0.15,
+                           z=0.2, **kw)
+        else:
+            if route != "grid":
+                kw.update(use_pallas=False, magnet_cell_cap=12)
+            sim = swarm_sim(titan, 2000, magnet_binned_threshold=1,
+                            magnet_grid_threshold=1, **kw)
+        shape, state = marshalled(sim)
+        check(bool(shape.magnet_binned) == (kernel == "grid")
+              and bool(shape.magnet_grid) == (route == "grid"), route)
+        zero_magnet_counts()
+        got = fused_step.fused_chunk(shape, state, 100)
+        counts = read_magnet_counts()
+        want = fused_step.fused_chunk_plain(shape, state, 100)
+        torch.cuda.synchronize()
+        passes = 100 * (2 if integ == "RK2" else 1)
+        check(counts[kernel] == passes == counts["fused"]
+              and counts["binned"] == 0,
+              f"{route} {integ}: launches {counts}, {passes} passes")
+        errs = []
+        for f in ("pos", "vel"):
+            a, b = getattr(got.masses, f), getattr(want.masses, f)
+            d = (a - b).abs()
+            check(bool(torch.isfinite(a).all()), f"{route}: non-finite")
+            errs.append(float(d.max()))
+            check(bool((d <= TOL_ROUTE * (1 + b.abs())).all()),
+                  f"{route} {integ}: route differs from plain by "
+                  f"{errs[-1]:.3e} in {f}")
+        worst[kernel] = max(worst.get(kernel, 0.0), *errs)
+        print(f"{route} route vs plain route [{integ}, 100 steps]: max "
+              f"|d| pos {errs[0]:.3e}, vel {errs[1]:.3e} (tolerance "
+              f"{TOL_ROUTE} (1 + |plain|)); {counts[kernel]} field and "
+              f"{counts['fused']} step launches, {counts['binned']} binned "
+              "passes")
+    return worst
+
+
+def drive_magnets(sim, name, t_total, field_kernel):
+    """A magnet main path through the public API: start -> wait -> getAll
+    -> resume at 4 breakpoints -> stop, with every count set to 0 just
+    before and read just after.  The field kernel's and the step kernel's
+    launches must equal the force passes, with no binned pass and no eager
+    step.  Returns (counts, steps, the final (shape, state), the mean z
+    before and after, wall s)."""
+    import numpy as np
+    import torch
+    n = sim._store.n_masses
+    z0 = float(sim._store.pos[:n, 2].mean())
+    t0 = time.perf_counter()
+    zero_magnet_counts()
+    sim.start()
+    for k in range(4):
+        sim.wait(t_total / 4)
+        sim.getAll()
+        if k < 3:
+            sim.resume()
+    final = (sim._shape, sim._snapshot())
+    t_end = sim.time()
+    sim.stop()
+    torch.cuda.synchronize()
+    counts = read_magnet_counts()
+    wall = time.perf_counter() - t0
+    steps = int(round(t_end / sim.getTimeStep()))
+    pos = sim._store.pos[:n]
+    z1 = float(pos[:, 2].mean())
+    other = "grid" if field_kernel == "pairwise" else "pairwise"
+    print(f"main path {name}: {n} masses, {steps} steps to t={t_end:.5f} s "
+          f"in {wall:.2f} s wall; launches: fused_step {counts['fused']}, "
+          f"{field_kernel} field {counts[field_kernel]}, other field "
+          f"kernel {counts[other]}"
+          f", binned passes {counts['binned']}, eager steps "
+          f"{counts['eager']}; mean z {z0:.5f} -> {z1:.5f}")
+    check(abs(t_end - t_total) < 1e-9, f"{name}: time {t_end}")
+    check(counts["fused"] == steps == counts[field_kernel],
+          f"{name}: launches {counts} for {steps} force passes")
+    check(counts["binned"] == 0 and counts["eager"] == 0,
+          f"{name}: binned passes or eager steps ran: {counts}")
+    check(np.isfinite(pos).all(), f"{name}: non-finite state")
+    return counts, steps, final, (z0, z1), wall
+
+
+def pair_terms(m, cut):
+    """The plain pairwise field's terms on masses ``m`` (as
+    forces.magnet_forces computes them, all N^2 at once): (sum over the
+    sources of |term|, [3, N]; the receivers with a source at a nonzero
+    distance inside the cutoff, [N] bool; the number of such pairs)."""
+    import torch
+    n = m.pos.shape[1]
+    idx = torch.arange(n, device=m.pos.device)
+    e = m.pos[:, :, None] - m.pos[:, None, :]
+    d2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2]
+    dist = torch.sqrt(d2)
+    ok = ((dist < cut) & (idx[:, None] != idx[None, :])
+          & m.valid[:, None] & m.valid[None, :])
+    inter = dist - (m.mag_rad[:, None] + m.mag_rad[None, :])
+    shell = torch.where(inter < 0, inter.abs() * m.mag_stiffness[:, None],
+                        0.0)
+    attract = (m.mag_scale[None, :] * m.mag_maxf[:, None]
+               / torch.clamp(d2, min=1e-12))
+    coeff = torch.where(ok, (shell - attract)
+                        / torch.where(dist > 0, dist, 1.0), 0.0)
+    inside = ok & (d2 > 0)
+    return ((e.abs() * coeff.abs()[None]).sum(2), inside.any(1),
+            int(inside.sum()))
+
+
+def pairwise_full_size(shape, state, name):
+    """The pairwise kernel against its plain version at the RobotLink
+    path's final state, each element within TOL_FIELD * the sum of |terms|
+    it adds up (the rounding of a sum taken in another order): with every
+    mass valid, then with only the even and only the odd masses valid, so
+    that no mass has its link partner as a source (a collapsed link's
+    1/r^2 pull, up to 1e12 N at the 1e-12 m^2 floor, hides every other
+    term of its ends).  The physical check rides on the last two: each
+    mass with a mass of another link inside the cutoff must feel a
+    nonzero field, and every other mass none.  Returns (max |d|, max |d| /
+    sum |terms|, masses near another link, of which feel a field, whether
+    all others feel none)."""
+    import dataclasses
+    import torch
+    from titan_tpu_torch.ops import forces as F
+    from titan_tpu_torch.ops import magnets
+    m = state.masses
+    cut = shape.config.magnet_cutoff
+    idx = torch.arange(m.pos.shape[1], device=m.pos.device)
+    worst = [0.0, 0.0]
+    n_near = n_felt = 0
+    alone_zero = True
+    for label, sel in (("every mass", m.valid),
+                       ("even masses", m.valid & (idx % 2 == 0)),
+                       ("odd masses", m.valid & (idx % 2 == 1))):
+        mm = dataclasses.replace(m, valid=sel)
+        a = magnets.pairwise_magnet_field(mm, cut)
+        b = F.magnet_forces(mm, cut)
+        s, near, _ = pair_terms(mm, cut)
+        d = (a - b).abs()
+        rel = float(torch.where(s > 0, d / torch.where(s > 0, s, 1.0),
+                                0.0).max())
+        worst = [max(worst[0], float(d.max())), max(worst[1], rel)]
+        print(f"{name}: pairwise field kernel vs plain at the final state "
+              f"[{label} valid]: max |d| {float(d.max()):.3e}, max |d| / "
+              f"sum |terms| {rel:.3e} (tolerance {TOL_FIELD}) over "
+              f"{int(near.sum())} receivers with a source inside the "
+              f"cutoff; max |plain| {float(b.abs().max()):.3e}")
+        check(bool((d <= TOL_FIELD * s).all()),
+              f"{name} [{label} valid]: full-size pairwise field disagrees")
+        if label != "every mass":
+            felt = a.abs().amax(0) > 0
+            n_near += int(near.sum())
+            n_felt += int((felt & near).sum())
+            alone_zero &= not bool((felt & sel & ~near).any())
+    return (*worst, n_near, n_felt, alone_zero)
+
+
+def grid_pairs(state, cap, cut):
+    """(candidate pairs, of which at a nonzero distance inside the cutoff)
+    that the grid kernel walks on this state: each valid receiver's 3 x 3
+    neighbour cells, the first ``cap`` sources of each."""
+    import torch
+    from titan_tpu_torch.ops import magnets_grid
+    G = magnets_grid.GRID_DIM
+    m = state.masses
+    n = m.pos.shape[1]
+    cell, starts, src = magnets_grid.grid_setup(m, cut)
+    starts = starts.long()
+    cell = cell.long()
+    real = cell < G * G
+    cx, cy = cell // G, cell % G
+    cand = torch.zeros((), dtype=torch.int64, device=m.pos.device)
+    near = torch.zeros_like(cand)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            x, y = cx + dx, cy + dy
+            ok = real & (x >= 0) & (x < G) & (y >= 0) & (y < G)
+            cc = torch.where(ok, x * G + y, 0)
+            s0 = starts[cc]
+            cnt = torch.where(ok, torch.clamp(starts[cc + 1] - s0, max=cap),
+                              0)
+            cand += cnt.sum()
+            for k in range(cap):
+                e = m.pos - src[:3, torch.clamp(s0 + k, max=n - 1)]
+                d2 = (e * e).sum(0)
+                near += ((k < cnt) & (d2 > 0)
+                         & (torch.sqrt(d2) < cut)).sum()
+    return int(cand), int(near)
+
+
+def field_bound_ms(n, candidates, inside):
+    """(ms, "bytes" or "operations"): the least time of one field pass
+    over ``n`` masses, ``candidates`` pairs tested of which ``inside``
+    are inside the cutoff."""
+    tb = FIELD_BYTES_PER_MASS * n / HBM_BYTES_PER_S * 1e3
+    to = ((OPS_PAIR_TEST * candidates + OPS_PAIR_FORCE * inside)
+          / F32_FLOPS_PER_S * 1e3)
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def profile_route(name, fn, n_steps, names):
+    """fn() under torch.profiler: prints the device's busy share of the
+    wall time, the device time of the kernels that take the most of it, and
+    the host operations that take the most host time; returns
+    {kernel: (device us, launches)} for each kernel in ``names``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev, kern, out = 0.0, [], {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        if e.device_type == torch.autograd.DeviceType.CUDA and t:
+            dev += t
+            kern.append((t, e.key, e.count))
+        for k in names:
+            if k in e.key and e.count and t:
+                out[k] = (t, e.count)
+    kern.sort(reverse=True)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    print(f"profile {name} ({n_steps} steps, profiler on): wall "
+          f"{wall_us:.0f} us, device busy {dev:.0f} us "
+          f"({100 * dev / wall_us:.1f}%); device time: "
+          + ", ".join(f"{k[:40]} {t:.0f} us x{c}" for t, k, c in kern[:5])
+          + "; host self time: "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total:.0f} us x{e.count}"
+                      for e in host[:8]))
+    return out
+
+
+def time_magnet_path(name, shape, state, field_kernel, n_steps):
+    """Phase k from the path's final state: ms per step of the whole route
+    (CUDA events), each kernel's device time per launch (torch.profiler),
+    the field's plain version, the fused step's plain version fed a fixed
+    field, the bounds, and the host time of the grid setup per pass
+    (``grid_setup`` enqueued alone, no synchronisation in between)."""
+    import torch
+    from titan_tpu_torch.ops import fused_step, magnets_grid
+    from titan_tpu_torch.ops import forces as F
+    cut = shape.config.magnet_cutoff
+    m = state.masses
+    n = shape.n_masses
+    kname = ("pairwise_magnet_kernel" if field_kernel == "pairwise"
+             else "grid_magnet_kernel")
+
+    def route(k):
+        fused_step.fused_chunk(shape, state, k)
+
+    route(20)
+    torch.cuda.synchronize()
+    step_ms = event_ms(route, n_steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    route(n_steps)
+    host_us = (time.perf_counter() - t0) / n_steps * 1e6
+    torch.cuda.synchronize()
+    if field_kernel == "grid":
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            magnets_grid.grid_setup(m, cut)
+        setup_us = (time.perf_counter() - t0) / n_steps * 1e6
+        torch.cuda.synchronize()
+    dev = profile_route(name, lambda: route(n_steps), n_steps,
+                        ("fused_step_kernel", kname))
+    per = {k: t / c for k, (t, c) in dev.items()}
+    if field_kernel == "pairwise":
+        plain_field = lambda k: [F.magnet_forces(m, cut)  # noqa: E731
+                                 for _ in range(k)]
+        n_valid = int(m.valid.sum())
+        pairs, inside = n_valid * (n_valid - 1), pair_terms(m, cut)[2]
+    else:
+        cap = shape.magnet_binned[1]
+        plain_field = lambda k: [  # noqa: E731
+            magnets_grid.grid_magnet_forces_plain(m, cut, cap)
+            for _ in range(k)]
+        pairs, inside = grid_pairs(state, cap, cut)
+    field_plain_ms = event_ms(plain_field, 2)
+    fixed = fused_step.magnet_field_fn(shape, state, plain=True)(m.pos)
+    fused_plain_ms = event_ms(lambda k: fused_step.fused_chunk_plain(
+        shape, state, k, field=lambda pos: fixed), 5)
+    field_bound = field_bound_ms(n, pairs, inside)
+    (step_bound, step_by), _, _ = bound_ms_per_step(shape, state, n_steps)
+    field_ms = per.get(kname, 0.0) / 1e3
+    fused_ms = per.get("fused_step_kernel", 0.0) / 1e3
+    print(f"timing {name}: {step_ms * 1e3:.3f} us/step for the whole route "
+          f"(CUDA events, {n_steps}-step chunk; host enqueue "
+          f"{host_us:.3f} us/step"
+          + (f", of which the grid setup's enqueue {setup_us:.3f} us/pass"
+             if field_kernel == "grid" else "") + ")")
+    print(f"timing {name}: torch.profiler device time per launch: "
+          + (", ".join(f"{k} {v:.3f} us" for k, v in per.items())
+             if per else "not measured (no device time recorded)")
+          + f"; {kname} bound {field_bound[0] * 1e3:.4f} us by "
+          f"{field_bound[1]} ({pairs} candidate pairs x {OPS_PAIR_TEST} "
+          f"ops + {inside} inside the cutoff x {OPS_PAIR_FORCE} more at 67 "
+          f"TFLOP/s; {FIELD_BYTES_PER_MASS * n} B at 3.35 TB/s); "
+          "fused_step bound "
+          f"{step_bound * 1e3:.4f} us/step by {step_by}; plain field "
+          f"{field_plain_ms * 1e3:.1f} us/pass, plain fused step "
+          f"{fused_plain_ms * 1e3:.1f} us/step")
+    check(field_ms > 0 and fused_ms > 0, f"{name}: the profiler recorded no "
+          "device time for the path's kernels")
+    return (dict(ms=field_ms, plain_ms=field_plain_ms,
+                 bound_ms=field_bound[0], bound_by=field_bound[1],
+                 candidate_pairs=pairs, pairs_inside_cutoff=inside),
+            dict(ms=fused_ms, path_ms=step_ms, plain_ms=fused_plain_ms,
+                 bound_ms=step_bound, bound_by=step_by,
+                 host_us_per_step=host_us,
+                 **({"setup_host_us_per_pass": setup_us}
+                    if field_kernel == "grid" else {})))
+
+
+def magnet_grad_routing(titan):
+    """Phase l: diff.grad_rollout over 20 steps of a 16-link scene.  The
+    adjoint refuses magnets, so it runs fast_rollout: the forward is the
+    fused chunk (with the pairwise kernel), the backward recomputes the
+    steps eagerly and launches no adjoint and no magnet kernel."""
+    import torch
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.ops.adjoint import adjoint_reject_reason
+    shape, state = marshalled(link_sim(titan, 16, magnetic_force=0.02,
+                                       spread=0.15, z=0.2, dt=1e-4))
+    check("magnets" in (adjoint_reject_reason(shape) or ""),
+          "the adjoint accepts a magnet scene")
+    fwd, tr, bwd, eager = counters()
+    leaves, st = grad_leaves(state)
+    wpos, wvel = grad_loss_weights(state)
+    zero_magnet_counts()
+    tr.launches = bwd.launches = 0
+    out = diff.grad_rollout(shape, st, 20)
+    torch.cuda.synchronize()
+    f_counts = read_magnet_counts()
+    f_adj = tr.launches + bwd.launches
+    zero_magnet_counts()
+    loss = torch.sum(out.masses.pos * wpos) + torch.sum(out.masses.vel * wvel)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    b_counts = read_magnet_counts()
+    b_adj = tr.launches + bwd.launches
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    print(f"gradient routing (16-link RobotLink, grad_rollout 20 steps): "
+          f"adjoint refuses ({adjoint_reject_reason(shape)}); forward: "
+          f"fused_step {f_counts['fused']}, pairwise field "
+          f"{f_counts['pairwise']}, adjoint {f_adj}, eager steps "
+          f"{f_counts['eager']}; backward: pairwise field "
+          f"{b_counts['pairwise']}, grid field {b_counts['grid']}, adjoint "
+          f"{b_adj}, eager steps {b_counts['eager']}; gradients finite: "
+          f"{finite}; |d loss / d pos|max {float(grads[0].abs().max()):.3e}")
+    check(f_adj == 0 and b_adj == 0, "an adjoint kernel ran on a magnet "
+          "scene")
+    check(b_counts["pairwise"] == 0 and b_counts["grid"] == 0,
+          "a magnet kernel ran inside the backward")
+    check(b_counts["eager"] == 20, f"backward ran {b_counts['eager']} "
+          "eager steps, not 20")
+    check(finite and float(grads[0].abs().max()) > 0,
+          "magnet gradients are not finite or all zero")
+
+
+def magnet_phases(titan, kernels):
+    """Phases g-l; appends the magnet entries to ``kernels``."""
+    worst_field = field_vs_plain(titan)
+    fed_field_bitwise(titan)
+    worst_route = routes_vs_plain(titan)
+
+    # j. the two main paths; k. timing from each one's final state
+    paths = (("RobotLink 1,024 links", lambda: link_sim(titan, 1024), 0.05,
+              "pairwise", "magnet_pairwise", "csrc/magnets.cu",
+              "titan_tpu/ops/pallas_step.py:405"),
+             ("magnetic swarm 50k", lambda: swarm_sim(titan), 0.02, "grid",
+              "magnets_grid", "csrc/magnets_grid.cu",
+              "titan_tpu/ops/magnets_grid.py:64"))
+    for name, make, t_total, fk, kname, src, replaces in paths:
+        sim = make()
+        counts, steps, (shape, state), (z0, z1), wall = drive_magnets(
+            sim, name, t_total, fk)
+        if fk == "pairwise":
+            check(shape.n_masses == 2048 and not shape.magnet_binned
+                  and shape.stencil_deltas == (1,), f"{name}: {shape}")
+            full = pairwise_full_size(shape, state, name)
+            n_near, n_felt, far_ok = full[2:]
+            print(f"{name}: at t={t_total} s, with link partners left out "
+                  f"as sources, {n_near} masses have a mass of another "
+                  f"link inside the cutoff and {n_felt} of them feel a "
+                  f"field; all other masses feel none: {far_ok}")
+            check(n_near > 0 and n_felt == n_near and far_ok,
+                  f"{name}: cross-link fields wrong")
+        else:
+            check(shape.magnet_grid and shape.magnet_binned == (50000, 16)
+                  and not shape.magnet_receivers
+                  and not shape.stencil_deltas, f"{name}: {shape}")
+            check(z1 < z0 - 1e-3, f"{name}: mean z did not fall "
+                  f"({z0:.5f} -> {z1:.5f})")
+            full = grid_full_size(shape, state, name)
+        fed = fused_vs_fed_plain(shape, state, 20, name)
+        field_t, fused_t = time_magnet_path(name, shape, state, fk,
+                                            200 if fk == "pairwise" else 100)
+        kernels.append(dict(
+            name=f"{kname} ({name})", route="cuda",
+            source=f"titan_tpu_torch/{src}", replaces=replaces,
+            launches=counts[fk], max_abs_err=max(worst_field[fk][0], full[0]),
+            max_rel_err=max(worst_field[fk][1], full[1]),
+            route_max_abs_err=worst_route[fk], **field_t, library_ms=None))
+        kernels.append(dict(
+            name=f"fused_step ({name})", route="cuda",
+            source="titan_tpu_torch/csrc/fused_step.cu",
+            replaces="titan_tpu/ops/pallas_step.py:185",
+            launches=counts["fused"], max_abs_err=fed, **fused_t,
+            library_ms=None))
+    magnet_grad_routing(titan)
+
+
+def fused_vs_fed_plain(shape, state, steps, name):
+    """The fused step against fused_chunk_plain, both fed the plain field,
+    from a full-size state: must be bitwise; returns max |d|."""
+    import torch
+    from titan_tpu_torch.ops import fused_step
+    field = fused_step.magnet_field_fn(shape, state, plain=True)
+    got = fused_step._fused_chunk_cuda(shape, state, steps, field=field)
+    want = fused_step.fused_chunk_plain(shape, state, steps, field=field)
+    torch.cuda.synchronize()
+    d = max(float((getattr(got.masses, f) - getattr(want.masses, f))
+                  .abs().max()) for f in ("pos", "vel"))
+    print(f"{name}: fused step vs fused_chunk_plain, both fed the plain "
+          f"field, {steps} steps from the final state: max |d| {d:.3e}")
+    check(d == 0.0, f"{name}: the fused step fed a field differs from "
+          "its plain version")
+    return d
+
+
+def grid_full_size(shape, state, name):
+    """The grid kernel against its plain version at the swarm path's final
+    state, within TOL_FIELD * max |plain| (the two sum in the same order):
+    (max |d|, max |d| / max |plain|)."""
+    import torch
+    from titan_tpu_torch.ops import magnets_grid
+    m, cut = state.masses, shape.config.magnet_cutoff
+    cap = shape.magnet_binned[1]
+    a = magnets_grid.grid_magnet_forces(m, cut, cap)
+    b = magnets_grid.grid_magnet_forces_plain(m, cut, cap)
+    torch.cuda.synchronize()
+    d, scale = float((a - b).abs().max()), float(b.abs().max())
+    print(f"{name}: grid field kernel vs plain at the final state: max |d| "
+          f"{d:.3e} of max |plain| {scale:.3e}")
+    check(d <= TOL_FIELD * scale, f"{name}: full-size grid field disagrees")
+    return d, d / max(scale, 1e-30)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -744,8 +1468,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, devices: "
           f"{torch.cuda.device_count()}")
 
-    # 1 and a. build both sources, one nvcc each, started together
-    build_kernels(("fused_step", "adjoint"))
+    # 1, a and f. build every source, one nvcc each, started together
+    build_kernels(("fused_step", "adjoint", "magnets", "magnets_grid"))
 
     # 2. kernel vs plain, small scenes, 100 steps each
     for variant in VARIANTS:
@@ -813,6 +1537,10 @@ def main() -> int:
                 **({} if kname == "adjoint_trace"
                    else dict(max_rel_err=rel_err)),
                 **t, library_ms=None))
+
+    # g-l. the magnet field kernels, the fused step's magnet route, the
+    # RobotLink and magnetic-swarm main paths, gradient routing
+    magnet_phases(titan, kernels)
 
     # 5. result lines
     smi = subprocess.run(

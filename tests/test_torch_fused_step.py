@@ -90,7 +90,8 @@ def test_fused_chunk_plain_is_chunk_invariant():
 
 
 @pytest.mark.parametrize("variant,reason", [
-    ("remainder", "remainder"), ("magnets", "magnets"),
+    # magnets enter the fused step through its constant force
+    ("remainder", "remainder"), ("magnets", None),
     ("local", "local constraints"), ("float64", "f32-only"),
     ("strict_extern", "persistent_extern_force"),
     # use_pallas is carried over from titan_tpu's config but switches
@@ -119,3 +120,14 @@ def test_fused_reject_reason(variant, reason):
         assert got is None
     else:
         assert got is not None and reason in got
+
+
+def test_adjoint_reject_reason_names_magnets():
+    """The fused step takes magnet scenes, the adjoint kernels do not (no
+    magnet branch yet): grad_rollout must not send them there."""
+    from titan_tpu_torch.ops.adjoint import adjoint_reject_reason
+    shape = dataclasses.replace(
+        shape_from_fields(build_scene(titan_tpu, "plain")._shape, "cpu"),
+        has_magnets=True)
+    assert fused_step.fused_reject_reason(shape) is None
+    assert "magnets" in adjoint_reject_reason(shape)

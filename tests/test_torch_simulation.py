@@ -1,8 +1,8 @@
 """The port's public control plane against titan_tpu's.
 
 The README demo flow (start -> wait -> getAll -> resume -> stop), a
-structural edit at a pause, and the port's refusals: magnets (a later
-slice) and a CUDA config on a machine without CUDA.
+structural edit at a pause, magnets set at start and switched on at a
+pause, and the port's refusal of a CUDA config on a machine without CUDA.
 
 Tolerances.  f32: positions 1e-5.  f32 velocities are held to 5e-3: this
 scene's springs (k = 1e4, rest 1.25, m = 0.1) turn one f32 ulp of a spring
@@ -100,19 +100,41 @@ def test_structural_edit_at_pause_remarshals(dtype):
     assert abs(pg[0, 2] - 7.0) < 0.01   # the hand-set pos was kept
 
 
-def test_magnets_raise_not_implemented():
-    sim = demo_scene(titan_tpu_torch)
-    sim.masses[0].max_mag_force = 1.0
-    with pytest.raises(NotImplementedError, match="magnets"):
+def test_magnets_run_at_start_and_after_push():
+    """The demo scene with a magnet set before start, and with one switched
+    on at a pause (pushed with set(), which flips the shape's magnet flag),
+    runs through the port as through titan_tpu."""
+    got, want = [], []
+    for pkg, out in ((titan_tpu_torch, got), (titan_tpu, want)):
+        sim = demo_scene(pkg)
+        sim.masses[0].max_mag_force = 1.0
+        sim.masses[1].rad = 0.05
         sim.start()
-    # a magnet switched on at a pause is refused at the push as well
-    sim = demo_scene(titan_tpu_torch)
-    sim.start()
-    sim.wait(0.001)
-    sim.masses[0].rad = 0.05
-    with pytest.raises(NotImplementedError, match="magnets"):
+        assert sim._shape.has_magnets
+        sim.wait(0.005)
+        sim.getAll()
+        out.append(positions(sim))
+        sim.stop()
+
+        sim = demo_scene(pkg)
+        sim.start()
+        sim.wait(0.002)
+        assert not sim._shape.has_magnets
+        sim.masses[0].rad = 0.05
+        sim.masses[0].mag_scale_factor = 1.0
+        sim.masses[1].max_mag_force = 1.0
         sim.set(sim.masses[0])
-    sim.stop()
+        sim.set(sim.masses[1])
+        assert sim._shape.has_magnets
+        sim.resume()
+        sim.wait(0.003)
+        sim.getAll()
+        out.append(positions(sim))
+        sim.stop()
+    tol = TOL["float32"]
+    for (pg, vg), (pw, vw) in zip(got, want):
+        np.testing.assert_allclose(pg, pw, atol=tol["pos"], rtol=tol["pos"])
+        np.testing.assert_allclose(vg, vw, atol=tol["vel"], rtol=tol["vel"])
 
 
 def test_default_config_needs_cuda():

@@ -70,9 +70,11 @@ class SimConfig:
     # than index gathers at the 1M-spring config.  False forces everything
     # through the general gather/segment path (debugging / irregular scenes).
     use_stencil: bool = True
-    # Kept so that titan_tpu's configs carry over field for field; the port
-    # ignores it: a scene inside the fused kernel's envelope
-    # (ops/fused_step.fused_reject_reason) always takes the kernel.
+    # Kept so that titan_tpu's configs carry over field for field.  A scene
+    # inside the fused kernel's envelope (ops/fused_step.fused_reject_reason)
+    # always takes the kernels, magnet kernels included; the flag only
+    # enters SceneShape.magnet_grid (_feature_flags, as in the JAX
+    # package), which the eager step reads (ops/step.py::magnet_route).
     use_pallas: bool = True
     # Stencil bucketing knobs: families with fewer springs than
     # max(stencil_min_count, n_masses // 256) stay in the remainder.  The
@@ -101,18 +103,21 @@ class SimConfig:
     # scales with the cap, so keep it near the real occupancy.
     magnet_binned_threshold: int = 8192
     magnet_cell_cap: int = 16
-    # Dense-grid Pallas magnet kernel (ops/magnets_grid.py): on TPU,
-    # cell-binned scenes with at least this many magnetic masses run the
-    # gather-free dense occupancy-grid kernel instead of the XLA binned
-    # pass (exact same physics; automatic runtime fallback to binned if
-    # any cell overflows magnet_cell_cap).  Requires float32 state and a
-    # cell cap that is a multiple of 8; 10**9 disables.
+    # Dense-grid magnet field (ops/magnets_grid.py): sets
+    # SceneShape.magnet_grid as the JAX package sets it (cell-binned
+    # scenes with at least this many magnetic masses, float32 state, a cell
+    # cap that is a multiple of 8, no receiver compaction; 10**9 disables).
+    # The fused step runs the grid field kernel (csrc/magnets_grid.cu) on
+    # every cell-binned scene on the card whatever the flag; the eager step
+    # runs it only where the flag is set, and the binned PyTorch pass
+    # otherwise (the same physics; a cell holding more than
+    # magnet_cell_cap masses keeps the binned pass's overflow rule).
     magnet_grid_threshold: int = 8192
-    # Scenes up to this many (padded) masses run the magnet pass INSIDE the
-    # VMEM Pallas kernel as a dense pairwise sweep (O(N^2) but N is small
-    # and everything stays in VMEM) -- this is what puts full RobotLink
-    # scenes, the reference's flagship use case, on the multi-step fast
-    # path.  Larger magnetic scenes use the XLA paths.
+    # In the JAX package, scenes up to this many (padded) masses run the
+    # magnet pass inside the TPU's VMEM kernel.  In the port it bounds
+    # nothing: every unbinned magnet scene in the fused step's envelope
+    # takes the pairwise field kernel (csrc/magnets.cu), which has no size
+    # cap.  Kept so that titan_tpu's configs carry over field for field.
     magnet_pallas_max: int = 2048
     # Steps dispatched per on-device fori_loop chunk when no breakpoint is
     # nearer.  Bounds host `time()` granularity and re-dispatch overhead.

@@ -8,8 +8,12 @@
 // Verlet or RK2 update, with fixed and invalid masses frozen.  The plain
 // PyTorch version of the same function, which the card's results are held
 // against, is titan_tpu_torch/ops/fused_step.py::fused_chunk_plain.
-// Remainder springs, in-kernel magnets and local constraints are not in
-// this kernel yet (fused_reject_reason sends such scenes to the eager step).
+// Remainder springs and local constraints are not in this kernel yet
+// (fused_reject_reason sends such scenes to the eager step).  Magnets enter
+// through the constant force: for a magnet scene the caller computes the
+// field of each force pass (csrc/magnets.cu or csrc/magnets_grid.cu) and
+// launches that pass alone through titan_fused_pass with cforce =
+// const_f + field, so the step body has no magnet code.
 //
 // Design.  One thread per mass.  Family f connects mass n to n + d_f; each
 // thread evaluates, per family, its left spring (slot (f, i), partner i + d)
@@ -75,4 +79,51 @@ extern "C" int titan_fused_chunk(const ChunkArgs* c, void* stream) {
         fused_step_kernel<<<blocks, threads, 0, st>>>(a, mode);
         return cudaGetLastError();
       });
+}
+
+// One force pass with explicit buffers; field order matches the ctypes
+// structure _PassArgs in titan_tpu_torch/ops/fused_step.py.
+struct PassArgs {
+  int step;  // step index inside the chunk
+  int mode;  // titan::Mode
+  const float* fpos;  // [3, N] state the forces are evaluated at
+  const float* fvel;
+  const float* pos0;  // [3, N] state at the start of the step
+  const float* vel0;
+  const float* acc0;
+  const float* rest_src;  // [F, N]
+  const float* cforce;    // [3, N] const_f + this pass's magnet field
+  float* pos_dst;
+  float* vel_dst;
+  float* acc_dst;   // null for the RK2 predictor
+  float* rest_dst;  // [F, N] (actuated only)
+};
+
+// Enqueue one launch of the step kernel: pass `p` of a chunk whose
+// invariants are `c` (c->cforce is replaced by p->cforce).  The per-pass
+// entry of magnet scenes, whose field the caller computes between passes.
+// Returns 0, or the cudaError_t of the launch.
+extern "C" int titan_fused_pass(const ChunkArgs* c, const PassArgs* p,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(c->device);
+  if (err != cudaSuccess) return (int)err;
+  titan::StepArgs a = titan::step_args(c);
+  a.step = p->step;
+  a.half = p->mode == titan::kRk2Full ? 0.5f : 0.f;
+  a.cforce = p->cforce;
+  a.fpos = p->fpos;
+  a.fvel = p->fvel;
+  a.pos0 = p->pos0;
+  a.vel0 = p->vel0;
+  a.acc0 = p->acc0;
+  a.rest_src = p->rest_src;
+  a.rest_dst = c->has_actuated ? p->rest_dst : nullptr;
+  a.pos_dst = p->pos_dst;
+  a.vel_dst = p->vel_dst;
+  a.acc_dst = p->acc_dst;
+  const int threads = 256;
+  const int blocks = (c->n + threads - 1) / threads;
+  fused_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, p->mode);
+  return (int)cudaGetLastError();
 }

@@ -335,21 +335,10 @@ struct ChunkArgs {
 
 namespace titan {
 
-// Enqueue c->n_steps steps on `stream`: one call of `launch(blocks,
-// threads, stream, args, mode, step, first)` per force evaluation, where
-// `first` marks the step's first evaluation (the one at the step's input
-// state).  `launch` launches the caller's kernel and returns
-// cudaGetLastError().  Returns 0, or the first CUDA error.
-template <typename Launch>
-int enqueue_chunk(const ChunkArgs* c, void* stream, Launch launch) {
-  cudaError_t err = cudaSetDevice(c->device);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const int blocks = (c->n + threads - 1) / threads;
-  const bool rk2 = c->integrator == 2;
-  const int evals = c->n_steps * (rk2 ? 2 : 1);
-
+// The launch arguments that stay the same over a chunk: sizes, flags and
+// the invariant inputs (the caller sets the step, the state buffers and
+// rest).
+inline StepArgs step_args(const ChunkArgs* c) {
   StepArgs a = {};
   a.n = c->n;
   a.nf = c->nf;
@@ -375,6 +364,25 @@ int enqueue_chunk(const ChunkArgs* c, void* stream, Launch launch) {
   a.arate = c->arate;
   a.abound = c->abound;
   a.drag = c->drag;
+  return a;
+}
+
+// Enqueue c->n_steps steps on `stream`: one call of `launch(blocks,
+// threads, stream, args, mode, step, first)` per force evaluation, where
+// `first` marks the step's first evaluation (the one at the step's input
+// state).  `launch` launches the caller's kernel and returns
+// cudaGetLastError().  Returns 0, or the first CUDA error.
+template <typename Launch>
+int enqueue_chunk(const ChunkArgs* c, void* stream, Launch launch) {
+  cudaError_t err = cudaSetDevice(c->device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 256;
+  const int blocks = (c->n + threads - 1) / threads;
+  const bool rk2 = c->integrator == 2;
+  const int evals = c->n_steps * (rk2 ? 2 : 1);
+
+  StepArgs a = step_args(c);
 
   const float* pos = c->pos_in;
   const float* vel = c->vel_in;

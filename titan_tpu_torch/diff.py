@@ -23,6 +23,10 @@ differentiates).  Routes:
 - ``grad_rollout``: the adjoint inside its envelope, else ``fast_rollout``
   with a one-line warning naming the reason.
 
+Every eager step here is built from ``xla_only_shape(shape)``: the grid
+magnet kernel has no backward, so a differentiated step takes the binned
+PyTorch pass instead.
+
 The Euler velocity clamp and the contact / friction selects are piecewise
 differentiable (subgradients at the switch points).
 """
@@ -40,7 +44,7 @@ from .ops.adjoint import (LEAVES, adjoint_reject_reason,  # noqa: F401
                           segment_outputs, state_from_outputs, with_leaves)
 from .ops.step import build_chunk_fn, build_step_fn, run_eager
 from .runtime.logging import get_logger
-from .state import SceneShape, SimState
+from .state import SceneShape, SimState, xla_only_shape
 
 
 def scene(sim) -> Tuple[SceneShape, SimState]:
@@ -53,7 +57,7 @@ def scene(sim) -> Tuple[SceneShape, SimState]:
 def rollout(shape: SceneShape, state: SimState, n_steps: int,
             checkpoint_every: Optional[int] = None) -> SimState:
     """``n_steps`` eager steps, differentiable; returns the final state."""
-    step = build_step_fn(shape)
+    step = build_step_fn(xla_only_shape(shape))
     if not checkpoint_every:
         return run_eager(step, state, n_steps)
     if n_steps % checkpoint_every:
@@ -84,7 +88,7 @@ class _FastSegment(torch.autograd.Function):
     def backward(ctx, gpos, gvel, gacc, grest, _gT, _gt):
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
-            out = run_eager(build_step_fn(ctx.shape),
+            out = run_eager(build_step_fn(xla_only_shape(ctx.shape)),
                             with_leaves(ctx.state, leaves), ctx.seg)
             grads = torch.autograd.grad(
                 [out.masses.pos, out.masses.vel, out.masses.acc,
@@ -155,7 +159,7 @@ def trajectory(shape: SceneShape, state: SimState, n_steps: int,
     ``every`` steps, stacked [n_steps // every, 3, N]."""
     if n_steps % every:
         raise ValueError(f"n_steps={n_steps} not divisible by every={every}")
-    step = build_step_fn(shape)
+    step = build_step_fn(xla_only_shape(shape))
     traj = []
     for _ in range(n_steps // every):
         state = run_eager(step, state, every)

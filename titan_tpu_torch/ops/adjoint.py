@@ -33,10 +33,11 @@ Differentiable inputs: masses.pos, vel, acc, extern_force, m, drag,
 stencil.k, rest, damping, omega, rate, and g.  dt, plane and ball
 geometry, t and the actuation bounds get no gradient.
 
-Envelope (``adjoint_reject_reason``): the fused step's.  A trace that does
-not fit on the card raises out-of-memory in the backward; a shorter
-``segment`` makes it smaller.  Remainder springs, magnets and local
-constraints wait for the fused step's envelope to grow.
+Envelope (``adjoint_reject_reason``): the fused step's, without magnets
+and without spring-less scenes.  A trace that does not fit on the card
+raises out-of-memory in the backward; a shorter ``segment`` makes it
+smaller.  Remainder springs and local constraints wait for the fused step's
+envelope to grow, the magnet branches for a later slice.
 """
 
 from __future__ import annotations
@@ -56,9 +57,18 @@ from .fused_step import (_ChunkArgs, _chunk_args, _checked, deltas_on,
 
 def adjoint_reject_reason(shape: SceneShape):
     """None if the adjoint kernels accept this scene, else why not: the
-    fused step's envelope.  Memory is no part of it: a trace too large for
-    the card raises ``torch.OutOfMemoryError`` when the backward allocates
-    it (``trace_run``), as the JAX package's staging fails cleanly."""
+    fused step's envelope, less magnet scenes and scenes without stencil
+    families.  The fused step takes both, but the adjoint's transpose has
+    no magnet branch yet (``titan_tpu/ops/adjoint.py:282-300``, :935), so
+    its gradients would leave the magnet term out.  Memory is no part of
+    it: a trace too large for the card raises ``torch.OutOfMemoryError``
+    when the backward allocates it (``trace_run``), as the JAX package's
+    staging fails cleanly."""
+    if shape.has_magnets:
+        return ("magnets: the adjoint kernels have no magnet branch yet "
+                "(ROADMAP B4/B5)")
+    if not shape.stencil_deltas:
+        return "no stencil spring families"
     return fused_reject_reason(shape)
 
 

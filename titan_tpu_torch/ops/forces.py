@@ -6,7 +6,7 @@ component-major tensors and never write into their inputs.  Norms are
 sqrt + divide, as the JAX package computes them on the CPU
 (``titan_tpu/ops/forces.py::use_rsqrt``), and every norm goes through
 ``_safe_norm`` so that autograd through the step stays finite.  Local
-constraints, magnets and SEGMENT scatter are later slices of the port.
+constraints and SEGMENT scatter are later slices of the port.
 """
 
 from __future__ import annotations
@@ -198,3 +198,41 @@ def apply_global_constraints(f: Tensor, masses: MassState,
         f = apply_ball(f, masses.pos, gcon.ball_center[b],
                        gcon.ball_radius[b], normal_coeff)
     return f
+
+
+def magnet_forces(masses: MassState, cutoff: float,
+                  chunk: int = 2048) -> Tensor:
+    """All-pairs magnet interaction within ``cutoff`` (masked O(N^2));
+    [3, N].  Reference computeExternalMagnetForce (sim.cu:1223-1241), as
+    ``titan_tpu/ops/forces.py::magnet_forces``: for a valid receiver i and
+    each valid source j != i with |temp| < cutoff, temp = pos_i - pos_j,
+
+      shell:  + |inter| stiffness_i temp_hat   where inter = |temp| -
+              (rad_i + rad_j) < 0
+      magnet: - scale_j max_mag_force_i / max(|temp|^2, 1e-12) temp_hat
+
+    Sources are taken in chunks of ``chunk`` to bound the [3, N, chunk]
+    temporary.  This is also the plain version of the pairwise field
+    kernel (``csrc/magnets.cu``, ``ops/magnets.py::pairwise_magnet_field``).
+    """
+    pos = masses.pos
+    n = pos.shape[1]
+    iota = torch.arange(n, device=pos.device)
+    total = torch.zeros_like(pos)
+    for j0 in range(0, n, chunk):
+        sl = slice(j0, min(j0 + chunk, n))
+        diff = pos[:, :, None] - pos[:, None, sl]              # [3, N, C]
+        dist2 = torch.sum(diff * diff, dim=0)                  # [N, C]
+        dist = _safe_norm(dist2)
+        pair_ok = ((dist < cutoff) & (iota[:, None] != iota[None, sl])
+                   & masses.valid[:, None] & masses.valid[None, sl])
+        safe_dist = torch.where(dist > 0, dist, 1.0)
+        inter = dist - (masses.mag_rad[:, None] + masses.mag_rad[None, sl])
+        shell = torch.where(inter < 0,
+                            torch.abs(inter) * masses.mag_stiffness[:, None],
+                            0.0)
+        attract = (masses.mag_scale[None, sl] * masses.mag_maxf[:, None]
+                   / torch.clamp(dist2, min=1e-12))
+        coeff = torch.where(pair_ok, (shell - attract) / safe_dist, 0.0)
+        total = total + torch.sum(diff * coeff[None], dim=2)
+    return total

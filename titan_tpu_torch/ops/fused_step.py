@@ -9,9 +9,22 @@ accumulation order: the constant force first, then per family
 ``f_acc - f + roll(f, d)``, then planes, balls, drag and the update.  There
 is no fallback between the two: a CUDA tensor goes to the kernel or raises.
 
-Envelope (``fused_reject_reason``): f32, persistent external force, springs
-all in stencil families, no magnets, no local constraints.  Unlike the TPU
-kernel there is no on-chip memory budget, so N has no cap.
+Magnets.  The step kernel has no magnet code.  For a magnet scene each force
+pass first computes the magnet field at that pass's positions, 0 on fixed
+masses, and the step then runs with the constant force ``const_f + field``
+(as the TPU's tiled path feeds its per-step magnet glue,
+``pallas_tiled.py:1609-1642``); RK2 evaluates it twice per step, at the
+step's input and at its midpoint.  On the card the field is the pairwise
+kernel (``csrc/magnets.cu``) for an unbinned scene and the grid kernel
+(``csrc/magnets_grid.cu``) for every binned one (``step.magnet_route``),
+and the passes are launched one at a time from Python
+(``titan_fused_pass``); ``fused_chunk_plain`` takes the plain versions.
+Scenes without magnets keep one C call per chunk.
+
+Envelope (``fused_reject_reason``): f32, persistent external force, every
+spring in a stencil family (or no springs at all), no local constraints.
+Unlike the TPU kernel there is no on-chip memory budget, so N has no cap,
+with magnets or without.
 """
 
 from __future__ import annotations
@@ -25,6 +38,8 @@ import torch
 from ..config import (ACTIVE_CONTRACT_THEN_EXPAND, ACTIVE_EXPAND_THEN_CONTRACT,
                       ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator)
 from ..state import SceneShape, SimState
+from .magnets import pairwise_params
+from .step import chunk_ridx, magnet_pass, magnet_route
 
 _INTEGRATOR_CODE = {Integrator.EULER: 0, Integrator.VERLET: 1,
                     Integrator.RK2: 2}
@@ -39,16 +54,12 @@ def fused_reject_reason(shape: SceneShape):
     if cfg.dtype != "float32":
         return (f"dtype {cfg.dtype} (the fused kernel is f32-only; other "
                 "dtypes run the eager step)")
-    if not cfg.use_stencil or not shape.stencil_deltas:
-        return "no stencil spring families (use_stencil off or none found)"
     if not cfg.persistent_extern_force:
         return ("strict per-step extern_force mode "
                 "(persistent_extern_force=False)")
     if shape.has_remainder:
         return ("irregular (remainder) springs are not in the fused kernel "
-                "yet")
-    if shape.has_magnets:
-        return "magnets are not in the fused kernel yet"
+                "yet" + ("" if cfg.use_stencil else " (use_stencil is off)"))
     if any((shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)):
         return "local constraints are not in the fused kernel yet"
     return None
@@ -65,7 +76,7 @@ def prep_invariants(shape: SceneShape, state: SimState) -> dict:
     m = state.masses
     dtype = m.pos.dtype
     pair_ok = state.stencil.mask
-    if not shape.all_valid:
+    if not shape.all_valid and shape.stencil_deltas:
         pair_ok = torch.stack([
             pair_ok[fi] & m.valid & torch.roll(m.valid, -d, dims=-1)
             for fi, d in enumerate(shape.stencil_deltas)])
@@ -130,15 +141,41 @@ def _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest):
     return new
 
 
+def magnet_field_fn(shape: SceneShape, state: SimState, plain: bool):
+    """``field(pos)``: the fused step's magnet field [3, N] of ``state``'s
+    masses moved to ``pos``, 0 on fixed masses (which return before the
+    magnet pass, sim.cu:1292-1298, but still act as sources), by
+    ``step.magnet_route`` (``plain`` picks the kernels' plain versions).
+    What is constant over the chunk (the pairwise kernel's folded
+    parameters, the compacted receiver set) is made once here."""
+    m = state.masses
+    route = magnet_route(shape, m.pos.device, fused=True, plain=plain)
+    params = pairwise_params(m) if route == "pairwise" else None
+    ridx = chunk_ridx(shape, m) if route == "binned" else None
+
+    def field(pos):
+        return torch.where(m.fixed, 0.0, magnet_pass(
+            dataclasses.replace(m, pos=pos), shape, ridx, fused=True,
+            plain=plain, params=params))
+    return field
+
+
 def fused_chunk_plain(shape: SceneShape, state: SimState,
-                      n_steps: int, trace: list = None) -> SimState:
+                      n_steps: int, trace: list = None,
+                      field=None) -> SimState:
     """Plain PyTorch version of the fused kernel: ``n_steps`` steps of the
     TPU kernel body (``pallas_step.py::_build_kernel``), sqrt + divide
     norms, on whatever device ``state`` lives on.  With a ``trace`` list,
     each step's input (pos, vel) is appended to it: the plain version of
-    the adjoint's trace kernel (``ops/adjoint.py::trace_run_plain``)."""
+    the adjoint's trace kernel (``ops/adjoint.py::trace_run_plain``).  A
+    magnet scene adds ``field(pos)`` to the constant force of every force
+    pass; ``field`` defaults to ``magnet_field_fn(shape, state, plain=True)``
+    (the grid kernel's plain version for a binned scene on the card, the
+    binned pass on the CPU, as in the JAX package off the TPU)."""
     cfg = shape.config
     inv = prep_invariants(shape, state)
+    if shape.has_magnets and field is None:
+        field = magnet_field_fn(shape, state, plain=True)
     m = state.masses
     dt, t0 = inv["scal"][0], inv["scal"][1]
     frozen = inv["fixed"] != 0
@@ -149,6 +186,8 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
 
     def compute_forces(pos, vel, t_now, rest):
         f_acc = inv["const_f"]
+        if shape.has_magnets:
+            f_acc = f_acc + field(pos)
         new_rest = []
         for fi, d in enumerate(shape.stencil_deltas):
             diff = torch.roll(pos, -d, dims=-1) - pos
@@ -260,13 +299,14 @@ class _ChunkArgs(ctypes.Structure):
             "pos_half", "vel_half", "rest_out", "rest_tmp")])
 
 
-def _checked(name, t, shape, dtype=torch.float32):
-    """``t`` as the kernel takes it, or raise naming what is wrong."""
+def _checked(name, t, shape, dtype=torch.float32, kernel="fused"):
+    """``t``'s pointer as ``kernel`` takes it, or raise naming what is
+    wrong."""
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous() or t.device.type != "cuda":
         raise ValueError(
-            f"fused kernel input {name}: expected a contiguous {dtype} CUDA "
-            f"tensor of shape {tuple(shape)}, got {t.dtype} "
+            f"{kernel} kernel input {name}: expected a contiguous {dtype} "
+            f"CUDA tensor of shape {tuple(shape)}, got {t.dtype} "
             f"{tuple(t.shape)} on {t.device} (contiguous="
             f"{t.is_contiguous()})")
     return t.data_ptr()
@@ -342,29 +382,102 @@ def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
                rest_tmp)
 
 
-def _fused_chunk_cuda(shape: SceneShape, state: SimState,
-                      n_steps: int) -> SimState:
+class _PassArgs(ctypes.Structure):
+    """Mirror of ``struct PassArgs`` in ``csrc/fused_step.cu``: the buffers
+    of one force pass of the step kernel."""
+
+    _fields_ = ([("step", ctypes.c_int), ("mode", ctypes.c_int)]
+                + [(f, ctypes.c_void_p) for f in (
+                    "fpos", "fvel", "pos0", "vel0", "acc0", "rest_src",
+                    "cforce", "pos_dst", "vel_dst", "acc_dst", "rest_dst")])
+
+
+# the kernel's step modes (csrc/step_body.cuh enum Mode)
+_EULER, _VERLET, _RK2_HALF, _RK2_FULL = 0, 1, 2, 3
+
+
+def _lib():
     from .. import _build
     lib = _build.load("fused_step")
-    fn = lib.titan_fused_chunk
-    fn.argtypes = [ctypes.POINTER(_ChunkArgs), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.titan_fused_chunk.argtypes = [ctypes.POINTER(_ChunkArgs),
+                                      ctypes.c_void_p]
+    lib.titan_fused_chunk.restype = ctypes.c_int
+    lib.titan_fused_pass.argtypes = [ctypes.POINTER(_ChunkArgs),
+                                     ctypes.POINTER(_PassArgs),
+                                     ctypes.c_void_p]
+    lib.titan_fused_pass.restype = ctypes.c_int
+    return lib
+
+
+def _fused_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
+                      field=None) -> SimState:
+    """The kernel chunk.  A magnet scene runs ``_magnet_passes`` with
+    ``field`` (default ``magnet_field_fn(shape, state, plain=False)``)."""
+    lib = _lib()
     a, keep = _chunk_args(shape, state, n_steps)
     inv, pos_out, vel_out, acc_out, rest_out = keep[:5]
-    rc = fn(ctypes.byref(a),
-            torch.cuda.current_stream(pos_out.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
-    fused_chunk.launches += n_steps * (2 if shape.config.integrator
-                                       is Integrator.RK2 else 1)
+    stream = torch.cuda.current_stream(pos_out.device).cuda_stream
+    if shape.has_magnets:
+        pos_out, vel_out, acc_out, rest_out = _magnet_passes(
+            lib, shape, state, n_steps, a, inv, stream,
+            field or magnet_field_fn(shape, state, plain=False))
+    else:
+        rc = lib.titan_fused_chunk(ctypes.byref(a), stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"fused_step kernel launch failed: CUDA error {rc}")
+        fused_chunk.launches += n_steps * (2 if shape.config.integrator
+                                           is Integrator.RK2 else 1)
     return _finish_chunk(shape, state, inv, n_steps, pos_out, vel_out,
                          acc_out, rest_out)
+
+
+def _magnet_passes(lib, shape, state, n_steps, a, inv, stream, field):
+    """``n_steps`` steps of a magnet scene, one force pass at a time: the
+    field at the pass's positions, then one step-kernel launch with the
+    constant force ``const_f + field``.  Every pass writes fresh buffers.
+    Returns the final (pos, vel, acc, rest)."""
+    m = state.masses
+    rk2 = shape.config.integrator is Integrator.RK2
+    mode = {Integrator.EULER: _EULER, Integrator.VERLET: _VERLET,
+            Integrator.RK2: _RK2_FULL}[shape.config.integrator]
+    pos, vel, acc, rest = m.pos, m.vel, m.acc, state.stencil.rest
+    empty = torch.empty_like
+    p = _PassArgs()
+
+    def launch(step, mode, fpos, fvel, dst):
+        nonlocal rest
+        cf = inv["const_f"] + field(fpos)
+        rest_dst = empty(rest) if shape.has_actuated else rest
+        p.step, p.mode = step, mode
+        p.fpos, p.fvel = fpos.data_ptr(), fvel.data_ptr()
+        p.pos0, p.vel0, p.acc0 = pos.data_ptr(), vel.data_ptr(), acc.data_ptr()
+        p.rest_src, p.rest_dst = rest.data_ptr(), rest_dst.data_ptr()
+        p.cforce = cf.data_ptr()
+        p.pos_dst, p.vel_dst = dst[0].data_ptr(), dst[1].data_ptr()
+        p.acc_dst = dst[2].data_ptr() if len(dst) > 2 else None
+        rc = lib.titan_fused_pass(ctypes.byref(a), ctypes.byref(p), stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"fused_step kernel launch failed: CUDA error {rc}")
+        fused_chunk.launches += 1
+        rest = rest_dst
+
+    for s in range(n_steps):
+        fpos, fvel = pos, vel
+        if rk2:
+            fpos, fvel = empty(pos), empty(vel)
+            launch(s, _RK2_HALF, pos, vel, (fpos, fvel))
+        out = (empty(pos), empty(vel), empty(acc))
+        launch(s, mode, fpos, fvel, out)
+        pos, vel, acc = out
+    return pos, vel, acc, rest
 
 
 def fused_chunk(shape: SceneShape, state: SimState, n_steps) -> SimState:
     """``n_steps`` fused steps: the CUDA kernel for state on the card, the
     plain version for state on the CPU.  ``fused_chunk.launches`` counts
-    the kernel launches (one per step, two for RK2)."""
+    the step kernel's launches (one per step, two for RK2)."""
     n_steps = int(n_steps)
     if n_steps <= 0:
         return state

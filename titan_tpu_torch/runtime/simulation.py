@@ -16,8 +16,7 @@
 Not ported yet (ROADMAP queue A): ``distribute`` (multi-device), the viewport
 and STL import, and the JAX package's journaled incremental topology edits
 -- a structural edit at a pause here re-marshals the whole scene at resume.
-Scenes with magnets or local constraints raise ``NotImplementedError`` at
-marshal.
+Scenes with local constraints raise ``NotImplementedError`` at marshal.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ import torch
 from .. import builders
 from ..config import (ACTUATED_CONTRACT, ACTUATED_EXPAND, PASSIVE_SOFT,
                       PASSIVE_STIFF, ScatterMode, SimConfig, torch_device)
-from ..containers import Beam, Container, Cube, Lattice
+from ..containers import Beam, Container, Cube, Lattice, RobotLink
 from ..entities import HandleSeq, Mass, Spring
 from ..ops.step import build_chunk_fn, check_ported
 from ..state import (GlobalConstraints, LocalConstraints, MassState,
@@ -264,6 +263,18 @@ class Simulation:
         self._check_not_ended("New objects cannot be created.")
         self._check_can_edit()
         return self._register_built(Beam(self, center, dims, nx, ny, nz))
+
+    def createRobotLink(self, pos1, pos2, mass: float, max_exp_length: float,
+                        min_exp_length: float, expansion_rate: float,
+                        k: float, magnetic_force: float,
+                        radius: float = 0.015) -> RobotLink:
+        """A magnet truss actuator: two magnetic masses joined by one
+        actuated spring (reference object.h:290-330)."""
+        self._check_not_ended("New objects cannot be created.")
+        self._check_can_edit()
+        return self._register_built(RobotLink(
+            self, pos1, pos2, mass, max_exp_length, min_exp_length,
+            expansion_rate, k, magnetic_force, radius))
 
     # ------------------------------------------------------- global constraints
     def createPlane(self, abc, d: float, friction_k: float = 0.0,
@@ -769,8 +780,23 @@ class Simulation:
         needs_magnets = bool(np.any(st.mag_maxf[idx] != 0.0)
                              or np.any(st.mag_rad[idx] != 0.0))
         needs_drag = bool(np.any(st.drag[idx] != 0.0))
+        recv_overflow = False
+        if self._shape.magnet_receivers:
+            # a compacted receiver set (SceneShape.magnet_receivers) breaks
+            # with any shell radius, or with more attractors than its
+            # capacity; only the pushed rows can bring either, so the full
+            # recount runs only when a pushed row is an attractor
+            if bool(np.any(st.mag_rad[idx] != 0.0)):
+                recv_overflow = True
+            elif bool(np.any(st.valid[idx] & (st.mag_maxf[idx] != 0.0))):
+                nm = st.n_masses
+                recv_overflow = (
+                    int(np.count_nonzero(st.valid[:nm]
+                                         & (st.mag_maxf[:nm] != 0.0)))
+                    > self._shape.magnet_receivers)
         if ((needs_magnets and not self._shape.has_magnets)
-                or (needs_drag and not self._shape.has_drag)):
+                or (needs_drag and not self._shape.has_drag)
+                or recv_overflow):
             self._upgrade_shape()
         ti = torch.as_tensor(np.asarray(idx, dtype=np.int64))
         with self._cv:
@@ -999,12 +1025,39 @@ _CONTAINER_PALETTE = np.array([
 
 def _feature_flags(st: HostStore, cfg: SimConfig) -> dict:
     """SceneShape feature flags from the host store (parameters and
-    validity are host-authoritative).  Magnet binning/grid/receiver fields
-    stay at their defaults: magnet scenes are not ported yet."""
+    validity are host-authoritative), computed as
+    ``titan_tpu/runtime/simulation.py::_feature_flags`` computes them."""
     n, s = st.n_masses, st.n_springs
+    has_magnets = bool(np.any(st.mag_maxf[:n] != 0.0)
+                       or np.any(st.mag_rad[:n] != 0.0))
+    n_magnetic = int(np.count_nonzero(
+        st.valid[:n] & ((st.mag_maxf[:n] != 0) | (st.mag_rad[:n] != 0)
+                        | (st.mag_scale[:n] != 0)
+                        | (st.mag_stiffness[:n] != 0))))
+    magnet_binned, magnet_grid, magnet_receivers = (), False, 0
+    if has_magnets and n_magnetic >= cfg.magnet_binned_threshold:
+        # the bin table holds every valid mass (each is a shell-contact
+        # source, sim.cu:842), so it is sized by the valid count
+        n_valid = int(np.count_nonzero(st.valid[:n]))
+        magnet_binned = (pad_to(max(n_valid, 1), 8), cfg.magnet_cell_cap)
+        # receiver compaction is exact only when no mass has a shell
+        # radius; it is worth it when the attractors are sparse
+        n_recv = int(np.count_nonzero(st.valid[:n]
+                                      & (st.mag_maxf[:n] != 0.0)))
+        if not np.any(st.mag_rad[:n] != 0.0) and n_recv < n_valid // 4:
+            magnet_receivers = pad_to(max(n_recv, 1), 8)
+        # the JAX package's TPU grid-kernel rule (f32, a cell cap that is a
+        # multiple of 8, no compaction, use_pallas); the fused step takes
+        # the grid kernel whatever it says, the eager step reads it
+        # (ops/step.py::magnet_route)
+        magnet_grid = (cfg.use_pallas
+                       and magnet_receivers == 0
+                       and n_magnetic >= cfg.magnet_grid_threshold
+                       and cfg.dtype == "float32"
+                       and cfg.magnet_cell_cap % 8 == 0)
     return dict(
-        has_magnets=bool(np.any(st.mag_maxf[:n] != 0.0)
-                         or np.any(st.mag_rad[:n] != 0.0)),
+        has_magnets=has_magnets, magnet_binned=magnet_binned,
+        magnet_grid=magnet_grid, magnet_receivers=magnet_receivers,
         has_drag=bool(np.any(st.drag[:n] != 0.0)),
         has_breathing=bool(np.any((st.s_type[:s] != PASSIVE_SOFT)
                                   & (st.s_type[:s] != PASSIVE_STIFF))),

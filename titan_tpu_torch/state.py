@@ -180,6 +180,18 @@ class SceneShape:
     stencil_uniform: tuple = (False, False, False, False, False)
 
 
+def xla_only_shape(shape: SceneShape) -> SceneShape:
+    """The shape with ``magnet_grid`` cleared, so that a step built from it
+    never reaches the grid field kernel (``csrc/magnets_grid.cu``), which
+    has no backward.  The gradient paths (``diff.py``) build their eager
+    steps from it, as ``titan_tpu/state.py::xla_only_shape`` keeps Pallas
+    out of the JAX package's autodiff; the name is kept so that the two
+    can be found side by side."""
+    if not shape.magnet_grid:
+        return shape
+    return dataclasses.replace(shape, magnet_grid=False)
+
+
 def pad_to(n: int, mult: int = 128) -> int:
     """Round up to a multiple of 128 (the JAX package's lane width; kept so
     that both packages' arrays have the same shapes)."""
