@@ -18,7 +18,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      __graft_entry__.entry(), each built with titan_tpu_torch.Simulation and
      run start -> wait -> getAll -> resume -> stop until the lattice has
      landed on its plane.  Each path must launch the kernel and run no eager
-     step.  The landed state of each (in contact with its plane; the 20^3
+     step and no tiled launch.  The landed state of each (in contact with its plane; the 20^3
      plane has friction) and the 43^3 scene's first 200 steps from its
      start are held against fused_chunk_plain over 200 steps;
   4. time each path's chunk with CUDA events from its landed state (kernel
@@ -85,6 +85,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      runs fast_rollout (the adjoint refuses magnets); its backward must
      launch no adjoint and no magnet kernel, run 20 eager steps and give
      finite gradients;
+  m. build csrc/tiled_step.cu (the tiled step: per-step, resident-grid and
+     resident-grid RK2 kernels) beside the others, all five nvcc started
+     together, with the co-resident block limit of the cooperative grids;
+  n. hold the tiled kernels against tiled_chunk_plain over 100 steps,
+     bitwise, on 12 scenes of 12,000 masses whose family offsets span more
+     than a block (Euler with and without the clamp, Verlet, RK2, damping
+     with friction, actuated, breathing, drag, a ball, non-uniform k,
+     non-uniform rest, deleted masses), and a resident-grid segment (16
+     steps) and two plus a tail (37) bitwise against per-step launches;
+  o. the 100^3 stress config (bench.py with TITAN_BENCH_NX=100: 1,000,000
+     masses, 12,731,796 springs) through Simulation, start -> wait ->
+     getAll -> resume at 4 breakpoints -> stop, every count set to 0 just
+     before and read just after: it must take the tiled route, its
+     launches must be n // 16 resident-grid and n % 16 per-step launches
+     per chunk of n steps, with no fused launch and no eager step, and the
+     lattice must land.  At the landed pause, one spring's k is multiplied
+     by 10 through Spring.set: the uniform-k flag must clear and the tiled
+     chunk must follow the fused kernel, which reads the dense k.  From
+     the landed state, 200 steps under Euler, RK2 and Verlet against
+     tiled_chunk_plain (bitwise) with their launches counted, and Euler
+     against the fused kernel within TOL_CROSS;
+  p. time each integrator's tiled chunk at 100^3 (CUDA events), each
+     kernel's device time per launch (torch.profiler) beside its bound,
+     the plain version, and the fused kernel on the same state;
   5. print the kernels line (one entry per kernel and path), the card's
      name and power limit, and last the result line.
 
@@ -267,13 +291,10 @@ def drive(sim, name, t_land):
     returns (launches, (shape, state) at t_land)."""
     import numpy as np
     import torch
-    from titan_tpu_torch.ops import fused_step
-    from titan_tpu_torch.ops import step as tstep
     n = sim._store.n_masses
     z0 = sim._store.pos[:n, 2].copy()
     t0 = time.perf_counter()
-    fused_step.fused_chunk.launches = 0
-    tstep.run_eager.steps = 0
+    zero_tiled_counts()
     sim.start()
     sim.wait(t_land)
     sim.getAll()
@@ -286,11 +307,14 @@ def drive(sim, name, t_land):
     t_end = sim.time()
     sim.stop()
     torch.cuda.synchronize()
-    launches, eager = fused_step.fused_chunk.launches, tstep.run_eager.steps
+    counts = read_tiled_counts()
+    launches, eager = counts["fused"], counts["eager"]
+    tiled = counts["mega"] + counts["step"]
     wall = time.perf_counter() - t0
-    print(f"main path {name}: fused_step launches {launches}, eager steps "
-          f"{eager}")
+    print(f"main path {name}: fused_step launches {launches}, tiled "
+          f"launches {tiled}, eager steps {eager}")
     check(launches > 0, f"{name}: the main path never launched the kernel")
+    check(tiled == 0, f"{name}: the main path launched the tiled kernels")
     check(eager == 0, f"{name}: the main path ran {eager} eager steps")
     check(np.isfinite(pos).all() and np.isfinite(vel).all(),
           f"{name}: non-finite state")
@@ -331,8 +355,9 @@ def event_ms(fn, steps, reps=3):
 
 def profile_device_us(fn, names):
     """{kernel: (device us in all, launches)} for each kernel in `names`
-    from torch.profiler over fn(); a kernel with no device time recorded
-    is left out."""
+    (summed over every profiler key that contains the name) from
+    torch.profiler over fn(); a kernel with no device time recorded is
+    left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -344,7 +369,9 @@ def profile_device_us(fn, names):
         t = getattr(e, "self_device_time_total", 0.0) or 0.0
         for k in names:
             if k in e.key and e.count and t:
-                out[k] = (t, e.count)
+                # a template's instantiations are keys of their own
+                t0, c0 = out.get(k, (0.0, 0))
+                out[k] = (t0 + t, c0 + e.count)
     return out
 
 
@@ -1454,6 +1481,543 @@ def grid_full_size(shape, state, name):
     return d, d / max(scale, 1e-30)
 
 
+# ---------------------------------------------------------------------------
+# The tiled step (phases m-p): the tiled kernels against their plain
+# version, the 100^3 stress config through Simulation, timing
+# ---------------------------------------------------------------------------
+
+# tiled kernel vs fused kernel on the same state: two independent ports of
+# the same physics that sum in other orders (the families, then the
+# constant force; against the constant force, then the families), so they
+# agree only to f32 rounding, and in contact the stiff penalty amplifies
+# each one-ulp difference (scripts/cuda_fmad_ab.py measured 3.5e-4 at 43^3
+# and 8.8e-3 at 20^3, on a friction plane, of velocity over 200 landed
+# steps between two roundings of one kernel).  Held over CROSS_STEPS
+# landed steps:
+# |d| <= TOL_CROSS (1 + |fused|) on pos and vel.
+TOL_CROSS, CROSS_STEPS = 2e-2, 200
+# the uniform-break check: BREAK_STEPS steps after one spring's k is
+# multiplied by BREAK_K at a pause, held against the fused kernel within
+# TOL_BREAK, a tenth of the 200-step horizon's tolerance for a tenth of
+# its steps
+BREAK_STEPS, BREAK_K, TOL_BREAK = 20, 10.0, 2e-3
+# the stress path's breakpoints (s): it lands at their sum, 3.5 s
+STRESS_NX, STRESS_WAITS = 100, (1.0, 1.0, 1.5)
+TILED_VARIANTS = ("euler", "clamp_off", "verlet", "rk2", "damping_friction",
+                  "actuated", "breathing", "drag", "ball", "nonuniform_k",
+                  "nonuniform_rest", "deleted")
+
+
+def tiled_counters():
+    """The objects carrying the stepping paths' launch and step counts."""
+    from titan_tpu_torch.ops import fused_step, tiled_step
+    from titan_tpu_torch.ops import step as tstep
+    return tiled_step.tiled_chunk, fused_step.fused_chunk, tstep.run_eager
+
+
+def zero_tiled_counts():
+    tiled, fused, eager = tiled_counters()
+    tiled.mega_launches = tiled.step_launches = 0
+    fused.launches = eager.steps = 0
+
+
+def read_tiled_counts():
+    tiled, fused, eager = tiled_counters()
+    return dict(mega=tiled.mega_launches, step=tiled.step_launches,
+                fused=fused.launches, eager=eager.steps)
+
+
+class uncounted:
+    """Leaves every stepping count as it was: for the comparisons made at a
+    pause of a main path, which must not count as the path's launches."""
+
+    def __enter__(self):
+        self.saved = read_tiled_counts()
+
+    def __exit__(self, *exc):
+        tiled, fused, eager = tiled_counters()
+        tiled.mega_launches, tiled.step_launches = (self.saved["mega"],
+                                                    self.saved["step"])
+        fused.launches, eager.steps = self.saved["fused"], self.saved["eager"]
+
+
+def tiled_variant_scene(titan, variant, device="cuda"):
+    """A 30 x 20 x 20 lattice (12,000 masses; family offsets up to 421, so
+    a family's partners lie more than one 256-thread block away) exercising
+    one feature of the tiled kernels, marshalled on `device`; returns
+    (shape, state)."""
+    import numpy as np
+    cfg = dict(device=device, velocity_clamp=variant != "clamp_off")
+    if variant in ("verlet", "rk2"):
+        cfg["integrator"] = titan.Integrator(variant)
+    sim = titan.Simulation(titan.SimConfig(**cfg))
+    fric = variant == "damping_friction"
+    # friction: the bottom layer starts 5 mm inside the plane, sliding
+    sim.createLattice(titan.Vec(0, 0, 0.995 if fric else 2.0),
+                      titan.Vec(3, 2, 2), 30, 20, 20)
+    sim.setAllSpringConstantValues(800.0)
+    st = sim._store
+    s, n = st.n_springs, st.n_masses
+    if fric:
+        st.damping[:s] = 0.4
+        st.vel[:n] = (0.3, 0.1, 0.0)
+        sim.createPlane(titan.Vec(0, 0, 1), 0, 0.4, 0.6)
+    else:
+        sim.createPlane(titan.Vec(0, 0, 1), 0)
+    if variant == "actuated":
+        third = s // 3
+        st.s_type[:third] = titan.ACTUATED_EXPAND
+        st.l_max[:third] = st.rest[:third] * 1.2
+        st.rate[:third] = 0.5
+        st.s_type[third:2 * third] = titan.ACTUATED_CONTRACT
+        st.l_min[third:2 * third] = st.rest[third:2 * third] * 0.8
+        st.rate[third:2 * third] = 0.5
+        st.l_max[:8] = st.rest[:8] * 0.9    # past the bound: never advance
+    elif variant == "breathing":
+        st.s_type[: s // 2] = titan.ACTIVE_CONTRACT_THEN_EXPAND
+        st.omega[: s // 2] = 7.0
+    elif variant == "drag":
+        st.drag[:n] = 0.3
+    elif variant == "ball":
+        sim.createBall(titan.Vec(0, 0, 1.5), 0.8)
+    elif variant == "nonuniform_k":
+        st.k[:s] *= 1.0 + 0.1 * np.random.RandomState(1).rand(s)
+    elif variant == "nonuniform_rest":
+        st.rest[:s] *= 1.0 + 0.01 * np.random.RandomState(0).rand(s)
+    elif variant == "deleted":
+        st.valid[[3, 17, 1000, 7777]] = False
+    sim.setGlobalAcceleration(titan.Vec(0.5 if fric else 0.0, 0, -9.8))
+    sim.setTimeStep(1e-4)
+    sim._T = 0.0
+    sim._marshal()
+    return sim._shape, sim._state
+
+
+def state_diffs(a, b, fields=("pos", "vel", "acc", "T"), rest=False):
+    """{field: max |a - b|} and whether every field is bitwise equal."""
+    import torch
+    out, same = {}, True
+    pairs = [(f, getattr(a.masses, f), getattr(b.masses, f))
+             for f in fields]
+    if rest:
+        pairs.append(("rest", a.stencil.rest, b.stencil.rest))
+    for f, x, y in pairs:
+        out[f] = float((x - y).abs().max())
+        same = same and bool(torch.equal(x, y))
+    return out, same
+
+
+def tiled_vs_plain(shape, state, steps, label, bad):
+    """tiled_chunk (the kernels) against tiled_chunk_plain over `steps`
+    steps, bitwise on pos, vel, acc, T (and rest); appends a failure to
+    `bad`.  Returns the max |d| and the kernels' output."""
+    import torch
+    from titan_tpu_torch.ops import tiled_step
+    got = tiled_step.tiled_chunk(shape, state, steps)
+    want = tiled_step.tiled_chunk_plain(shape, state, steps)
+    torch.cuda.synchronize()
+    d, same = state_diffs(got, want, rest=shape.has_actuated)
+    for f in ("pos", "vel"):
+        if not bool(torch.isfinite(getattr(got.masses, f)).all()):
+            same = False
+            d[f"non-finite {f}"] = 1.0
+    print(f"tiled vs plain [{label}, {steps} steps]: "
+          + ("bitwise" if same else "DIFFER") + "; max |d| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d.items()))
+    if not same:
+        bad.append(f"{label}: kernels differ from tiled_chunk_plain: {d}")
+    return max(d.values()), got
+
+
+def mega_vs_steps(shape, state, label, bad):
+    """A resident-grid segment (16 steps) and two segments plus a tail of 5
+    (37 steps) against one launch per step (two for RK2), bitwise."""
+    import torch
+    from titan_tpu_torch.ops import tiled_step
+    for steps in (tiled_step.MEGA_SEG, 2 * tiled_step.MEGA_SEG + 5):
+        a = tiled_step.tiled_chunk(shape, state, steps)
+        b = tiled_step._tiled_chunk_cuda(shape, state, steps, 0)
+        torch.cuda.synchronize()
+        d, same = state_diffs(a, b, rest=shape.has_actuated)
+        print(f"tiled mega vs per-step launches [{label}, {steps} steps]: "
+              + ("bitwise" if same else f"DIFFER, max |d| {d}"))
+        if not same:
+            bad.append(f"{label}: {steps} steps through resident-grid "
+                       f"launches differ from per-step launches: {d}")
+
+
+def tiled_small_scenes(titan):
+    """Phase n: every tiled kernel against tiled_chunk_plain over 100 steps
+    on the small scenes, and the resident-grid kernels bitwise their
+    per-step launches.  Returns the max |kernel - plain|."""
+    from titan_tpu_torch.ops import tiled_step
+    bad, worst = [], 0.0
+    for variant in TILED_VARIANTS:
+        shape, state = tiled_variant_scene(titan, variant)
+        reason = tiled_step.tiled_reject_reason(shape)
+        check(reason is None, f"tiled {variant}: {reason}")
+        if variant == "nonuniform_k":
+            check(not shape.stencil_uniform[0], "nonuniform_k: k uniform")
+        if variant == "nonuniform_rest":
+            check(not shape.stencil_uniform[1], "nonuniform_rest: rest "
+                  "uniform")
+        err, _ = tiled_vs_plain(shape, state, 100, f"tiled {variant}", bad)
+        worst = max(worst, err)
+        if variant in ("euler", "verlet", "rk2", "actuated", "breathing",
+                       "damping_friction"):
+            mega_vs_steps(shape, state, f"tiled {variant}", bad)
+    check(not bad, "; ".join(bad))
+    return worst
+
+
+def lattice_deltas(nx):
+    """The 13 stencil families of an nx^3 lattice (PERF.md section 4)."""
+    q = nx * nx
+    return (1, nx, q, nx - 1, q - 1, q - nx, q + 1, nx + 1, q + nx,
+            -(q - nx + 1), q - nx - 1, q + nx - 1, q + nx + 1)
+
+
+def strained_spring(sim):
+    """The index of the spring furthest from its rest length."""
+    import numpy as np
+    st = sim._store
+    s = st.n_springs
+    ln = np.linalg.norm(st.pos[st.right[:s]] - st.pos[st.left[:s]], axis=1)
+    return int(np.argmax(np.abs(st.rest[:s] - ln)))
+
+
+def cross_check(got, want, label, tol=TOL_CROSS):
+    """(max |d| on pos and vel, worst |d| / (1 + |want|)) of two ports'
+    states; fails beyond `tol`."""
+    worst, d = 0.0, {}
+    for f in ("pos", "vel"):
+        a, b = getattr(got.masses, f), getattr(want.masses, f)
+        diff = (a - b).abs()
+        d[f] = float(diff.max())
+        worst = max(worst, float((diff / (1 + b.abs())).max()))
+    print(f"{label}: max |d| pos {d['pos']:.3e}, vel {d['vel']:.3e}; worst "
+          f"|d| / (1 + |fused|) {worst:.3e} (tolerance {tol:g})")
+    check(worst <= tol, f"{label}: beyond {tol:g}")
+    return d, worst
+
+
+def uniform_break(sim, name):
+    """At a pause of the stress path: multiply the most strained spring's
+    k by BREAK_K through Spring.set.  The uniform-k flag must clear, the
+    tiled chunk over BREAK_STEPS steps must agree with the fused kernel
+    (which reads the dense k) within TOL_BREAK, the spring's two masses
+    must move otherwise than without the edit, and the tiled chunk with the
+    flag left set (the fault the repair removes) must disagree."""
+    import dataclasses
+    import torch
+    from titan_tpu_torch.ops import fused_step, tiled_step
+    shape0, state0 = sim._shape, sim._snapshot()
+    j = strained_spring(sim)
+    sp = sim.springs[j]
+    k0 = float(sp._k)
+    sp._k = BREAK_K * k0
+    sim.set(sp)
+    shape, state = sim._shape, sim._snapshot()
+    check(not shape.stencil_uniform[0]
+          and shape.stencil_uniform[1:] == shape0.stencil_uniform[1:],
+          f"{name}: the push left stencil_uniform {shape.stencil_uniform}")
+    ends = torch.tensor([int(sim._store.left[j]), int(sim._store.right[j])],
+                        device=state.masses.pos.device)
+    got = tiled_step.tiled_chunk(shape, state, BREAK_STEPS)
+    want = fused_step.fused_chunk(shape, state, BREAK_STEPS)
+    plain = tiled_step.tiled_chunk(shape0, state0, BREAK_STEPS)
+    stale = tiled_step.tiled_chunk(
+        dataclasses.replace(shape, stencil_uniform=shape0.stencil_uniform),
+        state, BREAK_STEPS)
+    torch.cuda.synchronize()
+    d, _ = cross_check(got, want, f"{name} uniform break (spring {j}, k "
+                       f"{k0:g} -> {BREAK_K * k0:g}), tiled vs fused over "
+                       f"{BREAK_STEPS} steps", TOL_BREAK)
+    moved = float((got.masses.vel[:, ends] - plain.masses.vel[:, ends])
+                  .abs().max())
+    stale_d = float(((stale.masses.vel - want.masses.vel).abs()
+                     / (1 + want.masses.vel.abs())).max())
+    print(f"{name} uniform break: the spring's masses' velocity moved "
+          f"{moved:.3e} from the run without the edit; with the flag left "
+          f"set the tiled chunk is {stale_d:.3e} from the fused kernel")
+    check(moved > 10 * d["vel"], f"{name}: the edit did not move the "
+          f"spring's masses beyond the tiled-vs-fused difference")
+    check(stale_d > TOL_BREAK, f"{name}: the stale-flag run agrees with "
+          "the fused kernel: the check cannot see the fault")
+    return j
+
+
+def drive_stress(titan, name):
+    """Phase o: the 100^3 stress config through the public API: start ->
+    wait -> getAll -> resume at 4 breakpoints -> stop, every count set to 0
+    just before and read just after; the uniform break at the landed pause
+    (uncounted).  The tiled launches must be what the chunk lengths give
+    (n // 16 resident-grid and n % 16 per-step launches per chunk), with no
+    fused launch and no eager step.  Returns (counts, landed (shape,
+    state))."""
+    import numpy as np
+    import torch
+    from titan_tpu_torch.ops import tiled_step
+    from titan_tpu_torch.ops.step import chunk_route
+    from titan_tpu_torch.runtime import simulation as rsim
+    t0 = time.perf_counter()
+    # bench.py::build_bench_scene(100), the 100^3 stress config
+    # (TITAN_BENCH_NX=100): 1,000,000 masses, 12,731,796 springs
+    sim = bench_scene(titan, STRESS_NX)
+    t_build = time.perf_counter() - t0
+    st = sim._store
+    n = st.n_masses
+    z0 = st.pos[:n, 2].copy()
+    lengths, recorded = [], []
+    built = rsim.build_chunk_fn
+
+    def recording(shape):
+        fn = built(shape)
+        recorded.append(shape)
+
+        def chunk(state, n_steps):
+            lengths.append(int(n_steps))
+            return fn(state, n_steps)
+        return chunk
+
+    rsim.build_chunk_fn = recording
+    try:
+        zero_tiled_counts()
+        t0 = time.perf_counter()
+        sim.start()
+        t_marshal = time.perf_counter() - t0
+        shape = sim._shape
+        n_springs = int(sim._state.stencil.mask.sum())
+        print(f"main path {name}: built in {t_build:.2f} s, marshalled in "
+              f"{t_marshal:.2f} s (host); {n} masses (N = "
+              f"{shape.n_masses} padded), {st.n_springs} springs, "
+              f"{n_springs} marshalled into {len(shape.stencil_deltas)} "
+              f"families, deltas {list(shape.stencil_deltas)}, uniform "
+              f"{shape.stencil_uniform}, route {chunk_route(shape)[0]}")
+        check(chunk_route(shape) == ("tiled", None),
+              f"{name}: route {chunk_route(shape)}")
+        check(sorted(shape.stencil_deltas) == sorted(lattice_deltas(
+            STRESS_NX)) and not shape.has_remainder, f"{name}: families "
+            f"{shape.stencil_deltas}")
+        check(n_springs == st.n_springs, f"{name}: springs lost in the "
+              "stencil families")
+        check(shape.stencil_uniform[0], f"{name}: k not uniform")
+        for k, t in enumerate(STRESS_WAITS):
+            sim.wait(t)
+            sim.getAll()
+            if k < len(STRESS_WAITS) - 1:
+                sim.resume()
+        landed = (sim._shape, sim._snapshot())
+        t_land = sim.time()
+        pos = st.pos[:n].copy()
+        vel = st.vel[:n].copy()
+        with uncounted():
+            j = uniform_break(sim, name)
+        sim.resume()
+        sim.wait(0.01)
+        sim.getAll()
+        t_end = sim.time()
+        sim.stop()
+        torch.cuda.synchronize()
+    finally:
+        rsim.build_chunk_fn = built
+        for key in recorded:
+            rsim._CHUNK_CACHE.pop(key, None)
+    counts = read_tiled_counts()
+    wall = time.perf_counter() - t0
+    seg = tiled_step.MEGA_SEG
+    want = dict(mega=sum(k // seg for k in lengths),
+                step=sum(k % seg for k in lengths))
+    print(f"main path {name}: {len(lengths)} chunks, {sum(lengths)} steps; "
+          f"tiled resident-grid launches {counts['mega']} (chunk lengths "
+          f"give {want['mega']}), tiled per-step launches {counts['step']} "
+          f"(give {want['step']}), fused_step launches {counts['fused']}, "
+          f"eager steps {counts['eager']}")
+    check(counts["mega"] > 0, f"{name}: no resident-grid launch")
+    check(counts["mega"] == want["mega"] and counts["step"] == want["step"],
+          f"{name}: launches {counts} against the chunk lengths' {want}")
+    check(counts["fused"] == 0 and counts["eager"] == 0,
+          f"{name}: fused launches or eager steps on the tiled path: "
+          f"{counts}")
+    t_want = sum(STRESS_WAITS)
+    check(abs(t_land - t_want) < 1e-9 and abs(t_end - t_want - 0.01) < 1e-9,
+          f"{name}: times {t_land}, {t_end}")
+    check(np.isfinite(pos).all() and np.isfinite(vel).all(),
+          f"{name}: non-finite state")
+    speed = np.sqrt((vel * vel).sum(1))
+    check(speed.max() <= 1.0 + 1e-5, f"{name}: clamp broken ({speed.max()})")
+    check(-0.1 < pos[:, 2].min() < 0.2,
+          f"{name}: lowest mass at z={pos[:, 2].min():.4f}")
+    check(0.5 < pos[:, 2].mean() < z0.mean() - 2.0,
+          f"{name}: mean z {pos[:, 2].mean():.3f} (from {z0.mean():.3f})")
+    inside, static = contact_counts(*landed)
+    check(inside > 0, f"{name}: no mass in contact at t={t_land}")
+    print(f"main path {name}: t={t_end:.4f} s sim in {wall:.2f} s wall; at "
+          f"t={t_land}: lowest z={pos[:, 2].min():.4f}, mean z "
+          f"{z0.mean():.3f} -> {pos[:, 2].mean():.3f}, max |v|="
+          f"{speed.max():.4f}, {inside} masses in contact; spring {j}'s k "
+          f"edited at the pause")
+    return counts, landed
+
+
+def integrator_shape(shape, integrator):
+    import dataclasses
+    return dataclasses.replace(shape, config=dataclasses.replace(
+        shape.config, integrator=integrator))
+
+
+def tiled_bytes_per_mass(shape, mode):
+    """The distinct bytes per mass of one launch in `mode` ("euler",
+    "verlet", "rk2a", "rk2b"; a resident-grid launch moves those of one
+    step): each input read once, each output written once."""
+    from titan_tpu_torch.ops import tiled_step
+    f = len(shape.stencil_deltas)
+    plan = tiled_step._plan(shape)
+    inv = 12 + 4 + 4 + 4 * f * len(plan) + (4 if "k" not in plan else 0) \
+        + 4 * shape.has_drag                  # const_f, minv, fixed, planes
+    state_in = {"euler": 24, "verlet": 36, "rk2a": 24, "rk2b": 48}[mode]
+    state_out = {"euler": 36, "verlet": 36, "rk2a": 24, "rk2b": 36}[mode]
+    return inv + state_in + state_out
+
+
+def tiled_bound_ms(shape, state, mode, steps):
+    """((ms, by), bytes ms, ops ms) of one launch that advances `steps`
+    force passes: bytes over 3.35 TB/s, operations (22 per spring, 25 per
+    mass, per pass) over 67 TFLOP/s."""
+    n_springs = int(state.stencil.mask.sum())
+    t_bytes = tiled_bytes_per_mass(shape, mode) * shape.n_masses \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = steps * (OPS_PER_SPRING * n_springs
+                     + OPS_PER_MASS * shape.n_masses) / F32_FLOPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")), t_bytes, t_ops
+
+
+def time_tiled(name, shape, state):
+    """Phase p for one integrator from `state`: ms per step of the tiled
+    chunk (CUDA events; 5,000 steps for Euler and Verlet, 200 for RK2), each
+    kernel's device ms per launch (torch.profiler over a 200-step chunk:
+    12 resident-grid launches and a tail of 8 steps), the plain version and
+    the fused kernel on the same state.  Returns {kernel name: timing}."""
+    import torch
+    from titan_tpu_torch.ops import fused_step, tiled_step
+    rk2 = shape.config.integrator.name == "RK2"
+    seg = tiled_step.MEGA_SEG
+    steps = 200 if rk2 else TIMED_STEPS
+
+    def run(k):
+        tiled_step.tiled_chunk(shape, state, k)
+
+    def run_plain(k):
+        tiled_step.tiled_chunk_plain(shape, state, k)
+
+    def run_fused(k):
+        fused_step.fused_chunk(shape, state, k)
+
+    with uncounted():
+        run(200)
+        run_fused(200)
+        run_plain(2)
+        torch.cuda.synchronize()
+        ms = event_ms(run, steps)
+        fused_ms = event_ms(run_fused, steps)
+        plain_ms = event_ms(run_plain, 10)
+        names = ["tiled_megark2_kernel" if rk2 else "tiled_mega_kernel",
+                 "tiled_step_kernel"]
+        dev = profile_device_us(lambda: run(200), names)
+    mode = "rk2" if rk2 else shape.config.integrator.name.lower()
+    print(f"timing {name} tiled chunk: {ms * 1e3:.3f} us/step over "
+          f"{steps} steps (CUDA events); fused kernel on the same state "
+          f"{fused_ms * 1e3:.3f} us/step; plain version "
+          f"{plain_ms * 1e3:.1f} us/step")
+    out = {}
+    passes = 2 if rk2 else 1
+    for kname, per_launch_steps in ((names[0], seg), (names[1], None)):
+        t = dev.get(kname)
+        if per_launch_steps:
+            (b_ms, by), t_b, t_o = tiled_bound_ms(
+                shape, state, "euler" if rk2 else mode, passes * seg)
+            p_ms = plain_ms * seg
+        elif rk2:
+            # the rk2a and rk2b launches alternate; their mean per launch
+            a_, b_ = (tiled_bound_ms(shape, state, m, 1)
+                      for m in ("rk2a", "rk2b"))
+            t_b, t_o = (a_[1] + b_[1]) / 2, (a_[2] + b_[2]) / 2
+            b_ms, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+            p_ms = plain_ms / 2
+        else:
+            (b_ms, by), t_b, t_o = tiled_bound_ms(shape, state, mode, 1)
+            p_ms = plain_ms
+        us = None if t is None else t[0] / t[1]
+        print(f"timing {name} {kname}: "
+              + ("not measured (no device time recorded)" if us is None else
+                 f"{us:.3f} us/launch on the device ({t[1]} launches)")
+              + f"; bound {b_ms * 1e3:.4f} us/launch by {by} (bytes "
+              f"{t_b * 1e3:.4f} us, ops {t_o * 1e3:.4f} us)")
+        out[kname] = dict(ms=None if us is None else us / 1e3,
+                          plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                          ms_per_step=ms, fused_ms_per_step=fused_ms)
+    return out
+
+
+def tiled_phases(titan, kernels):
+    """Phases n-p; appends the tiled entries to ``kernels``."""
+    import torch
+    from titan_tpu_torch.config import Integrator
+    from titan_tpu_torch.ops import fused_step, tiled_step
+    worst_small = tiled_small_scenes(titan)
+
+    name = "stress 100^3"
+    counts, (shape, state) = drive_stress(titan, name)
+    inside, _ = contact_counts(shape, state)
+    bad = []
+    err, _ = tiled_vs_plain(shape, state, CROSS_STEPS, f"{name} landed", bad)
+    got = tiled_step.tiled_chunk(shape, state, CROSS_STEPS)
+    want = fused_step.fused_chunk(shape, state, CROSS_STEPS)
+    torch.cuda.synchronize()
+    cross_check(got, want, f"{name} landed ({inside} masses in contact), "
+                f"tiled vs fused over {CROSS_STEPS} steps")
+    runs = {"euler": (shape, counts, err)}
+    for integ in (Integrator.RK2, Integrator.VERLET):
+        sh = integrator_shape(shape, integ)
+        zero_tiled_counts()
+        tiled_step.tiled_chunk(sh, state, CROSS_STEPS)
+        torch.cuda.synchronize()
+        c = read_tiled_counts()
+        per = 2 if integ is Integrator.RK2 else 1
+        seg = tiled_step.MEGA_SEG
+        print(f"{name} landed, {integ.name}: {CROSS_STEPS} steps ran "
+              f"{c['mega']} resident-grid and {c['step']} per-step launches")
+        check(c["mega"] == CROSS_STEPS // seg
+              and c["step"] == per * (CROSS_STEPS % seg)
+              and c["fused"] == c["eager"] == 0,
+              f"{name} {integ.name}: launches {c}")
+        e, _ = tiled_vs_plain(sh, state, CROSS_STEPS,
+                              f"{name} landed {integ.name}", bad)
+        runs[integ.name.lower()] = (sh, c, e)
+    check(not bad, "; ".join(bad))
+
+    src = "titan_tpu_torch/csrc/tiled_step.cu"
+    for key, (sh, c, e) in runs.items():
+        t = time_tiled(f"{name} {key}", sh, state)
+        rk2 = key == "rk2"
+        path = name if key == "euler" else f"{name} landed, {key}, " \
+            f"{CROSS_STEPS} steps"
+        mega = "tiled_megark2_kernel" if rk2 else "tiled_mega_kernel"
+        kernels.append(dict(
+            name=f"{mega} ({path})", route="cuda", source=src,
+            replaces="titan_tpu/ops/pallas_tiled.py:"
+            + ("1222" if rk2 else "1134"),
+            launches=c["mega"], max_abs_err=max(e, worst_small),
+            **t[mega], library_ms=None))
+        kernels.append(dict(
+            name=f"tiled_step_kernel ({path}"
+            + (", rk2a + rk2b)" if rk2 else ")"), route="cuda", source=src,
+            replaces="titan_tpu/ops/pallas_tiled.py:1051",
+            launches=c["step"], max_abs_err=max(e, worst_small),
+            **t["tiled_step_kernel"], library_ms=None))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1468,8 +2032,15 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, devices: "
           f"{torch.cuda.device_count()}")
 
-    # 1, a and f. build every source, one nvcc each, started together
-    build_kernels(("fused_step", "adjoint", "magnets", "magnets_grid"))
+    # 1, a, f and m. build every source, one nvcc each, started together
+    build_kernels(("fused_step", "adjoint", "magnets", "magnets_grid",
+                   "tiled_step"))
+    from titan_tpu_torch.ops import tiled_step
+    for integ in (titan.Integrator.EULER, titan.Integrator.VERLET,
+                  titan.Integrator.RK2):
+        print(f"tiled resident-grid kernel ({integ.name}): "
+              f"{tiled_step.coop_blocks(integ)} co-resident blocks of 256 "
+              "threads (the largest cooperative grid)")
 
     # 2. kernel vs plain, small scenes, 100 steps each
     for variant in VARIANTS:
@@ -1541,6 +2112,9 @@ def main() -> int:
     # g-l. the magnet field kernels, the fused step's magnet route, the
     # RobotLink and magnetic-swarm main paths, gradient routing
     magnet_phases(titan, kernels)
+
+    # n-p. the tiled kernels, the 100^3 stress config, timing
+    tiled_phases(titan, kernels)
 
     # 5. result lines
     smi = subprocess.run(

@@ -2,11 +2,11 @@
 the JAX package's.
 
 - ``adjoint_rollout`` gradients on the CPU (forward ``fused_chunk_plain``,
-  backward ``trace_run_plain`` + ``bwd_run_plain``) against
-  ``titan_tpu.ops.adjoint.adjoint_rollout`` with its Pallas kernels in
-  interpret mode, on the scenes of tests/test_adjoint.py inside the port's
-  envelope: 20 steps in segments of 10, the nine gradient arguments and
-  the normalised atol 5e-4 of that file;
+  backward ``trace_run_plain`` + ``bwd_run_plain``, 20 steps in segments
+  of 10) against ``jax.grad`` through ``titan_tpu.diff.rollout`` (the JAX
+  package's XLA step, the reference tests/test_adjoint.py holds its own
+  adjoint to), on the scenes of that file inside the port's envelope, for
+  the nine gradient arguments at that file's normalised atol 5e-4;
 - ``rollout`` gradients (autograd through the eager step) against
   ``jax.grad`` through ``titan_tpu.diff.rollout`` in f64 to 1e-9;
 - ``grad_rollout``'s routing, and ``fast_rollout`` / ``trajectory``.
@@ -22,16 +22,16 @@ import torch
 
 import titan_tpu
 from titan_tpu import diff as jdiff
-from titan_tpu.ops import adjoint as jadj
 from titan_tpu.state import xla_only_shape
 from titan_tpu_torch import diff as tdiff
 from titan_tpu_torch.ops import fused_step
 
-from test_adjoint import SCENES, _interp, _scene
+from test_adjoint import SCENES, _scene
 from test_torch_step import build_scene, carry_over
 
-# The scenes of test_adjoint.py inside the port's envelope.  A JAX
-# interpret-mode case takes ~10 s here, so they are spread over this file,
+# The scenes of test_adjoint.py inside the port's envelope.  A case's JAX
+# reference (tracing and compiling the gradient of a 20-step scan) takes
+# ~10-20 s here, so they are spread over this file,
 # test_torch_diff_scenes.py and test_torch_diff_integrators.py, which
 # pytest-xdist runs side by side.
 ADJ_SCENES = ["friction_damping", "clamp", "drag_ball", "beam_fixed",
@@ -91,24 +91,24 @@ def _weights(jstate, n):
 
 
 @pytest.mark.parametrize("scene_name", ADJ_SCENES[:3])
-def test_adjoint_rollout_grads_match_jax_adjoint(scene_name, monkeypatch):
-    check_adjoint_scene(scene_name, monkeypatch)
+def test_adjoint_rollout_grads_match_jax_adjoint(scene_name):
+    check_adjoint_scene(scene_name)
 
 
-def check_adjoint_scene(scene_name, monkeypatch):
-    """The port's adjoint_rollout gradients against the JAX package's in
-    interpret mode, on one scene of test_adjoint.py."""
+def check_adjoint_scene(scene_name):
+    """The port's adjoint_rollout gradients against jax.grad through the
+    JAX package's XLA rollout, on one scene of test_adjoint.py: the
+    reference test_adjoint.py holds the JAX adjoint to, at the same
+    tolerance."""
     jsim = _scene(**SCENES[scene_name])
     jshape, jstate = jsim._shape, jsim._state
-    assert jadj.adjoint_supported(jshape)
-    _interp(monkeypatch)
     n = jsim._store.n_masses
     wpos, wvel, wrest = _weights(jstate, n)
     actuated = jshape.has_actuated
 
     def jloss(*args):
-        out = jadj.adjoint_rollout(jshape, _jax_state(jstate, args), 20,
-                                   segment=10)
+        out = jdiff.rollout(xla_only_shape(jshape), _jax_state(jstate, args),
+                            20)
         loss = jnp.sum(out.masses.pos * wpos) + jnp.sum(out.masses.vel * wvel)
         if actuated:
             loss = loss + jnp.sum(out.stencil.rest * wrest)

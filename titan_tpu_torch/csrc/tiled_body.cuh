@@ -1,0 +1,230 @@
+// The per-mass body of the tiled step (csrc/tiled_step.cu): one force
+// evaluation of mass i and its integrate tail, for each mode of the TPU
+// kernel it replaces (titan_tpu/ops/pallas_tiled.py::_build_kernel: single
+// (Euler or Verlet), rk2a, rk2b).  Kept in a header so that a later trace
+// kernel (the tiled adjoint's forward replay, mode megatrace) can replay it
+// bitwise, as csrc/step_body.cuh serves csrc/adjoint.cu.  What the step
+// computes, and why it is laid out this way, is set out at the top of
+// csrc/tiled_step.cu.
+
+#ifndef TITAN_TILED_BODY_CUH_
+#define TITAN_TILED_BODY_CUH_
+
+#include <cstddef>
+
+#include <cuda_runtime.h>
+
+#include "step_body.cuh"
+
+namespace titan_tiled {
+
+using titan::add3;
+using titan::dot3;
+using titan::ld3;
+using titan::mul3;
+using titan::st3;
+using titan::sub3;
+
+// The int32 existence bitmask holds one bit per family.
+constexpr int kMaxFamilies = 32;
+
+// kEuler and kVerlet are the TPU kernel's "single" mode; kRk2a / kRk2b its
+// RK2 predictor and corrector launches.
+enum Mode { kEuler = 0, kVerlet = 1, kRk2a = 2, kRk2b = 3 };
+
+// What stays the same over a chunk; field order matches the ctypes
+// structure _TiledArgs in titan_tpu_torch/ops/tiled_step.py.  A per-family
+// field rides either as a scalar of `fparams` (family-uniform) or as an
+// [F, N] plane; a null plane pointer selects the scalar.
+struct TiledArgs {
+  int n, nf, n_planes, n_balls;
+  int clamp, has_damping, has_breathing, has_actuated, has_drag;
+  float normal_coeff;
+  int deltas[kMaxFamilies];
+  const float* scal;     // [2]: dt, t at chunk start
+  const float* fparams;  // [5, F]: k, rest, damping, bsign, bomega scalars
+  const float* planes;   // [P, 6]: normal xyz, offset, fk, fs
+  const float* balls;    // [B, 4]: center xyz, radius
+  const int* bits;       // [N] bit f = family f's spring exists (uniform k)
+  const float* k;        // [F, N] validity-folded, or null (uniform)
+  const float* rest;     // [F, N] or null (uniform, not actuated)
+  const float* aratedt;  // [F, N] signed rate * dt (actuated only)
+  const float* sstop;    // [F, N] advance count at the bound (actuated)
+  const float* damping;  // [F, N] validity-folded (has_damping only)
+  const float* bsign;    // [F, N] or null (uniform type)
+  const float* bomega;   // [F, N] or null (uniform omega)
+  const float* cforce;   // [3, N] m g + persistent external force
+  const float* minv;     // [N]
+  const float* fixed;    // [N] 1 = frozen (fixed or invalid), else 0
+  const float* drag;     // [N] (has_drag only)
+};
+
+// The state one force evaluation reads and its update writes.
+struct StepIO {
+  int step;           // absolute step index inside the chunk
+  const float* pos;   // [3, N] state the forces are evaluated at
+  const float* vel;
+  const float* acc;   // previous acc (Verlet)
+  const float* pos0;  // [3, N] state at the start of the step (rk2b)
+  const float* vel0;
+  float* pos_dst;
+  float* vel_dst;
+  float* acc_dst;     // null: acc is not written (rk2a, and Euler/RK2 mega
+                      // steps before the segment's last)
+};
+
+// Slot (fi, s): the spring from left mass s to right mass s + d_fi, at
+// (pl, vl) and (pr, vr).  Returns its force on the right endpoint (the
+// left one gets the negative), in the TPU body's operation order
+// (family_forces, pallas_tiled.py:673-738, non-rsqrt branch): closed-form
+// ACTUATED rest, then breathing at t, Hooke, axial damping.
+__device__ __forceinline__ float3 tiled_spring(const TiledArgs& a, int fi,
+                                               int s, float3 pl, float3 vl,
+                                               float3 pr, float3 vr, float t,
+                                               float adv_base) {
+  const size_t slot = static_cast<size_t>(fi) * a.n + s;
+  const int nf = a.nf;
+  const float3 diff = sub3(pr, pl);
+  const float d2 = dot3(diff, diff);
+  const float ln = d2 > 0.f ? sqrtf(d2) : 0.f;
+  const float inv = ln > 0.f ? 1.f / ln : 0.f;
+  const float k = a.k != nullptr
+                      ? a.k[slot]
+                      : __fmul_rn(a.fparams[fi],
+                                  static_cast<float>((a.bits[s] >> fi) & 1));
+  float rest = a.rest != nullptr ? a.rest[slot] : a.fparams[nf + fi];
+  if (a.has_actuated) {
+    // rest at this evaluation: min(adv_base + 1, s_stop) advances of
+    // rate * dt from the chunk's start (pallas_tiled.py:41-51)
+    const float adv = fminf(adv_base + 1.f, a.sstop[slot]);
+    rest = rest + adv * a.aratedt[slot];
+  }
+  if (a.has_breathing) {
+    const float bsign = a.bsign != nullptr ? a.bsign[slot]
+                                           : a.fparams[3 * nf + fi];
+    const float bomega = a.bomega != nullptr ? a.bomega[slot]
+                                             : a.fparams[4 * nf + fi];
+    rest = rest * (1.f + bsign * sinf(bomega * t));
+  }
+  float mag = k * (rest - ln);
+  if (a.has_damping) {
+    const float axial = dot3(sub3(vl, vr), diff) * inv;
+    mag = mag + axial * a.damping[slot];
+  }
+  return mul3(diff, mag * inv);
+}
+
+// The force on mass i at state (pos, vel): per family "- left + right"
+// from zero (the TPU's fw - f + roll_scatter(f, d)), then the constant
+// force (f_acc = fw + const_f, pallas_tiled.py:740), then the global
+// planes, balls and drag (mass_tail :748, without local constraints).  A
+// slot whose partner lies outside [0, N) is skipped: the TPU evaluates it
+// with k = 0 and adds a zero.
+__device__ __forceinline__ float3 tiled_force(const TiledArgs& a, int i,
+                                              const float* pos,
+                                              const float* vel, float t,
+                                              float adv_base) {
+  const int n = a.n;
+  const float3 zero = make_float3(0.f, 0.f, 0.f);
+  const float3 p = ld3(pos, i, n);
+  const float3 v = ld3(vel, i, n);
+  float3 fw = zero;
+  for (int fi = 0; fi < a.nf; ++fi) {
+    const int d = a.deltas[fi];
+    const int j = i + d;
+    if (j >= 0 && j < n) {
+      const float3 vj = a.has_damping ? ld3(vel, j, n) : zero;
+      fw = sub3(fw, tiled_spring(a, fi, i, p, v, ld3(pos, j, n), vj, t,
+                                 adv_base));
+    }
+    const int l = i - d;
+    if (l >= 0 && l < n) {
+      const float3 vl = a.has_damping ? ld3(vel, l, n) : zero;
+      fw = add3(fw, tiled_spring(a, fi, l, ld3(pos, l, n), vl, p, v, t,
+                                 adv_base));
+    }
+  }
+  const float3 f = add3(fw, ld3(a.cforce, i, n));
+  return titan::contact_and_drag(a.n_planes, a.planes, a.n_balls, a.balls,
+                                 a.normal_coeff, a.has_drag, a.drag, i, f,
+                                 p, v);
+}
+
+// x * keep + y * frozen, the TPU's arithmetic select of frozen masses
+__device__ __forceinline__ float3 blend3(float3 x, float keep, float3 y,
+                                         float frozen) {
+  return add3(mul3(x, keep), mul3(y, frozen));
+}
+
+// One force evaluation and update of mass i in mode MODE
+// (pallas_tiled.py:852-930): t and the actuation count follow the step
+// index, t0 + step dt (+ dt / 2 for the corrector) and step (2 step, 2 step
+// + 1 under RK2, whose rest advances once per force pass).
+template <int MODE>
+__device__ __forceinline__ void tiled_mass(const TiledArgs& a,
+                                           const StepIO& io, int i) {
+  const int n = a.n;
+  const float dt = a.scal[0];
+  const float fstep = static_cast<float>(io.step);
+  float t, adv_base;
+  if (MODE == kRk2b) {
+    t = __fadd_rn(a.scal[1], __fmul_rn(__fadd_rn(fstep, 0.5f), dt));
+    adv_base = __fadd_rn(__fmul_rn(2.f, fstep), 1.f);
+  } else {
+    t = __fadd_rn(a.scal[1], __fmul_rn(fstep, dt));
+    adv_base = MODE == kRk2a ? __fmul_rn(2.f, fstep) : fstep;
+  }
+  const float3 f = tiled_force(a, i, io.pos, io.vel, t, adv_base);
+  const float3 p = ld3(io.pos, i, n);
+  const float3 v = ld3(io.vel, i, n);
+  const float frozen = a.fixed[i];
+  const float keep = 1.f - frozen;
+  const float3 acc = mul3(f, a.minv[i]);
+
+  if (MODE == kRk2a) {  // midpoint predictor (sim.cu:1336-1343)
+    const float3 ph = make_float3(p.x + 0.5f * v.x * dt, p.y + 0.5f * v.y * dt,
+                                  p.z + 0.5f * v.z * dt);
+    const float3 vh = make_float3(v.x + 0.5f * acc.x * dt,
+                                  v.y + 0.5f * acc.y * dt,
+                                  v.z + 0.5f * acc.z * dt);
+    st3(io.pos_dst, i, n, blend3(ph, keep, p, frozen));
+    st3(io.vel_dst, i, n, blend3(vh, keep, v, frozen));
+    return;
+  }
+  float3 v2, p2;
+  if (MODE == kRk2b) {  // corrector from the step's input (1344-1349)
+    // without local constraints the predictor's velocity is vel0 itself
+    const float3 v0 = ld3(io.vel0, i, n);
+    const float3 p0 = ld3(io.pos0, i, n);
+    v2 = blend3(make_float3(v0.x + acc.x * dt, v0.y + acc.y * dt,
+                            v0.z + acc.z * dt),
+                keep, v0, frozen);
+    p2 = add3(p0, mul3(mul3(v, dt), keep));
+  } else if (MODE == kVerlet) {  // reference 'Verlet' (sim.cu:1350-1354)
+    const float3 a0 = ld3(io.acc, i, n);
+    v2 = make_float3(v.x + 0.5f * (a0.x + acc.x) * dt,
+                     v.y + 0.5f * (a0.y + acc.y) * dt,
+                     v.z + 0.5f * (a0.z + acc.z) * dt);
+    v2 = blend3(v2, keep, v, frozen);
+    p2 = add3(p, mul3(make_float3(v2.x * dt + 0.5f * acc.x * dt * dt,
+                                  v2.y * dt + 0.5f * acc.y * dt * dt,
+                                  v2.z * dt + 0.5f * acc.z * dt * dt),
+                      keep));
+  } else {  // Euler with the optional unit-speed clamp (sim.cu:1355-1362)
+    v2 = make_float3(v.x + acc.x * dt, v.y + acc.y * dt, v.z + acc.z * dt);
+    if (a.clamp) {
+      const float vn = sqrtf(dot3(v2, v2));
+      if (vn > 1.f) v2 = make_float3(v2.x / vn, v2.y / vn, v2.z / vn);
+    }
+    v2 = blend3(v2, keep, v, frozen);
+    p2 = add3(p, mul3(mul3(v2, dt), keep));
+  }
+  st3(io.pos_dst, i, n, p2);
+  st3(io.vel_dst, i, n, v2);
+  // frozen masses get acc 0 here; the chunk restores their old acc
+  if (io.acc_dst != nullptr) st3(io.acc_dst, i, n, mul3(acc, keep));
+}
+
+}  // namespace titan_tiled
+
+#endif  // TITAN_TILED_BODY_CUH_

@@ -4,9 +4,10 @@ Counterpart of ``titan_tpu/ops/step.py``.  ``build_step_fn`` is the plain
 PyTorch step (springs -> scatter -> magnets and mass forces -> integrate)
 for any scene of this slice, in f32 or f64, on any device.
 ``build_chunk_fn`` runs whole chunks through the fused step
-(``ops/fused_step.py``: the CUDA kernel on the card, its plain version on
-the CPU) whenever the scene is inside its envelope, and through the eager
-step loop otherwise, with a warning that names the reason.
+(``ops/fused_step.py``) or the tiled step (``ops/tiled_step.py``), each the
+CUDA kernels on the card and their plain version on the CPU, as
+``chunk_route`` picks, and through the eager step loop where neither
+accepts the scene, with a warning that names the reasons.
 """
 
 from __future__ import annotations
@@ -225,22 +226,67 @@ def run_eager(step, state: SimState, n_steps: int) -> SimState:
 run_eager.steps = 0
 
 
-def build_chunk_fn(shape: SceneShape):
-    """``chunk(state, n_steps) -> state``: n_steps of stepping.
+# The TPU's on-chip budget (titan_tpu/ops/pallas_step.py:44): the route
+# keeps the reference's threshold between its two kernels.
+RESIDENT_BUDGET = 100 * 1024 * 1024
 
-    Scenes inside the fused step's envelope run ``fused_step.fused_chunk``
-    (the CUDA kernel for state on the card, its plain version for state on
-    the CPU); every other scene runs the eager step loop, with a warning
-    naming the envelope condition that failed.
+
+def resident_bytes(shape: SceneShape) -> int:
+    """Bytes the TPU's fused kernel would hold resident in VMEM for this
+    scene: the port's copy of ``titan_tpu/ops/pallas_step.py:77-108``, the
+    rule by which the reference sends a scene to its tiled kernel.  The
+    remainder and local-constraint terms are left out (the fused step
+    refuses such scenes before this rule is read), and so are the magnet
+    terms (every magnet scene takes the fused step either way)."""
+    n, f = shape.n_masses, len(shape.stencil_deltas)
+    fam = 5 * f + (3 * f if shape.has_actuated else 0)
+    sc = 2 + (1 if shape.has_drag else 0)
+    tmp = 3 * 10 if shape.config.integrator is Integrator.RK2 else 3 * 6
+    return 4 * n * (3 * 7 + fam + sc) + 4 * n * tmp
+
+
+def chunk_route(shape: SceneShape):
+    """(route, reason): which chunk runs the scene, ``"fused"``,
+    ``"tiled"`` or ``"eager"``, and for the eager loop the reasons both
+    kernels refused it (else None).  A scene takes the counterpart of the
+    kernel it takes on a TPU (``titan_tpu/ops/step.py:212-230``): the
+    fused step where it accepts the scene and the scene fits the
+    reference's residency rule (``resident_bytes``), else the tiled step
+    where it accepts the scene, else the fused step where it accepts the
+    scene (its card kernel has no size cap, so a large magnet lattice stays
+    on a kernel), else the eager loop."""
+    from .fused_step import fused_reject_reason
+    from .tiled_step import tiled_reject_reason
+    r_fused = fused_reject_reason(shape)
+    if r_fused is None and resident_bytes(shape) < RESIDENT_BUDGET:
+        return "fused", None
+    r_tiled = tiled_reject_reason(shape)
+    if r_tiled is None:
+        return "tiled", None
+    if r_fused is None:
+        return "fused", None
+    return "eager", f"fused step: {r_fused}; tiled step: {r_tiled}"
+
+
+def build_chunk_fn(shape: SceneShape):
+    """``chunk(state, n_steps) -> state``: n_steps of stepping by
+    ``chunk_route``: ``fused_step.fused_chunk`` or
+    ``tiled_step.tiled_chunk`` (each the CUDA kernels for state on the
+    card, their plain version for state on the CPU), or the eager step
+    loop, with a warning naming the envelope conditions that failed.
     """
-    from .fused_step import fused_chunk, fused_reject_reason
-    reason = fused_reject_reason(shape)
-    if reason is None:
-        return lambda state, n_steps: fused_chunk(shape, state, n_steps)
+    from . import fused_step, tiled_step
+    route, reason = chunk_route(shape)
+    if route == "fused":
+        return lambda state, n_steps: fused_step.fused_chunk(
+            shape, state, n_steps)
+    if route == "tiled":
+        return lambda state, n_steps: tiled_step.tiled_chunk(
+            shape, state, n_steps)
     from ..runtime.logging import get_logger
     get_logger().warning(
-        "scene is outside the fused step kernel's envelope; falling back to "
-        "the eager PyTorch step loop (one chain of small kernels per step, "
+        "scene is outside the step kernels' envelopes; falling back to the "
+        "eager PyTorch step loop (one chain of small kernels per step, "
         "much slower on the card): %s.", reason)
     step = build_step_fn(shape)
 

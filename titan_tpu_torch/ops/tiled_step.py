@@ -1,0 +1,488 @@
+"""The tiled chunk: counterpart of ``titan_tpu/ops/pallas_tiled.py``.
+
+``tiled_chunk`` advances a scene by n whole steps.  For state on the card it
+launches the hand-written CUDA kernels of ``csrc/tiled_step.cu``:
+``n // MEGA_SEG`` resident-grid launches of ``MEGA_SEG`` steps each (the
+TPU's mega and megark2 modes), then one launch per remaining step (two for
+RK2: the TPU's single, rk2a and rk2b modes).  For state on the CPU it runs
+``tiled_chunk_plain``, a plain PyTorch transcription of the TPU kernel's
+body (``pallas_tiled.py::_build_kernel`` on its non-rsqrt branch) with
+``torch.roll`` for its rolls and its accumulation order: per family
+``fw - f + roll(f, d)`` from zero, then ``f_acc = fw + const_f``, then
+planes, balls, drag and the update.  That is the opposite order of the fused
+step's, so the two agree to f32 rounding, not bitwise.  There is no fallback
+between the two: a CUDA tensor goes to the kernels or raises.
+
+What the TPU kernel's plan carries over (``_plan``): a field that is uniform
+within every family rides as one scalar per family, and a uniform k as that
+scalar times bit f of one int32 existence mask per mass, in place of the
+[F, N] planes the fused step reads; fields that vary ride as [F, N] planes.
+ACTUATED rest has the closed form ``rest0 + min(s + 1, s_stop) rate dt``
+from the chunk's start (``pallas_tiled.py:41-51``; two advances per dt under
+RK2), so no rest is carried through the chunk.
+
+Envelope (``tiled_reject_reason``): f32 Euler, Verlet or RK2, persistent
+external force, stencil families only.  Scenes with remainder springs,
+local constraints or magnets are outside it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..config import (ACTIVE_CONTRACT_THEN_EXPAND, ACTIVE_EXPAND_THEN_CONTRACT,
+                      ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator)
+from ..state import SceneShape, SimState
+from .fused_step import _checked, _finish_chunk
+
+#: steps per resident-grid launch (``pallas_tiled.py:1717``).  Even: the
+#: segment's last step lands in its first buffer.  The ``n % MEGA_SEG`` tail
+#: runs one launch per step.
+MEGA_SEG = 16
+
+# the existence bitmask is one int32 per mass (csrc/tiled_body.cuh)
+_MAX_FAMILIES = 32
+_INTEGRATOR_CODE = {Integrator.EULER: 0, Integrator.VERLET: 1,
+                    Integrator.RK2: 2}
+# rows of the family-scalar table (pallas_tiled.py:1416-1422)
+_SCALAR_ROWS = ("k", "rest", "damping", "type", "omega")
+
+
+def _plan(shape: SceneShape) -> tuple:
+    """The per-family fields that ride as [F, N] planes
+    (``pallas_tiled.py::_plan``); every other field the scene uses rides as
+    one scalar per family.  A uniform k rides as its scalar times the
+    existence bitmask; rest is a plane where it is not uniform and whenever
+    the scene is actuated (rest is state there), with the closed-form
+    actuation inputs beside it; damping is always a plane, zero where no
+    spring exists, because a scalar would damp missing springs too."""
+    u_k, u_rest, _, u_type, u_omega = shape.stencil_uniform
+    planes = []
+    if not u_k:
+        planes.append("k")
+    if not u_rest or shape.has_actuated:
+        planes.append("rest")
+    if shape.has_actuated:
+        planes += ["aratedt", "sstop"]
+    if shape.has_damping:
+        planes.append("damping")
+    if shape.has_breathing and not u_type:
+        planes.append("bsign")
+    if shape.has_breathing and not u_omega:
+        planes.append("bomega")
+    return tuple(planes)
+
+
+def tiled_reject_reason(shape: SceneShape):
+    """None if the tiled step accepts this scene, else a one-line reason
+    naming the envelope condition that failed."""
+    cfg = shape.config
+    if cfg.integrator not in _INTEGRATOR_CODE:
+        return (f"integrator {cfg.integrator.name} not supported by the "
+                "tiled kernel")
+    if cfg.dtype != "float32":
+        return f"dtype {cfg.dtype} (the tiled kernel is f32-only)"
+    if not cfg.use_stencil or not shape.stencil_deltas:
+        return "no stencil spring families"
+    if not cfg.persistent_extern_force:
+        return "strict per-step extern_force mode"
+    if shape.has_remainder:
+        return ("irregular (remainder) springs are not in the tiled kernel "
+                "yet (ROADMAP B1)")
+    if any((shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)):
+        return "local constraints are not in the tiled kernel yet (ROADMAP B1)"
+    if shape.has_magnets:
+        return ("magnet scenes run the fused step's per-pass field route "
+                "(the tiled magnet glue is not ported, ROADMAP B2)")
+    if len(shape.stencil_deltas) > _MAX_FAMILIES:
+        return (f"{len(shape.stencil_deltas)} stencil families > "
+                f"{_MAX_FAMILIES} (one bit each in the int32 existence mask)")
+    return None
+
+
+def mega_seg(shape: SceneShape) -> int:
+    """Steps per resident-grid launch for this scene, 0 for one launch per
+    step (``pallas_tiled.py::_mega_env_ok``): Euler, Verlet or RK2 with no
+    per-step glue between steps."""
+    if shape.config.integrator not in _INTEGRATOR_CODE:
+        return 0
+    if shape.has_remainder or shape.has_magnets:
+        return 0
+    return MEGA_SEG
+
+
+def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
+    """The chunk's loop-invariant kernel inputs
+    (``pallas_tiled.py::prep_flat_inputs`` without its local-constraint
+    slots): the family scalars [5, F] (k, rest, damping, breathing sign and
+    frequency) taken from each family's first masked lane, the int32
+    existence bitmask (bit f = a spring of family f between two valid
+    masses) where k is uniform, the [F, N] planes of ``_plan`` (k and
+    damping validity-folded), the closed-form actuation inputs ``aratedt``
+    (signed rate * dt) and ``sstop`` (the advance count at which the
+    one-sided bound is crossed), and the per-mass inputs: constant force
+    m g + extern, inverse mass, the frozen mask (fixed or invalid), drag,
+    the [dt, t] scalars and the plane and ball tables."""
+    m, st = state.masses, state.stencil
+    deltas = shape.stencil_deltas
+    dev = m.pos.device
+    f32 = torch.float32
+    pair_ok = st.mask
+    if not shape.all_valid:
+        pair_ok = torch.stack([
+            pair_ok[fi] & m.valid & torch.roll(m.valid, -d, dims=-1)
+            for fi, d in enumerate(deltas)])
+    styp = st.type
+    bsign = torch.where(
+        styp == ACTIVE_CONTRACT_THEN_EXPAND, -0.2,
+        torch.where(styp == ACTIVE_EXPAND_THEN_CONTRACT, 0.2, 0.0)).to(f32)
+    fields = dict(k=st.k, rest=st.rest, damping=st.damping, type=bsign,
+                  omega=st.omega)
+    # a family without springs reads lane 0: harmless, its k is 0 there
+    lane0 = torch.argmax(st.mask.to(torch.uint8), dim=1)[:, None]
+    fparams = torch.stack([
+        torch.gather(fields[f], 1, lane0)[:, 0].to(f32) if uniform
+        else torch.zeros(len(deltas), dtype=f32, device=dev)
+        for f, uniform in zip(_SCALAR_ROWS, shape.stencil_uniform)])
+    inv = dict(fparams=fparams.contiguous())
+    plan = _plan(shape)
+    if "k" not in plan:
+        bits = torch.zeros(shape.n_masses, dtype=torch.int32, device=dev)
+        for fi in range(len(deltas)):
+            bits = bits | (pair_ok[fi].to(torch.int32) << fi)
+        inv["bits"] = bits
+    else:
+        inv["k"] = torch.where(pair_ok, st.k, 0.0).to(f32)
+    if "rest" in plan:
+        inv["rest"] = st.rest.to(f32)
+    if shape.has_actuated:
+        # invalid pairs never actuate (reference early-return, sim.cu:1163)
+        arate = torch.where(styp == ACTUATED_EXPAND, st.rate,
+                            torch.where(styp == ACTUATED_CONTRACT, -st.rate,
+                                        0.0))
+        aratedt = torch.where(pair_ok, arate, 0.0).to(f32) * state.dt.to(f32)
+        abound = torch.where(
+            styp == ACTUATED_EXPAND, st.l_max,
+            torch.where(styp == ACTUATED_CONTRACT, st.l_min, 0.0)).to(f32)
+        nz = aratedt != 0
+        sstop = torch.where(
+            nz, torch.ceil((abound - st.rest.to(f32))
+                           / torch.where(nz, aratedt, 1.0)), 0.0)
+        inv["aratedt"], inv["sstop"] = aratedt, torch.clamp(sstop, min=0.0)
+    if "damping" in plan:
+        inv["damping"] = torch.where(pair_ok, st.damping, 0.0).to(f32)
+    if "bsign" in plan:
+        inv["bsign"] = bsign
+    if "bomega" in plan:
+        inv["bomega"] = st.omega.to(f32)
+    move = m.valid & ~m.fixed
+    inv.update(
+        move=move,
+        fixed=(~move).to(f32),
+        minv=(1.0 / m.m).to(f32),
+        const_f=(m.extern_force + m.m * state.g[:, None]).to(f32),
+        drag=m.drag.to(f32),
+        scal=torch.stack([state.dt.float(), state.t.float()]))
+    planes = torch.zeros((max(shape.n_planes, 1), 6), dtype=f32, device=dev)
+    if shape.n_planes:
+        g = state.gcon
+        planes[: shape.n_planes] = torch.cat([
+            g.plane_normal, g.plane_offset[:, None], g.plane_fk[:, None],
+            g.plane_fs[:, None]], dim=1).to(f32)
+    balls = torch.zeros((max(shape.n_balls, 1), 4), dtype=f32, device=dev)
+    if shape.n_balls:
+        balls[: shape.n_balls] = torch.cat([
+            state.gcon.ball_center, state.gcon.ball_radius[:, None]],
+            dim=1).to(f32)
+    inv["planes"], inv["balls"] = planes, balls
+    return inv
+
+
+def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
+    """The force on every mass at (pos, vel), in the TPU body's order:
+    families (``family_forces``, pallas_tiled.py:673-738), the constant
+    force, then planes, balls and drag (``mass_tail`` :748)."""
+    fp = inv["fparams"]
+    nc = shape.config.normal_coeff
+    fw = torch.zeros_like(pos)
+    for fi, d in enumerate(shape.stencil_deltas):
+        diff = torch.roll(pos, -d, dims=-1) - pos
+        d2 = torch.sum(diff * diff, dim=0)
+        ln = torch.where(d2 > 0, torch.sqrt(d2), 0.0)
+        inv_ln = torch.where(ln > 0, 1.0 / torch.where(ln > 0, ln, 1.0), 0.0)
+        if "bits" in inv:
+            k = fp[0, fi] * ((inv["bits"] >> fi) & 1).to(pos.dtype)
+        else:
+            k = inv["k"][fi]
+        rest = inv["rest"][fi] if "rest" in inv else fp[1, fi]
+        if shape.has_actuated:
+            adv = torch.clamp(inv["sstop"][fi], max=adv_base + 1.0)
+            rest = rest + adv * inv["aratedt"][fi]
+        if shape.has_breathing:
+            bsign = inv["bsign"][fi] if "bsign" in inv else fp[3, fi]
+            bomega = inv["bomega"][fi] if "bomega" in inv else fp[4, fi]
+            rest = rest * (1.0 + bsign * torch.sin(bomega * t_now))
+        mag = k * (rest - ln)
+        if shape.has_damping:
+            vr = torch.roll(vel, -d, dims=-1)
+            axial = torch.sum((vel - vr) * diff, dim=0) * inv_ln
+            mag = mag + axial * inv["damping"][fi]
+        f = (mag * inv_ln) * diff
+        fw = fw - f + torch.roll(f, d, dims=-1)
+    f_acc = fw + inv["const_f"]
+    planes, balls = inv["planes"], inv["balls"]
+    for p in range(shape.n_planes):
+        nvec = planes[p, :3][:, None]
+        off, fk, fs = planes[p, 3], planes[p, 4], planes[p, 5]
+        disp = torch.sum(pos * nvec, dim=0) - off
+        inside = disp < 0
+        if shape.plane_friction[p]:
+            fn_mag = torch.sum(f_acc * nvec, dim=0)
+            f_n = fn_mag * nvec
+            has_fric = (fs > 0) | (fk > 0)
+            v_perp = vel - torch.sum(vel * nvec, dim=0) * nvec
+            v_norm = torch.sqrt(torch.sum(v_perp * v_perp, dim=0))
+            kinetic = v_norm > 1e-16
+            fn_abs = torch.abs(fn_mag)
+            safe_vn = torch.where(kinetic, v_norm, 1.0)
+            f_kin = f_acc - v_perp * (fk * fn_abs / safe_vn)
+            f_perp = f_acc - f_n
+            fp_norm = torch.sqrt(torch.sum(f_perp * f_perp, dim=0))
+            f_sta = torch.where(fs * fn_abs > fp_norm, f_acc - f_perp, f_acc)
+            f_fric = torch.where(kinetic, f_kin, f_sta)
+            f_acc = torch.where(inside & has_fric, f_fric, f_acc)
+        contact = torch.where(inside, -disp * nc, 0.0)
+        f_acc = f_acc + contact * nvec
+    for b in range(shape.n_balls):
+        dvec = pos - balls[b, :3][:, None]
+        dist = torch.sqrt(torch.sum(dvec * dvec, dim=0))
+        safe = torch.where(dist > 0, dist, 1.0)
+        # a tensor numerator: PyTorch evaluates float / tensor as
+        # reciprocal(tensor) * float, two roundings where the kernel has one
+        push = torch.where((dist <= balls[b, 3]) & (dist > 0),
+                           safe.new_full((), nc) / safe, 0.0)
+        f_acc = f_acc + dvec * push
+    if shape.has_drag:
+        vn = torch.sqrt(torch.sum(vel * vel, dim=0))
+        f_acc = f_acc - inv["drag"] * vn * vel
+    return f_acc
+
+
+def tiled_step_plain(shape: SceneShape, inv: dict, pos, vel, acc,
+                     step: int):
+    """Step ``step`` of a chunk (its index from the chunk's start), plain:
+    one force evaluation and the "single" integrate tail, or under RK2 the
+    rk2a predictor and the rk2b corrector (``pallas_tiled.py:852-930``).
+    Frozen masses keep pos and vel and get acc 0.  Returns (pos, vel,
+    acc)."""
+    cfg = shape.config
+    dt, t0 = inv["scal"][0], inv["scal"][1]
+    frozen, minv = inv["fixed"], inv["minv"]
+    keep = 1.0 - frozen
+    if cfg.integrator is Integrator.RK2:
+        # rest advances once per force pass: 2 step, then 2 step + 1
+        f = _forces(shape, inv, pos, vel, t0 + step * dt, 2.0 * step)
+        a1 = f * minv
+        ph = (pos + 0.5 * vel * dt) * keep + pos * frozen
+        vh = (vel + 0.5 * a1 * dt) * keep + vel * frozen
+        f = _forces(shape, inv, ph, vh, t0 + (step + 0.5) * dt,
+                    2.0 * step + 1.0)
+        new_acc = f * minv
+        # without local constraints the predictor's velocity is vel itself
+        v2 = (vel + new_acc * dt) * keep + vel * frozen
+        p2 = pos + vh * dt * keep
+        return p2, v2, new_acc * keep
+    f = _forces(shape, inv, pos, vel, t0 + step * dt, float(step))
+    new_acc = f * minv
+    if cfg.integrator is Integrator.VERLET:
+        v2 = vel + 0.5 * (acc + new_acc) * dt
+        v2 = v2 * keep + vel * frozen
+        p2 = pos + (v2 * dt + 0.5 * new_acc * dt * dt) * keep
+    else:
+        v2 = vel + new_acc * dt
+        if cfg.velocity_clamp:
+            vn = torch.sqrt(torch.sum(v2 * v2, dim=0))
+            v2 = torch.where(vn > 1.0, v2 / torch.where(vn > 0, vn, 1.0), v2)
+        v2 = v2 * keep + vel * frozen
+        p2 = pos + v2 * dt * keep
+    return p2, v2, new_acc * keep
+
+
+def finish_tiled_chunk(shape: SceneShape, state: SimState, inv: dict,
+                       n_steps: int, pos, vel, acc) -> SimState:
+    """The chunk's output state (``pallas_tiled.py:1885-1903``): frozen
+    masses get their old acc back, T advances for moving masses, and
+    ACTUATED rest takes the closed form at the chunk's end (two advances
+    per dt under RK2)."""
+    acc = torch.where(inv["move"], acc, state.masses.acc)
+    rest = state.stencil.rest
+    if shape.has_actuated:
+        n_adv = n_steps * (2 if shape.config.integrator is Integrator.RK2
+                           else 1)
+        rest = rest + torch.clamp(inv["sstop"], max=float(n_adv)) \
+            * inv["aratedt"]
+    return _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest)
+
+
+def tiled_chunk_plain(shape: SceneShape, state: SimState,
+                      n_steps: int) -> SimState:
+    """Plain PyTorch version of the tiled chunk, on whatever device
+    ``state`` lives on: ``n_steps // mega_seg(shape)`` segments of
+    ``mega_seg`` steps, then the tail, each step ``tiled_step_plain`` at its
+    index in the chunk, as the kernels' launches number them."""
+    inv = prep_tiled_inputs(shape, state)
+    m = state.masses
+    pos, vel, acc = m.pos, m.vel, m.acc
+    k_seg = mega_seg(shape)
+    n_seg = n_steps // k_seg if k_seg else 0
+    for seg in range(n_seg):
+        for s in range(k_seg):
+            pos, vel, acc = tiled_step_plain(shape, inv, pos, vel, acc,
+                                             seg * k_seg + s)
+    for step in range(n_seg * k_seg, n_steps):
+        pos, vel, acc = tiled_step_plain(shape, inv, pos, vel, acc, step)
+    return finish_tiled_chunk(shape, state, inv, n_steps, pos, vel, acc)
+
+
+class _TiledArgs(ctypes.Structure):
+    """Mirror of ``struct TiledArgs`` in ``csrc/tiled_body.cuh``."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in (
+        "n", "nf", "n_planes", "n_balls", "clamp", "has_damping",
+        "has_breathing", "has_actuated", "has_drag")]
+        + [("normal_coeff", ctypes.c_float),
+           ("deltas", ctypes.c_int * _MAX_FAMILIES)]
+        + [(f, ctypes.c_void_p) for f in (
+            "scal", "fparams", "planes", "balls", "bits", "k", "rest",
+            "aratedt", "sstop", "damping", "bsign", "bomega", "cforce",
+            "minv", "fixed", "drag")])
+
+
+class _TiledChunk(ctypes.Structure):
+    """Mirror of ``struct TiledChunk`` in ``csrc/tiled_step.cu``."""
+
+    _fields_ = ([("a", _TiledArgs)]
+                + [(f, ctypes.c_int) for f in (
+                    "n_steps", "k_seg", "integrator", "device")]
+                + [(f, ctypes.c_void_p) for f in (
+                    "pos_in", "vel_in", "acc_in", "pos_out", "vel_out",
+                    "acc_out", "pos_tmp", "vel_tmp", "acc_tmp", "pos_half",
+                    "vel_half")])
+
+
+def _lib():
+    from .. import _build
+    lib = _build.load("tiled_step")
+    lib.titan_tiled_chunk.argtypes = [ctypes.POINTER(_TiledChunk),
+                                      ctypes.c_void_p]
+    lib.titan_tiled_chunk.restype = ctypes.c_int
+    lib.titan_tiled_coop_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.titan_tiled_coop_blocks.restype = ctypes.c_int
+    return lib
+
+
+def coop_blocks(integrator: Integrator, device=None) -> int:
+    """The co-resident block limit of the resident-grid kernel that
+    ``integrator`` launches: the largest grid a cooperative launch takes."""
+    dev = torch.device("cuda", device if device is not None
+                       else torch.cuda.current_device())
+    got = _lib().titan_tiled_coop_blocks(_INTEGRATOR_CODE[integrator],
+                                         dev.index)
+    if got <= 0:
+        raise RuntimeError(f"tiled_step: cooperative launch unavailable on "
+                           f"{dev} (CUDA error {-got})")
+    return got
+
+
+def _tiled_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
+                      k_seg: int) -> SimState:
+    """The kernel chunk: ``n_steps // k_seg`` resident-grid launches, then
+    one launch per remaining step (two for RK2); ``k_seg`` is 0 (one
+    launch per step throughout) or ``MEGA_SEG``."""
+    reason = tiled_reject_reason(shape)
+    if reason is not None:
+        raise ValueError(f"tiled_chunk: scene outside the envelope: {reason}")
+    cfg = shape.config
+    m = state.masses
+    dev = m.pos.device
+    n, nf = shape.n_masses, len(shape.stencil_deltas)
+    inv = prep_tiled_inputs(shape, state)
+    vec, fam = (3, n), (nf, n)
+    a = _TiledArgs()
+    a.n, a.nf = n, nf
+    a.n_planes, a.n_balls = shape.n_planes, shape.n_balls
+    a.clamp = int(cfg.velocity_clamp)
+    a.has_damping, a.has_breathing = (int(shape.has_damping),
+                                      int(shape.has_breathing))
+    a.has_actuated, a.has_drag = int(shape.has_actuated), int(shape.has_drag)
+    a.normal_coeff = float(cfg.normal_coeff)
+    a.deltas[:nf] = shape.stencil_deltas
+    kern = "tiled"
+    a.scal = _checked("scal", inv["scal"], (2,), kernel=kern)
+    a.fparams = _checked("fparams", inv["fparams"], (5, nf), kernel=kern)
+    a.planes = _checked("planes", inv["planes"], (max(shape.n_planes, 1), 6),
+                        kernel=kern)
+    a.balls = _checked("balls", inv["balls"], (max(shape.n_balls, 1), 4),
+                       kernel=kern)
+    if "bits" in inv:
+        a.bits = _checked("bits", inv["bits"], (n,), torch.int32, kern)
+    for name in ("k", "rest", "aratedt", "sstop", "damping", "bsign",
+                 "bomega"):
+        if name in inv:
+            setattr(a, name, _checked(name, inv[name], fam, kernel=kern))
+    a.cforce = _checked("const_f", inv["const_f"], vec, kernel=kern)
+    a.minv = _checked("minv", inv["minv"], (n,), kernel=kern)
+    a.fixed = _checked("fixed", inv["fixed"], (n,), kernel=kern)
+    a.drag = _checked("drag", inv["drag"], (n,), kernel=kern)
+
+    empty = lambda s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    out = [empty(vec) for _ in range(3)]
+    tmp = [empty(vec) for _ in range(3)]
+    rk2 = cfg.integrator is Integrator.RK2
+    half = [empty(vec) for _ in range(2)] if rk2 else [None, None]
+    c = _TiledChunk()
+    c.a = a
+    c.n_steps, c.k_seg = n_steps, k_seg
+    c.integrator = _INTEGRATOR_CODE[cfg.integrator]
+    c.device = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    c.pos_in = _checked("pos", m.pos, vec, kernel=kern)
+    c.vel_in = _checked("vel", m.vel, vec, kernel=kern)
+    c.acc_in = _checked("acc", m.acc, vec, kernel=kern)
+    c.pos_out, c.vel_out, c.acc_out = (t.data_ptr() for t in out)
+    c.pos_tmp, c.vel_tmp, c.acc_tmp = (t.data_ptr() for t in tmp)
+    c.pos_half, c.vel_half = (None if t is None else t.data_ptr()
+                              for t in half)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().titan_tiled_chunk(ctypes.byref(c), stream)
+    if rc != 0:
+        raise RuntimeError(f"tiled_step kernel launch failed: CUDA error {rc}")
+    # The temporaries are freed when this frame drops them, while the
+    # kernels may still run: safe, because the caching allocator reuses
+    # memory freed on this stream only for later work on it.
+    n_seg = n_steps // k_seg if k_seg else 0
+    tiled_chunk.mega_launches += n_seg
+    tiled_chunk.step_launches += (n_steps - n_seg * k_seg) * (2 if rk2 else 1)
+    return finish_tiled_chunk(shape, state, inv, n_steps, *out)
+
+
+def tiled_chunk(shape: SceneShape, state: SimState, n_steps) -> SimState:
+    """``n_steps`` tiled steps: the CUDA kernels for state on the card, the
+    plain version for state on the CPU.  ``tiled_chunk.mega_launches``
+    counts resident-grid launches, ``tiled_chunk.step_launches`` per-step
+    launches (two per RK2 step)."""
+    n_steps = int(n_steps)
+    if n_steps <= 0:
+        return state
+    dev = state.masses.pos.device
+    if dev.type == "cpu":
+        return tiled_chunk_plain(shape, state, n_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"tiled_chunk: state on {dev}; expected cpu or cuda")
+    return _tiled_chunk_cuda(shape, state, n_steps, mega_seg(shape))
+
+
+tiled_chunk.mega_launches = 0
+tiled_chunk.step_launches = 0

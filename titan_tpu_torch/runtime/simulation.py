@@ -126,6 +126,7 @@ class Simulation:
         self._journal: Optional[EditJournal] = None
         self._n_marshaled = 0      # device-resident real mass rows
         self._s_marshaled = 0      # springs covered by _sp_family/_sp_slot
+        self._fam_scalars = {}     # uniform-field family scalars (or None)
         self._chunk = None
         self._rate: Optional[float] = None   # measured steps/s of _chunk
         self._timed_chunks = 0               # dispatches since _chunk built
@@ -389,8 +390,8 @@ class Simulation:
         self._sp_slot[rem_idx] = np.arange(s_rem)
 
         # ---- static shape; per-field "uniform within every family" flags
-        # compared in the device dtype, as the JAX package computes them
-        # (computed at marshal only: no kernel of the port reads them yet)
+        # compared in the device dtype, as the JAX package computes them;
+        # a push that breaks one clears it (_check_uniform_break)
         host_fields = {"k": st.k, "rest": st.rest, "damping": st.damping,
                        "type": st.s_type, "omega": st.omega,
                        "l_max": st.l_max, "l_min": st.l_min, "rate": st.rate}
@@ -419,6 +420,7 @@ class Simulation:
             mask_np[fi, lpos] = True
         mask_dev = self._tensor(mask_np)
         stencil_arrays = {"mask": mask_dev}
+        fam_scalars = {}
         for f, host in host_fields.items():
             fdt = field_dt.get(f, dt)
             if uniform[f]:
@@ -426,6 +428,7 @@ class Simulation:
                 scalars = np.array(
                     [host[sidx[0]] if len(sidx) else 0
                      for _, sidx, _ in families], dtype=fdt)
+                fam_scalars[f] = scalars
                 stencil_arrays[f] = torch.where(
                     mask_dev, self._tensor(scalars, fdt)[:, None],
                     torch.zeros((), dtype=getattr(torch, np.dtype(fdt).name),
@@ -471,6 +474,7 @@ class Simulation:
         self._timed_chunks = 0
         self._n_marshaled = n
         self._s_marshaled = s
+        self._fam_scalars = {f: fam_scalars.get(f) for f in _UNIFORM_FIELDS}
         self._journal = EditJournal()
         self._structure_dirty = False
         get_logger().debug("marshalled scene shape: %s", shape)
@@ -830,6 +834,7 @@ class Simulation:
                 or (needs_actuated and not self._shape.has_actuated)
                 or (needs_damping and not self._shape.has_damping)):
             self._upgrade_shape()
+        self._check_uniform_break(idx)
         fam, slot = self._sp_family[idx], self._sp_slot[idx]
         in_st = fam >= 0
         in_rem = (fam < 0) & (slot >= 0)
@@ -857,6 +862,43 @@ class Simulation:
                 self._state = dataclasses.replace(
                     self._state,
                     **{tree_name: dataclasses.replace(tree, **upd)})
+
+    def _check_uniform_break(self, idx: np.ndarray) -> None:
+        """A pushed stencil spring whose parameter differs from its
+        family's scalar breaks that field's family-uniform flag
+        (``titan_tpu/runtime/simulation.py::_check_uniform_break``).  The
+        tiled step reads ONE scalar per uniform family, taken from the
+        family's first masked lane (``ops/tiled_step.py::
+        prep_tiled_inputs``), so a per-slot push would silently not take
+        effect there.  Clear the broken flags (the dense [F, N] arrays the
+        push writes already hold the right values) and pick the chunk for
+        the new shape."""
+        shape = self._shape
+        if shape is None or not any(shape.stencil_uniform):
+            return
+        fam = self._sp_family[idx]
+        in_st = fam >= 0
+        if not np.any(in_st):
+            return
+        st, dt = self._store, self.config.np_dtype
+        fis, rows = fam[in_st], np.asarray(idx)[in_st]
+        uniform = list(shape.stencil_uniform)
+        for i, f in enumerate(_UNIFORM_FIELDS):
+            scal = self._fam_scalars.get(f)
+            if not uniform[i] or scal is None:
+                continue
+            vals = getattr(st, "s_type" if f == "type" else f)[rows].astype(
+                np.int8 if f == "type" else dt)
+            if np.any(vals != scal[fis]):
+                uniform[i] = False
+                self._fam_scalars[f] = None
+        if tuple(uniform) == shape.stencil_uniform:
+            return
+        self._shape = dataclasses.replace(shape,
+                                          stencil_uniform=tuple(uniform))
+        self._chunk = _chunk_for(self._shape)
+        self._rate = None
+        self._timed_chunks = 0
 
     def _sync_full_preserving_edits(self) -> None:
         """Pull the full device state into the host store without
