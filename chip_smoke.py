@@ -109,6 +109,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   p. time each integrator's tiled chunk at 100^3 (CUDA events), each
      kernel's device time per launch (torch.profiler) beside its bound,
      the plain version, and the fused kernel on the same state;
+  q. build csrc/tiled_adjoint.cu (the tiled adjoint's trace replay and
+     backward kernels) beside the others, all six nvcc started together,
+     and print the co-resident block limit of its resident-grid kernels
+     (the replay's, the backward's);
+  r. on the 12 tiled scenes: the trace replay over 37 steps (two
+     resident-grid segments and a tail) bitwise tiled_trace_run_plain and
+     its last entry bitwise the kernel chunk's state; the per-step
+     backward on 20 of those entries against tiled_bwd_run_plain, bitwise
+     for Euler and Verlet, within TOL_BWD_ELEM per element for RK2; the
+     resident-grid backward (Euler, Verlet) bitwise the per-step launches;
+  s. the 100^3 gradient path from phase o's landed state, under Euler,
+     Verlet and RK2: diff.grad_rollout over 200 steps with the default
+     segment (50) and torch.autograd.grad over pos, vel, k, rest, m,
+     extern_force and g, every count set to 0 just before and read just
+     after.  The route must be the tiled adjoint, the forward, replay and
+     backward launches exactly what the segments give, with no fused
+     launch, no fused-adjoint launch and no eager step, and every gradient
+     finite.  Then phase r's checks from that state; then the tiled
+     adjoint against the fused adjoint over 32 steps: both backward sweeps
+     bitwise on one trace, the two forwards compared, and the gradients
+     within TOL_GRAD_CROSS (Verlet) and TOL_GRAD_CROSS_CLAMP (Euler with
+     the velocity clamp);
+  t. time each integrator's gradient path at 100^3: forward + backward per
+     step of the tiled adjoint and of the fused adjoint on the same state
+     (host clock), and each tiled adjoint kernel's device time per launch
+     (torch.profiler) beside its bound and its plain version;
   5. print the kernels line (one entry per kernel and path), the card's
      name and power limit, and last the result line.
 
@@ -445,6 +471,22 @@ def time_path(name, shape, state):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
+def print_coop_blocks(titan):
+    """The co-resident block limit (the largest cooperative grid) of every
+    resident-grid kernel: the tiled step's, the tiled adjoint replay's and
+    the tiled adjoint's backward (Euler and Verlet)."""
+    from titan_tpu_torch.ops import adjoint_tiled, tiled_step
+    for integ in (titan.Integrator.EULER, titan.Integrator.VERLET,
+                  titan.Integrator.RK2):
+        print(f"tiled resident-grid kernel ({integ.name}): "
+              f"{tiled_step.coop_blocks(integ)} co-resident blocks of 256 "
+              "threads (the largest cooperative grid); its trace replay "
+              f"{adjoint_tiled.coop_blocks('trace', integ)}"
+              + ("" if integ is titan.Integrator.RK2 else
+                 "; resident-grid backward "
+                 f"{adjoint_tiled.coop_blocks('bwd', integ)}"))
+
+
 def build_kernels(names):
     """Build each csrc/<name>.cu with its own nvcc, all started together;
     prints each build's seconds and ptxas register / spill lines."""
@@ -539,12 +581,15 @@ def grad_loss_weights(state, seed=11):
     return [x * state.masses.valid for x in w]
 
 
-def run_grad(shape, state, rollout, n_steps=GRAD_STEPS):
+def run_grad(shape, state, rollout, n_steps=GRAD_STEPS, weights=None):
     """loss = weights . (final pos, vel) through `rollout`, and its
-    gradients over the leaves; synchronised."""
+    gradients over the leaves; synchronised.  ``weights`` is
+    grad_loss_weights(state), made here where not given: a timed caller
+    makes them outside its clock (numpy draws the [3, N] normals on the
+    host, ~0.1 s each at 100^3)."""
     import torch
     leaves, st = grad_leaves(state)
-    wpos, wvel = grad_loss_weights(state)
+    wpos, wvel = weights if weights is not None else grad_loss_weights(state)
     out = rollout(shape, st, n_steps)
     loss = (torch.sum(out.masses.pos * wpos)
             + torch.sum(out.masses.vel * wvel))
@@ -669,25 +714,28 @@ def adjoint_bound_ms(shape, state, seg):
     return out
 
 
-def profile_grad_path(name, shape, state):
-    """One forward + backward of the gradient path under torch.profiler:
-    the device's busy share of the wall time, the adjoint kernels' share
-    of the device time, host-to-device copies, and the host operations
-    that take the most time."""
+def profile_grad_path(name, shape, state, segment=SEG):
+    """One forward + backward of the gradient path (grad_rollout with
+    `segment`, None for its default) under torch.profiler: the device's
+    busy share of the wall time, the port's kernels' share of the device
+    time, host-to-device copies, and the host operations that take the
+    most time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from titan_tpu_torch import diff
+    w = grad_loss_weights(state)
     run_grad(shape, state, lambda sh, st, k: diff.grad_rollout(
-        sh, st, k, segment=SEG))
+        sh, st, k, segment=segment), weights=w)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_grad(shape, state, lambda sh, st, k: diff.grad_rollout(
-            sh, st, k, segment=SEG))
+            sh, st, k, segment=segment), weights=w)
         wall_us = (time.perf_counter() - t0) * 1e6
     dev, ours, h2d = 0.0, 0.0, 0
     ours_names = ("fused_step_kernel", "adjoint_trace_kernel",
-                  "bwd_force_kernel", "bwd_spring_kernel", "bwd_mid_kernel")
+                  "bwd_force_kernel", "bwd_spring_kernel", "bwd_mid_kernel",
+                  "tiled_")
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue       # host ops also carry their kernels' device time
@@ -716,18 +764,10 @@ def time_adjoint(name, shape, state, fast=False):
     from titan_tpu_torch import diff
     from titan_tpu_torch.ops import adjoint
 
-    def host_ms(fn, reps=3):
-        ts = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return sorted(ts)[len(ts) // 2]
+    w = grad_loss_weights(state)
 
     def grad_run(rollout, k):
-        return lambda: run_grad(shape, state, rollout, k)
+        return lambda: run_grad(shape, state, rollout, k, weights=w)
 
     fb_ms = host_ms(grad_run(lambda sh, st, k: diff.grad_rollout(
         sh, st, k, segment=SEG), GRAD_STEPS)) / GRAD_STEPS
@@ -1961,7 +2001,8 @@ def time_tiled(name, shape, state):
 
 
 def tiled_phases(titan, kernels):
-    """Phases n-p; appends the tiled entries to ``kernels``."""
+    """Phases n-p; appends the tiled entries to ``kernels``.  Returns the
+    landed 100^3 (shape, state)."""
     import torch
     from titan_tpu_torch.config import Integrator
     from titan_tpu_torch.ops import fused_step, tiled_step
@@ -2016,6 +2057,520 @@ def tiled_phases(titan, kernels):
             replaces="titan_tpu/ops/pallas_tiled.py:1051",
             launches=c["step"], max_abs_err=max(e, worst_small),
             **t["tiled_step_kernel"], library_ms=None))
+    return shape, state
+
+
+# ---------------------------------------------------------------------------
+# The tiled adjoint (phases q-t): the trace replay and both backward kernels
+# against their plain versions, the 100^3 gradient path, timing
+# ---------------------------------------------------------------------------
+
+# the tiled backward (B7) against tiled_bwd_run_plain on one trace: Euler
+# and Verlet bitwise (the kernels run the plain version's operations in
+# its order); RK2 per element, |d| <= TOL_BWD_ELEM (|plain| + 1e-3 max
+# |plain|): its two passes' gradients reach the accumulators one after the
+# other where the plain version adds them first, and the floor covers
+# elements that are sums of cancelling terms
+TOL_BWD_ELEM = 1e-4
+# the trace replay's segment (two resident-grid segments and a tail) and
+# the backward's segment in the kernel-vs-plain checks
+TRACE_STEPS, BWD_STEPS = 37, 20
+# the tiled adjoint's gradients against the fused adjoint's on the landed
+# 100^3 state over CROSS_GRAD_STEPS steps: the normalised max error of
+# tests/test_adjoint_tiled.py::_check_grads,
+# max |tiled - fused| / max |fused| per gradient.  TOL_GRAD_CROSS under
+# Verlet.  Under Euler with the velocity clamp, TOL_GRAD_CROSS_CLAMP: the
+# clamp's Jacobian jumps at |v| = 1 (identity below, a projection above),
+# the landed lattice has masses sliding at the clamp speed, and a one-ulp
+# difference between the two forwards' force sums puts such a mass on the
+# other side of the jump, which changes its gradient by O(1); the count of
+# such masses is printed.  It is the bound the two forwards are held to
+# (TOL_CROSS)
+TOL_GRAD_CROSS, TOL_GRAD_CROSS_CLAMP, CROSS_GRAD_STEPS = 2e-4, 2e-2, 32
+GRAD_NAMES = ("pos", "vel", "k", "rest", "m", "extern_force", "g")
+
+
+def adjoint_counters():
+    """{name: (object, attribute)} of every launch and step count the
+    tiled gradient path must read."""
+    from titan_tpu_torch.ops import adjoint, adjoint_tiled, fused_step
+    from titan_tpu_torch.ops import step as tstep
+    from titan_tpu_torch.ops import tiled_step
+    tc, tr, tb = (tiled_step.tiled_chunk, adjoint_tiled.tiled_trace_run,
+                  adjoint_tiled.tiled_bwd_run)
+    return {"fwd_mega": (tc, "mega_launches"),
+            "fwd_step": (tc, "step_launches"),
+            "trace_mega": (tr, "mega_launches"),
+            "trace_step": (tr, "step_launches"),
+            "bwd_mega": (tb, "mega_launches"),
+            "bwd_step": (tb, "step_launches"),
+            "fused": (fused_step.fused_chunk, "launches"),
+            "adjoint_trace": (adjoint.trace_run, "launches"),
+            "adjoint_bwd": (adjoint.bwd_run, "launches"),
+            "eager": (tstep.run_eager, "steps")}
+
+
+def zero_adjoint_counts():
+    for obj, attr in adjoint_counters().values():
+        setattr(obj, attr, 0)
+
+
+def read_adjoint_counts():
+    return {k: getattr(obj, attr)
+            for k, (obj, attr) in adjoint_counters().items()}
+
+
+def tiled_adjoint_vs_plain(shape, state, label, bad):
+    """B6 bitwise tiled_trace_run_plain over TRACE_STEPS steps (and its
+    last entry bitwise the kernel chunk's state); B7's per-step launches
+    against tiled_bwd_run_plain on the first BWD_STEPS entries (bitwise for
+    Euler and Verlet, TOL_BWD_ELEM per element for RK2); B8 (Euler,
+    Verlet) bitwise B7.  Appends failures to `bad`; returns (trace max
+    |d|, backward max |d|, backward max relative error, B7 bitwise)."""
+    import torch
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    from titan_tpu_torch.ops import tiled_step
+    rk2 = shape.config.integrator.name == "RK2"
+    trace = at.tiled_trace_run(shape, state, TRACE_STEPS)
+    want = at.tiled_trace_run_plain(shape, state, TRACE_STEPS)
+    last = tiled_step.tiled_chunk(shape, state, TRACE_STEPS - 1)
+    torch.cuda.synchronize()
+    dtr = float((trace - want).abs().max())
+    same = bool(torch.equal(trace, want)) and bool(torch.equal(
+        trace[-1], torch.cat([last.masses.pos, last.masses.vel])))
+    if not same:
+        bad.append(f"{label}: trace differs from tiled_trace_run_plain by "
+                   f"{dtr:.3e}")
+    del want
+    trace = trace[:BWD_STEPS]
+    inv = tiled_step.prep_tiled_inputs(shape, state)
+    cts = seeded_cotangents(shape.n_masses, trace.device)
+    b7 = at._tiled_bwd_cuda(shape, state, trace, *cts, inv, mega=False)
+    ref = at.tiled_bwd_run_plain(shape, state, trace, *cts, inv)
+    torch.cuda.synchronize()
+    ok = ref["pair_ok"]
+    abs_err, rel, bitwise, fails = 0.0, {}, True, []
+    for key, b in ref.items():
+        if key == "pair_ok":
+            continue
+        a = b7[key]
+        if key in ("k", "damping", "aratedt"):   # masked in assemble_ct
+            a, b = torch.where(ok, a, 0.0), torch.where(ok, b, 0.0)
+        if not bool(torch.isfinite(a).all()):
+            fails.append(f"non-finite {key}")
+        d = (a - b).abs()
+        bitwise = bitwise and bool(torch.equal(a, b))
+        abs_err = max(abs_err, float(d.max()))
+        scale = max(float(b.abs().max()), 1e-30)
+        if rk2:
+            rel[key] = float((d / (b.abs() + 1e-3 * scale)).max())
+            if rel[key] > TOL_BWD_ELEM:
+                fails.append(f"{key} {rel[key]:.3e}")
+        else:
+            rel[key] = float(d.max()) / scale
+            if not torch.equal(a, b):
+                fails.append(f"{key} not bitwise ({rel[key]:.3e})")
+    kind = "per element" if rk2 else "max |d| / max |plain|"
+    print(f"tiled adjoint vs plain [{label}]: trace ({TRACE_STEPS} steps) "
+          + ("bitwise" if same else f"DIFFERS ({dtr:.3e})")
+          + f"; per-step backward ({BWD_STEPS} steps) "
+          + ("bitwise" if bitwise else kind + ": " + ", ".join(
+              f"{k} {v:.2e}" for k, v in rel.items()))
+          + (f"  FAIL {fails}" if fails else ""))
+    if fails:
+        bad.append(f"{label}: per-step backward kernels disagree with "
+                   f"tiled_bwd_run_plain: {fails}")
+    if at.mega_adjoint_ok(shape):
+        b8 = at._tiled_bwd_cuda(shape, state, trace, *cts, inv, mega=True)
+        torch.cuda.synchronize()
+        diff = [k for k in ref if k != "pair_ok"
+                and not torch.equal(b8[k], b7[k])]
+        print(f"tiled adjoint resident-grid backward vs per-step launches "
+              f"[{label}]: " + ("bitwise" if not diff else f"DIFFER in "
+                                f"{diff}"))
+        if diff:
+            bad.append(f"{label}: the resident-grid backward differs from "
+                       f"the per-step launches in {diff}")
+    return dtr, abs_err, max(rel.values()), bitwise
+
+
+def tiled_adjoint_small_scenes(titan):
+    """Phase r: the three kernels against their plain versions on the 12
+    tiled scenes.  Returns the worst (trace, backward abs, backward rel)
+    errors of the RK2 scenes (key True) and of the others (key False)."""
+    bad, worst = [], {False: [0.0] * 3, True: [0.0] * 3}
+    for variant in TILED_VARIANTS:
+        shape, state = tiled_variant_scene(titan, variant)
+        e = tiled_adjoint_vs_plain(shape, state, f"tiled {variant}", bad)
+        rk2 = shape.config.integrator.name == "RK2"
+        worst[rk2] = [max(w, x) for w, x in zip(worst[rk2], e[:3])]
+    check(not bad, "; ".join(bad))
+    return worst
+
+
+def expected_grad_counts(shape, n_steps):
+    """The launch counts a tiled gradient rollout of n_steps must give with
+    the default segment: per segment the forward's and the replay's
+    resident-grid and per-step launches, and B8's one launch (Euler,
+    Verlet) or B7's per-step launches (RK2); nothing else."""
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    from titan_tpu_torch.ops import tiled_step
+    seg = at.default_segment(shape, n_steps)
+    n_seg = n_steps // seg
+    mega, step = tiled_step.launch_counts(shape, seg, tiled_step.mega_seg(
+        shape))
+    want = dict.fromkeys(adjoint_counters(), 0)
+    want.update(fwd_mega=n_seg * mega, fwd_step=n_seg * step,
+                trace_mega=n_seg * mega, trace_step=n_seg * step)
+    if at.mega_adjoint_ok(shape):
+        want["bwd_mega"] = n_seg
+    else:
+        want["bwd_step"] = n_steps * 5     # RK2: five launches per step
+    return seg, want
+
+
+def tiled_grad_path(name, shape, state):
+    """Phase s for one integrator: diff.grad_rollout + torch.autograd.grad
+    over GRAD_STEPS steps with the default segment, every count set to 0
+    just before and read just after; the counts must be exactly what the
+    segments give, the gradients finite.  Returns the counts."""
+    import torch
+    from titan_tpu_torch import diff
+    check(diff.grad_route(shape) == ("tiled_adjoint", None),
+          f"{name}: gradient route {diff.grad_route(shape)}")
+    seg, want = expected_grad_counts(shape, GRAD_STEPS)
+    zero_adjoint_counts()
+    t0 = time.perf_counter()
+    loss, grads = run_grad(shape, state, diff.grad_rollout)
+    wall = time.perf_counter() - t0
+    got = read_adjoint_counts()
+    print(f"gradient path {name}: {GRAD_STEPS} steps in segments of {seg}: "
+          + ", ".join(f"{k} {v}" for k, v in got.items())
+          + f"; {wall:.3f} s wall (first call)")
+    check(got == want, f"{name}: counts {got}, the segments give {want}")
+    for nm, g in zip(GRAD_NAMES, grads):
+        check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
+              "not finite")
+    print(f"gradient path {name}: loss {float(loss.detach()):.6e}; |grad|max "
+          + ", ".join(f"{nm} {float(g.abs().max()):.3e}"
+                      for nm, g in zip(GRAD_NAMES, grads)))
+    return got
+
+
+def clamp_flips(shape, state, trace_a, trace_b):
+    """Masses that the Euler velocity clamp catches (|v + a dt| > 1, with
+    the force the backward recomputes, in the fused order) at some step of
+    one trace and not at that step of the other; and the masses caught at
+    some step of either."""
+    import torch
+    from titan_tpu_torch.ops import adjoint
+    P = adjoint._prep(shape, state)
+    rg, rs = adjoint.torch_rolls()
+    move = P["fixed"][0] == 0
+    flips = torch.zeros(shape.n_masses, dtype=torch.bool,
+                        device=trace_a.device)
+    ever = flips.clone()
+    for s in range(trace_a.shape[0]):
+        t_now = P["t0"] + s * P["dt"]
+        caught = []
+        for tr in (trace_a, trace_b):
+            f, _ = adjoint._force(tr[s, :3], tr[s, 3:], P, rg, rs, t_now,
+                                  cidx=adjoint._cidx(P, s, 1.0))
+            v1 = tr[s, 3:] + f * P["minv"] * P["dt"]
+            caught.append((torch.sqrt(torch.sum(v1 * v1, dim=0)) > 1.0)
+                          & move)
+        flips |= caught[0] != caught[1]
+        ever |= caught[0] | caught[1]
+    return int(flips.sum()), int(ever.sum())
+
+
+def tiled_vs_fused_grads(name, shape, state, tol):
+    """The tiled adjoint against the fused adjoint from the same state over
+    CROSS_GRAD_STEPS steps.  First both backward sweeps on ONE trace (the
+    fused forward's), which must agree bitwise: the two transposes are the
+    same math on value-identical inputs.  Then the two forwards' traces
+    (their sums run in other orders): the largest state difference, the
+    masses whose side of a contact plane differs at some step and, under
+    the Euler clamp, the masses the clamp catches in one and not the
+    other.  Then the two rollouts' gradients, at `tol`.  Returns the
+    gradients' max normalised error."""
+    import torch
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import adjoint, adjoint_tiled
+    n_steps = CROSS_GRAD_STEPS
+    trace_f = adjoint.trace_run(shape, state, n_steps)
+    cts = seeded_cotangents(shape.n_masses, trace_f.device)
+    g_f = adjoint.bwd_run(shape, state, trace_f, *cts)
+    g_t = adjoint_tiled.tiled_bwd_run(shape, state, trace_f, *cts)
+    torch.cuda.synchronize()
+    ok = g_f["pair_ok"]
+    # k, damping and rate gradients of missing slots are masked in
+    # assemble_ct (they read each side's rest there)
+    masked = lambda k, x: torch.where(ok, x, 0.0) \
+        if k in ("k", "damping", "aratedt") else x  # noqa: E731
+    same = [k for k in g_f if k != "pair_ok"
+            and not torch.equal(masked(k, g_f[k]), masked(k, g_t[k]))]
+    print(f"{name}: the tiled backward and the fused backward on the fused "
+          f"forward's {n_steps}-step trace: "
+          + ("bitwise" if not same else f"DIFFER in {same}"))
+    check(not same, f"{name}: the two backward sweeps differ on one trace "
+          f"in {same}")
+    del g_f, g_t
+    trace_t = adjoint_tiled.tiled_trace_run(shape, state, n_steps)
+    g = state.gcon
+    side = []
+    for tr in (trace_f, trace_t):
+        inside = torch.zeros(tr.shape[0], shape.n_masses, dtype=torch.bool,
+                             device=tr.device)
+        for p in range(shape.n_planes):
+            disp = torch.einsum("c,scn->sn", g.plane_normal[p].float(),
+                                tr[:, :3]) - g.plane_offset[p]
+            inside |= disp < 0
+        side.append(inside)
+    flips = int((side[0] != side[1]).any(dim=0).sum())
+    in_contact = int(side[0].any(dim=0).sum())
+    dstate = [float((trace_t[:, r] - trace_f[:, r]).abs().max())
+              for r in (slice(0, 3), slice(3, 6))]
+    clamp = ""
+    if shape.config.velocity_clamp and shape.config.integrator.name == \
+            "EULER":
+        c_flips, c_ever = clamp_flips(shape, state, trace_f, trace_t)
+        clamp = (f"; the velocity clamp catches {c_ever} masses at some "
+                 f"step, {c_flips} of them at a step where it does not in "
+                 "the other forward")
+    print(f"{name}: tiled vs fused forward over {n_steps} steps: max |d| "
+          f"pos {dstate[0]:.3e}, vel {dstate[1]:.3e}; {in_contact} masses "
+          f"in contact at some step, {flips} of them on the other side of "
+          f"the plane at some step in the other forward" + clamp)
+    del trace_f, trace_t, side
+    _, gt = run_grad(shape, state, diff.tiled_adjoint_rollout, n_steps)
+    _, gf = run_grad(shape, state, diff.adjoint_rollout, n_steps)
+    mask = state.stencil.mask
+    errs = {}
+    for nm, a, b in zip(GRAD_NAMES, gt, gf):
+        if nm in ("k", "rest"):
+            a, b = torch.where(mask, a, 0.0), torch.where(mask, b, 0.0)
+        errs[nm] = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-8)
+    print(f"{name}: tiled vs fused adjoint gradients over {n_steps} steps, "
+          "max |d| / max |fused|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tolerance {tol:g})")
+    check(max(errs.values()) <= tol, f"{name}: tiled and fused adjoint "
+          f"gradients differ beyond {tol:g}: {errs}")
+    return max(errs.values())
+
+
+def tiled_adjoint_bound_ms(shape, state, kind, steps):
+    """((ms, by), bytes ms, ops ms) of one launch of `kind` covering `steps`
+    steps: "trace" (a replay launch: the forward step's bytes once, see
+    tiled_bytes_per_mass, plus a 24 B trace entry per mass and step; the
+    forward's operations per pass), "bwd" (reversed steps: each step's
+    trace entry read, the carry read and written once, the invariants and
+    the per-spring bars read once and written once; per pass the force
+    recompute and its transpose).  Bytes over 3.35 TB/s, operations over
+    67 TFLOP/s."""
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    from titan_tpu_torch.ops import tiled_step
+    rk2 = shape.config.integrator.name == "RK2"
+    passes = 2 if rk2 else 1
+    n = shape.n_masses
+    n_springs = int(state.stencil.mask.sum())
+    mode = "euler" if rk2 else shape.config.integrator.name.lower()
+    if kind == "trace":
+        per_mass = tiled_bytes_per_mass(shape, mode) + 24 * steps
+        ops = steps * passes * (OPS_PER_SPRING * n_springs + OPS_PER_MASS * n)
+    else:
+        f = len(shape.stencil_deltas)
+        plan = tiled_step._plan(shape)
+        inv = 12 + 4 + 4 + 4 * f * len(plan) \
+            + (4 if "k" not in plan else 0) + 4 * shape.has_drag
+        _, nb = at.bar_plan(shape)
+        per_mass = 24 * steps + 36 * 2 + inv + 4 * nb * 2
+        ops = steps * passes * (
+            (OPS_PER_SPRING + OPS_PER_SPRING_T) * n_springs
+            + (OPS_PER_MASS + OPS_PER_MASS_T) * n)
+    t_bytes = per_mass * n / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")), t_bytes, t_ops
+
+
+def host_ms(fn, reps=3):
+    """Median host ms of fn(), synchronised before and after."""
+    import torch
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[len(ts) // 2]
+
+
+def time_tiled_adjoint(name, shape, state):
+    """Phase t for one integrator at 100^3: forward + backward per step of
+    the tiled route and of the fused adjoint on the same state (host
+    clock); each kernel's device time per launch (torch.profiler) over one
+    default segment, beside its bound and its plain version.  Returns
+    {entry: timing}."""
+    import torch
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    from titan_tpu_torch.ops import tiled_step
+    rk2 = shape.config.integrator.name == "RK2"
+    seg = at.default_segment(shape, GRAD_STEPS)
+    k_seg = tiled_step.mega_seg(shape)
+    w = grad_loss_weights(state)
+    new_ms = host_ms(lambda: run_grad(shape, state, diff.grad_rollout,
+                                      weights=w)) / GRAD_STEPS
+    old_ms = host_ms(lambda: run_grad(shape, state, lambda sh, st, k:
+                                      diff.adjoint_rollout(sh, st, k,
+                                                           segment=SEG),
+                                      weights=w), reps=1) / GRAD_STEPS
+    inv = tiled_step.prep_tiled_inputs(shape, state)
+    trace = at.tiled_trace_run(shape, state, seg, inv)
+    cts = seeded_cotangents(shape.n_masses, trace.device)
+    mega_ok = at.mega_adjoint_ok(shape)
+    per = 5 if rk2 else 2
+    passes = 2 if rk2 else 1
+    # each launch kind run alone through its wrapper, for the CUDA-event
+    # fallback: (fn(k) covering k launches' worth, k)
+    alone = {"trace_mega": (lambda k: at._tiled_trace_cuda(
+                 shape, state, k_seg, inv, k_seg), 1),
+             "trace_step": (lambda k: at._tiled_trace_cuda(
+                 shape, state, 1, inv, 0), passes),
+             "bwd_step": (lambda k: at._tiled_bwd_cuda(
+                 shape, state, trace[:1], *cts, inv, mega=False), per)}
+    if mega_ok:
+        alone["bwd_mega"] = (lambda k: at._tiled_bwd_cuda(
+            shape, state, trace, *cts, inv, mega=True), 1)
+
+    def measured():
+        at.tiled_trace_run(shape, state, seg, inv)
+        at._tiled_bwd_cuda(shape, state, trace, *cts, inv, mega=False)
+        if mega_ok:
+            at._tiled_bwd_cuda(shape, state, trace, *cts, inv, mega=True)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the window's first launches may go unrecorded: a warm-up first,
+        # then the measured calls (device time per launch is their mean)
+        at.tiled_trace_run(shape, state, 1, inv)
+        torch.cuda.synchronize()
+        for _ in range(2):
+            measured()
+        torch.cuda.synchronize()
+    groups = {"trace_mega": lambda k: "mega" in k and "true>" in k,
+              "trace_step": lambda k: "tiled_step_kernel" in k
+              and "true>" in k,
+              "bwd_step": lambda k: "<TiledBwdArgs>" in k,
+              "bwd_mega": lambda k: "tiled_megabwd_kernel" in k}
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        for g, hit in groups.items():
+            if hit(e.key) and e.count and t:
+                t0, c0 = dev.get(g, (0.0, 0))
+                dev[g] = (t0 + t, c0 + e.count)
+    p_trace = at.tiled_trace_run_plain(shape, state, 2)
+    tr_plain = event_ms(lambda k: at.tiled_trace_run_plain(shape, state, k),
+                        2, reps=1)
+    bw_plain = event_ms(lambda k: at.tiled_bwd_run_plain(
+        shape, state, p_trace, *cts, inv), 2, reps=1)
+    del p_trace
+    print(f"timing {name} gradient path: forward + backward "
+          f"{new_ms * 1e3:.3f} us/step over {GRAD_STEPS} steps (tiled "
+          f"adjoint, segments of {seg}; host clock); fused adjoint on the "
+          f"same state {old_ms * 1e3:.3f} us/step (segments of {SEG})")
+    out = {}
+    for g, steps, plain in (("trace_mega", k_seg, tr_plain * k_seg),
+                            ("trace_step", 1, tr_plain / passes),
+                            ("bwd_step", 1, bw_plain / per),
+                            ("bwd_mega", seg, bw_plain * seg)):
+        if g not in alone:
+            continue
+        if g in dev:
+            ms = dev[g][0] / dev[g][1] / 1e3
+            how = f"on the device ({dev[g][1]} launches, torch.profiler)"
+        else:
+            fn, launches = alone[g]
+            ms = event_ms(fn, launches)
+            how = ("NOT the device time: the profiler recorded none, so this "
+                   "is the wrapper's CUDA-event time, host staging included")
+        kind = "trace" if g.startswith("trace") else "bwd"
+        # a per-step launch covers one force pass (trace) or one of the
+        # step's `per` launches (backward): its share of a step's bound
+        share = passes if g == "trace_step" else (
+            per if g == "bwd_step" else 1)
+        (b_ms, by), t_b, t_o = tiled_adjoint_bound_ms(shape, state, kind,
+                                                      steps)
+        b_ms, t_b, t_o = b_ms / share, t_b / share, t_o / share
+        print(f"timing {name} {g}: {ms * 1e3:.3f} us/launch {how}; bound "
+              f"{b_ms * 1e3:.4f} us/launch by {by} (bytes {t_b * 1e3:.4f} "
+              f"us, ops {t_o * 1e3:.4f} us), {100 * b_ms / ms:.2f}% of "
+              f"bound; plain {plain * 1e3:.1f} us/launch")
+        out[g] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                      fwd_bwd_ms_per_step=new_ms,
+                      fused_adjoint_ms_per_step=old_ms)
+    if not rk2 and shape.config.integrator.name == "EULER":
+        profile_grad_path(name, shape, state, segment=None)
+    return out
+
+
+def tiled_adjoint_phases(titan, kernels, shape, state):
+    """Phases r-t from the landed 100^3 state of phase o; appends the
+    tiled adjoint's entries to ``kernels``."""
+    from titan_tpu_torch.config import Integrator
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    worst_small = tiled_adjoint_small_scenes(titan)
+    name = "stress 100^3"
+    runs = {}
+    for integ in (Integrator.EULER, Integrator.VERLET, Integrator.RK2):
+        sh = integrator_shape(shape, integ)
+        label = f"{name} landed, {integ.name}"
+        counts = tiled_grad_path(label, sh, state)
+        bad = []
+        e = tiled_adjoint_vs_plain(sh, state, label, bad)
+        check(not bad, "; ".join(bad))
+        runs[integ] = (sh, counts, e)
+    cross = {integ: tiled_vs_fused_grads(
+        f"{name} landed, {integ.name}", runs[integ][0], state, tol)
+        for integ, tol in ((Integrator.EULER, TOL_GRAD_CROSS_CLAMP),
+                           (Integrator.VERLET, TOL_GRAD_CROSS))}
+    src = "titan_tpu_torch/csrc/tiled_adjoint.cu"
+    for integ, (sh, counts, e) in runs.items():
+        t = time_tiled_adjoint(f"{name} {integ.name}", sh, state)
+        path = f"{name} gradient path, {integ.name}, {GRAD_STEPS} steps"
+        worst = worst_small[integ is Integrator.RK2]
+        err = dict(trace=max(e[0], worst[0]), bwd=max(e[1], worst[1]))
+        for g, kname, replaces in (
+                ("trace_mega", "tiled_megark2_kernel<true> (trace replay"
+                 if integ is Integrator.RK2 else
+                 "tiled_mega_kernel<MODE, true> (trace replay",
+                 "titan_tpu/ops/pallas_tiled.py:1305"),
+                ("trace_step", "tiled_step_kernel<MODE, true> (trace replay",
+                 "titan_tpu/ops/pallas_tiled.py:1305"),
+                ("bwd_step", "bwd_force_kernel + bwd_spring_kernel"
+                 + (" + bwd_mid_kernel" if integ is Integrator.RK2 else "")
+                 + "<TiledBwdArgs> (per-step backward",
+                 "titan_tpu/ops/adjoint_tiled.py:671"),
+                ("bwd_mega", "tiled_megabwd_kernel (resident-grid backward",
+                 "titan_tpu/ops/adjoint_tiled.py:906")):
+            if counts[g] == 0 or g not in t:
+                continue        # this integrator's path does not run it
+            kernels.append(dict(
+                name=f"{kname}, {path})", route="cuda", source=src,
+                replaces=replaces, launches=counts[g],
+                max_abs_err=err["trace" if g.startswith("trace") else "bwd"],
+                **({} if g.startswith("trace") else
+                   dict(max_rel_err=max(e[2], worst[2]),
+                        grad_vs_fused_adjoint=cross.get(integ))),
+                **{k: v for k, v in t[g].items()}, library_ms=None))
 
 
 def main() -> int:
@@ -2032,15 +2587,11 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, devices: "
           f"{torch.cuda.device_count()}")
 
-    # 1, a, f and m. build every source, one nvcc each, started together
+    # 1, a, f, m and q. build every source, one nvcc each, started
+    # together
     build_kernels(("fused_step", "adjoint", "magnets", "magnets_grid",
-                   "tiled_step"))
-    from titan_tpu_torch.ops import tiled_step
-    for integ in (titan.Integrator.EULER, titan.Integrator.VERLET,
-                  titan.Integrator.RK2):
-        print(f"tiled resident-grid kernel ({integ.name}): "
-              f"{tiled_step.coop_blocks(integ)} co-resident blocks of 256 "
-              "threads (the largest cooperative grid)")
+                   "tiled_step", "tiled_adjoint"))
+    print_coop_blocks(titan)
 
     # 2. kernel vs plain, small scenes, 100 steps each
     for variant in VARIANTS:
@@ -2114,7 +2665,10 @@ def main() -> int:
     magnet_phases(titan, kernels)
 
     # n-p. the tiled kernels, the 100^3 stress config, timing
-    tiled_phases(titan, kernels)
+    landed_stress = tiled_phases(titan, kernels)
+
+    # r-t. the tiled adjoint's kernels, the 100^3 gradient path, timing
+    tiled_adjoint_phases(titan, kernels, *landed_stress)
 
     # 5. result lines
     smi = subprocess.run(

@@ -9,7 +9,8 @@ the JAX package's.
   the nine gradient arguments at that file's normalised atol 5e-4;
 - ``rollout`` gradients (autograd through the eager step) against
   ``jax.grad`` through ``titan_tpu.diff.rollout`` in f64 to 1e-9;
-- ``grad_rollout``'s routing, and ``fast_rollout`` / ``trajectory``.
+- ``grad_rollout``'s routing (a 100^3-shaped scene to the tiled adjoint),
+  and ``fast_rollout`` / ``trajectory``.
 """
 
 import dataclasses
@@ -28,6 +29,7 @@ from titan_tpu_torch.ops import fused_step
 
 from test_adjoint import SCENES, _scene
 from test_torch_step import build_scene, carry_over
+from test_torch_tiled import _lattice_shape
 
 # The scenes of test_adjoint.py inside the port's envelope.  A case's JAX
 # reference (tracing and compiling the gradient of a 20-step scan) takes
@@ -249,6 +251,17 @@ def test_grad_rollout_routing(monkeypatch, caplog, x64):
         tdiff.grad_rollout(shape, state, 4)
     assert calls == ["fast_rollout"]
     assert "f32-only" in caplog.text and "fast_rollout" in caplog.text
+
+    # a 100^3-shaped scene is past the fused adjoint's residency rule: the
+    # tiled adjoint, as the JAX package routes it (titan_tpu/diff.py:154-160)
+    calls.clear()
+    monkeypatch.setattr(tdiff, "tiled_adjoint_rollout",
+                        lambda sh, st, n, segment=None:
+                        calls.append("tiled_adjoint_rollout") or st)
+    sentinel = object()
+    assert tdiff.grad_rollout(_lattice_shape(100), sentinel, 200) is sentinel
+    assert calls == ["tiled_adjoint_rollout"]
+    assert tdiff.grad_route(_lattice_shape(43)) == ("adjoint", None)
 
     with pytest.raises(NotImplementedError, match="A9"):
         tdiff.grad_rollout(shape, state, 4, mesh=object())

@@ -19,9 +19,15 @@ differentiates).  Routes:
 - ``fast_rollout``: per segment, the fused chunk forward and a backward
   that recomputes the segment through the eager step and differentiates it.
 - ``adjoint_rollout`` (``ops/adjoint.py``): both passes on the card's
-  kernels, the trace replay and the reverse sweep of ``csrc/adjoint.cu``.
-- ``grad_rollout``: the adjoint inside its envelope, else ``fast_rollout``
-  with a one-line warning naming the reason.
+  kernels, the fused step forward, the trace replay and the reverse sweep
+  of ``csrc/adjoint.cu``.
+- ``tiled_adjoint_rollout`` (``ops/adjoint_tiled.py``): the same for
+  scenes past the fused adjoint's residency rule (the 100^3 stress
+  config): the tiled step forward that ``Simulation`` runs there, the
+  trace replay and the reverse sweep of ``csrc/tiled_adjoint.cu``.
+- ``grad_rollout``: the route ``grad_route`` picks, as the JAX package's
+  ``grad_rollout`` picks it; ``fast_rollout`` with a one-line warning
+  naming both adjoints' reasons where neither accepts the scene.
 
 Every eager step here is built from ``xla_only_shape(shape)``: the grid
 magnet kernel has no backward, so a differentiated step takes the binned
@@ -40,9 +46,13 @@ from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from .ops.adjoint import (LEAVES, adjoint_reject_reason,  # noqa: F401
-                          adjoint_rollout, adjoint_supported, leaves_of,
-                          segment_outputs, state_from_outputs, with_leaves)
-from .ops.step import build_chunk_fn, build_step_fn, run_eager
+                          adjoint_resident_bytes, adjoint_rollout,
+                          adjoint_supported, leaves_of, segment_outputs,
+                          state_from_outputs, with_leaves)
+from .ops.adjoint_tiled import (tiled_adjoint_reject_reason,
+                                tiled_adjoint_rollout)
+from .ops.step import (RESIDENT_BUDGET, build_chunk_fn, build_step_fn,
+                       run_eager)
 from .runtime.logging import get_logger
 from .state import SceneShape, SimState, xla_only_shape
 
@@ -122,21 +132,45 @@ def fast_rollout(shape: SceneShape, state: SimState, n_steps: int,
     return state
 
 
+def grad_route(shape: SceneShape):
+    """(route, reason): which differentiable rollout ``grad_rollout`` runs,
+    ``"adjoint"``, ``"tiled_adjoint"`` or ``"fast"``, and for ``"fast"``
+    both adjoints' reasons (else None).  As the JAX package routes
+    (``titan_tpu/diff.py:154-160``): the fused adjoint where it accepts the
+    scene and the scene fits the reference's residency rule
+    (``adjoint_resident_bytes`` under ``RESIDENT_BUDGET``), else the tiled
+    adjoint where it accepts the scene, else the fused adjoint where it
+    accepts it (its card kernels have no size cap, as ``chunk_route``
+    keeps the fused step for large scenes), else ``fast_rollout``."""
+    r_adj = adjoint_reject_reason(shape)
+    if r_adj is None and adjoint_resident_bytes(shape) < RESIDENT_BUDGET:
+        return "adjoint", None
+    r_tiled = tiled_adjoint_reject_reason(shape)
+    if r_tiled is None:
+        return "tiled_adjoint", None
+    if r_adj is None:
+        return "adjoint", None
+    return "fast", f"fused adjoint: {r_adj}; tiled adjoint: {r_tiled}"
+
+
 def grad_rollout(shape: SceneShape, state: SimState, n_steps: int,
                  segment: Optional[int] = None, mesh=None) -> SimState:
-    """The best differentiable rollout for the scene: ``adjoint_rollout``
-    inside its envelope, else ``fast_rollout`` with a one-line warning
-    naming the envelope condition that failed."""
+    """The best differentiable rollout for the scene, by ``grad_route``:
+    ``adjoint_rollout``, ``tiled_adjoint_rollout``, or ``fast_rollout``
+    with a one-line warning naming the envelope conditions that failed.
+    On the card an adjoint route runs its kernels or raises."""
     if mesh is not None:
         raise NotImplementedError(
             "grad_rollout(mesh=...): the distributed adjoint is not ported "
             "to titan_tpu_torch yet (ROADMAP A9, multi-device)")
-    r = adjoint_reject_reason(shape)
-    if r is None:
+    route, reason = grad_route(shape)
+    if route == "adjoint":
         return adjoint_rollout(shape, state, n_steps, segment=segment)
+    if route == "tiled_adjoint":
+        return tiled_adjoint_rollout(shape, state, n_steps, segment=segment)
     get_logger().warning(
-        "grad_rollout: scene outside the fused adjoint envelope (%s); "
-        "falling back to fast_rollout's eager-recompute backward", r)
+        "grad_rollout: scene outside both adjoint envelopes (%s); falling "
+        "back to fast_rollout's eager-recompute backward", reason)
     return fast_rollout(shape, state, n_steps, segment=segment)
 
 

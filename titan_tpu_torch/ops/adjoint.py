@@ -63,7 +63,9 @@ def adjoint_reject_reason(shape: SceneShape):
     its gradients would leave the magnet term out.  Memory is no part of
     it: a trace too large for the card raises ``torch.OutOfMemoryError``
     when the backward allocates it (``trace_run``), as the JAX package's
-    staging fails cleanly."""
+    staging fails cleanly.  ``diff.grad_route`` reads the reference's
+    residency rule (``adjoint_resident_bytes``) to choose between this
+    adjoint and the tiled one."""
     if shape.has_magnets:
         return ("magnets: the adjoint kernels have no magnet branch yet "
                 "(ROADMAP B4/B5)")
@@ -74,6 +76,23 @@ def adjoint_reject_reason(shape: SceneShape):
 
 def adjoint_supported(shape: SceneShape) -> bool:
     return adjoint_reject_reason(shape) is None
+
+
+def adjoint_resident_bytes(shape: SceneShape) -> int:
+    """Bytes the TPU's fused adjoint would hold resident in VMEM for this
+    scene: the port's copy of ``titan_tpu/ops/adjoint.py:107-137``, the
+    rule by which the reference sends a gradient to its tiled adjoint
+    (budget ``ops/step.py::RESIDENT_BUDGET``, 100 MB, as the JAX package's
+    ``_VMEM_BUDGET``).  The remainder, local-constraint and magnet terms
+    are left out, as ``ops/step.py::resident_bytes`` leaves them out: the
+    fused adjoint refuses those scenes before this rule is read.  Per
+    mass: the per-family parameters in and their gradient accumulators
+    out, the carries, two trace slots and ~10 vec3 temporaries."""
+    n, f = shape.n_masses, len(shape.stencil_deltas)
+    fam = f * ((3 if shape.has_damping else 2) * 2
+               + (3 if shape.has_breathing else 0)
+               + (3 if shape.has_actuated else 0))
+    return 4 * n * (fam + 3 * 14 + 8 + 12)
 
 
 # ---------------------------------------------------------------------------
@@ -594,7 +613,15 @@ def bwd_run_plain(shape: SceneShape, state: SimState, trace, gpos, gvel,
     k, rest (, damping, omega, aratedt) [F, N], cf [3, N], minv (, drag)
     [N], plus ``pair_ok``.  ``inv`` is ``prep_invariants(shape, state)``
     where the caller has it already."""
-    P = _prep(shape, state, inv)
+    return sweep_plain(shape, _prep(shape, state, inv), trace, gpos, gvel,
+                       gacc)
+
+
+def sweep_plain(shape: SceneShape, P: dict, trace, gpos, gvel,
+                gacc) -> dict:
+    """The reverse sweep of ``backward_step`` with the step math's inputs
+    ``P`` (``bwd_run_plain``; the tiled adjoint passes the tiled step's
+    staging)."""
     rg, rs = torch_rolls()
     seg = trace.shape[0]
     acc = {}

@@ -36,6 +36,7 @@ from ..config import (ACTIVE_CONTRACT_THEN_EXPAND, ACTIVE_EXPAND_THEN_CONTRACT,
                       ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator)
 from ..state import SceneShape, SimState
 from .fused_step import _checked, _finish_chunk
+from .forces import _safe_norm
 
 #: steps per resident-grid launch (``pallas_tiled.py:1717``).  Even: the
 #: segment's last step lands in its first buffer.  The ``n % MEGA_SEG`` tail
@@ -124,7 +125,9 @@ def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
     (signed rate * dt) and ``sstop`` (the advance count at which the
     one-sided bound is crossed), and the per-mass inputs: constant force
     m g + extern, inverse mass, the frozen mask (fixed or invalid), drag,
-    the [dt, t] scalars and the plane and ball tables."""
+    the [dt, t] scalars and the plane and ball tables, and ``pair_ok``
+    (where a spring exists between two valid masses), which the tiled
+    adjoint masks its per-spring gradients with."""
     m, st = state.masses, state.stencil
     deltas = shape.stencil_deltas
     dev = m.pos.device
@@ -146,7 +149,7 @@ def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
         torch.gather(fields[f], 1, lane0)[:, 0].to(f32) if uniform
         else torch.zeros(len(deltas), dtype=f32, device=dev)
         for f, uniform in zip(_SCALAR_ROWS, shape.stencil_uniform)])
-    inv = dict(fparams=fparams.contiguous())
+    inv = dict(fparams=fparams.contiguous(), pair_ok=pair_ok)
     plan = _plan(shape)
     if "k" not in plan:
         bits = torch.zeros(shape.n_masses, dtype=torch.int32, device=dev)
@@ -203,14 +206,17 @@ def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
 def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
     """The force on every mass at (pos, vel), in the TPU body's order:
     families (``family_forces``, pallas_tiled.py:673-738), the constant
-    force, then planes, balls and drag (``mass_tail`` :748)."""
+    force, then planes, balls and drag (``mass_tail`` :748).  Its norms are
+    gradient-safe at 0 (``forces._safe_norm``, the same values), so that
+    autograd through the plain chunk stays finite: the tiled adjoint's
+    tests hold its transpose against that."""
     fp = inv["fparams"]
     nc = shape.config.normal_coeff
     fw = torch.zeros_like(pos)
     for fi, d in enumerate(shape.stencil_deltas):
         diff = torch.roll(pos, -d, dims=-1) - pos
         d2 = torch.sum(diff * diff, dim=0)
-        ln = torch.where(d2 > 0, torch.sqrt(d2), 0.0)
+        ln = _safe_norm(d2)
         inv_ln = torch.where(ln > 0, 1.0 / torch.where(ln > 0, ln, 1.0), 0.0)
         if "bits" in inv:
             k = fp[0, fi] * ((inv["bits"] >> fi) & 1).to(pos.dtype)
@@ -243,13 +249,13 @@ def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
             f_n = fn_mag * nvec
             has_fric = (fs > 0) | (fk > 0)
             v_perp = vel - torch.sum(vel * nvec, dim=0) * nvec
-            v_norm = torch.sqrt(torch.sum(v_perp * v_perp, dim=0))
+            v_norm = _safe_norm(torch.sum(v_perp * v_perp, dim=0))
             kinetic = v_norm > 1e-16
             fn_abs = torch.abs(fn_mag)
             safe_vn = torch.where(kinetic, v_norm, 1.0)
             f_kin = f_acc - v_perp * (fk * fn_abs / safe_vn)
             f_perp = f_acc - f_n
-            fp_norm = torch.sqrt(torch.sum(f_perp * f_perp, dim=0))
+            fp_norm = _safe_norm(torch.sum(f_perp * f_perp, dim=0))
             f_sta = torch.where(fs * fn_abs > fp_norm, f_acc - f_perp, f_acc)
             f_fric = torch.where(kinetic, f_kin, f_sta)
             f_acc = torch.where(inside & has_fric, f_fric, f_acc)
@@ -257,7 +263,7 @@ def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
         f_acc = f_acc + contact * nvec
     for b in range(shape.n_balls):
         dvec = pos - balls[b, :3][:, None]
-        dist = torch.sqrt(torch.sum(dvec * dvec, dim=0))
+        dist = _safe_norm(torch.sum(dvec * dvec, dim=0))
         safe = torch.where(dist > 0, dist, 1.0)
         # a tensor numerator: PyTorch evaluates float / tensor as
         # reciprocal(tensor) * float, two roundings where the kernel has one
@@ -265,7 +271,7 @@ def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
                            safe.new_full((), nc) / safe, 0.0)
         f_acc = f_acc + dvec * push
     if shape.has_drag:
-        vn = torch.sqrt(torch.sum(vel * vel, dim=0))
+        vn = _safe_norm(torch.sum(vel * vel, dim=0))
         f_acc = f_acc - inv["drag"] * vn * vel
     return f_acc
 
@@ -303,7 +309,7 @@ def tiled_step_plain(shape: SceneShape, inv: dict, pos, vel, acc,
     else:
         v2 = vel + new_acc * dt
         if cfg.velocity_clamp:
-            vn = torch.sqrt(torch.sum(v2 * v2, dim=0))
+            vn = _safe_norm(torch.sum(v2 * v2, dim=0))
             v2 = torch.where(vn > 1.0, v2 / torch.where(vn > 0, vn, 1.0), v2)
         v2 = v2 * keep + vel * frozen
         p2 = pos + v2 * dt * keep
@@ -327,21 +333,19 @@ def finish_tiled_chunk(shape: SceneShape, state: SimState, inv: dict,
 
 
 def tiled_chunk_plain(shape: SceneShape, state: SimState,
-                      n_steps: int) -> SimState:
+                      n_steps: int, trace: list = None) -> SimState:
     """Plain PyTorch version of the tiled chunk, on whatever device
-    ``state`` lives on: ``n_steps // mega_seg(shape)`` segments of
-    ``mega_seg`` steps, then the tail, each step ``tiled_step_plain`` at its
-    index in the chunk, as the kernels' launches number them."""
+    ``state`` lives on: each step ``tiled_step_plain`` at its index in the
+    chunk, as the kernels' launches number them (resident-grid segments and
+    the per-step tail alike).  With a ``trace`` list, each step's input
+    (pos, vel) is appended to it as a [6, N] tensor (the tiled adjoint's
+    replay)."""
     inv = prep_tiled_inputs(shape, state)
     m = state.masses
     pos, vel, acc = m.pos, m.vel, m.acc
-    k_seg = mega_seg(shape)
-    n_seg = n_steps // k_seg if k_seg else 0
-    for seg in range(n_seg):
-        for s in range(k_seg):
-            pos, vel, acc = tiled_step_plain(shape, inv, pos, vel, acc,
-                                             seg * k_seg + s)
-    for step in range(n_seg * k_seg, n_steps):
+    for step in range(n_steps):
+        if trace is not None:
+            trace.append(torch.cat([pos, vel]))
         pos, vel, acc = tiled_step_plain(shape, inv, pos, vel, acc, step)
     return finish_tiled_chunk(shape, state, inv, n_steps, pos, vel, acc)
 
@@ -396,11 +400,13 @@ def coop_blocks(integrator: Integrator, device=None) -> int:
     return got
 
 
-def _tiled_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
-                      k_seg: int) -> SimState:
-    """The kernel chunk: ``n_steps // k_seg`` resident-grid launches, then
-    one launch per remaining step (two for RK2); ``k_seg`` is 0 (one
-    launch per step throughout) or ``MEGA_SEG``."""
+def chunk_struct(shape: SceneShape, state: SimState, n_steps: int,
+                 k_seg: int, inv: dict):
+    """(``_TiledChunk`` for ``n_steps`` steps from ``state`` with the
+    staging ``inv`` (``prep_tiled_inputs``), its three output tensors pos,
+    vel, acc, the scratch it points into); raises naming any input the
+    kernels do not take.  ``k_seg`` is 0 (one launch per step throughout)
+    or ``MEGA_SEG``."""
     reason = tiled_reject_reason(shape)
     if reason is not None:
         raise ValueError(f"tiled_chunk: scene outside the envelope: {reason}")
@@ -408,7 +414,6 @@ def _tiled_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
     m = state.masses
     dev = m.pos.device
     n, nf = shape.n_masses, len(shape.stencil_deltas)
-    inv = prep_tiled_inputs(shape, state)
     vec, fam = (3, n), (nf, n)
     a = _TiledArgs()
     a.n, a.nf = n, nf
@@ -448,13 +453,33 @@ def _tiled_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
     c.integrator = _INTEGRATOR_CODE[cfg.integrator]
     c.device = dev.index if dev.index is not None \
         else torch.cuda.current_device()
-    c.pos_in = _checked("pos", m.pos, vec, kernel=kern)
-    c.vel_in = _checked("vel", m.vel, vec, kernel=kern)
-    c.acc_in = _checked("acc", m.acc, vec, kernel=kern)
+    c.pos_in = _checked("pos", m.pos, vec, kernel="tiled")
+    c.vel_in = _checked("vel", m.vel, vec, kernel="tiled")
+    c.acc_in = _checked("acc", m.acc, vec, kernel="tiled")
     c.pos_out, c.vel_out, c.acc_out = (t.data_ptr() for t in out)
     c.pos_tmp, c.vel_tmp, c.acc_tmp = (t.data_ptr() for t in tmp)
     c.pos_half, c.vel_half = (None if t is None else t.data_ptr()
                               for t in half)
+    return c, out, tmp + half
+
+
+def launch_counts(shape: SceneShape, n_steps: int, k_seg: int):
+    """(resident-grid launches, per-step launches) of an ``n_steps`` chunk
+    cut into ``k_seg``-step resident-grid segments (0: none) and a tail of
+    one launch per step, two under RK2."""
+    n_seg = n_steps // k_seg if k_seg else 0
+    per = 2 if shape.config.integrator is Integrator.RK2 else 1
+    return n_seg, (n_steps - n_seg * k_seg) * per
+
+
+def _tiled_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
+                      k_seg: int) -> SimState:
+    """The kernel chunk: ``n_steps // k_seg`` resident-grid launches, then
+    one launch per remaining step (two for RK2); ``k_seg`` is 0 (one
+    launch per step throughout) or ``MEGA_SEG``."""
+    inv = prep_tiled_inputs(shape, state)
+    c, out, scratch = chunk_struct(shape, state, n_steps, k_seg, inv)
+    dev = state.masses.pos.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().titan_tiled_chunk(ctypes.byref(c), stream)
     if rc != 0:
@@ -462,9 +487,10 @@ def _tiled_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
     # The temporaries are freed when this frame drops them, while the
     # kernels may still run: safe, because the caching allocator reuses
     # memory freed on this stream only for later work on it.
-    n_seg = n_steps // k_seg if k_seg else 0
-    tiled_chunk.mega_launches += n_seg
-    tiled_chunk.step_launches += (n_steps - n_seg * k_seg) * (2 if rk2 else 1)
+    del scratch
+    mega, step = launch_counts(shape, n_steps, k_seg)
+    tiled_chunk.mega_launches += mega
+    tiled_chunk.step_launches += step
     return finish_tiled_chunk(shape, state, inv, n_steps, *out)
 
 
