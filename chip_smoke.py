@@ -135,6 +135,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      step of the tiled adjoint and of the fused adjoint on the same state
      (host clock), and each tiled adjoint kernel's device time per launch
      (torch.profiler) beside its bound and its plain version;
+  u. every kernel's local-constraint branch against its plain version on
+     12 scenes of 12,000 masses (each slot type alone, contact planes with
+     and without friction, all four, with drag; Euler, Verlet and RK2):
+     the fused step over 100 steps, the fused trace over 20 and its
+     backward on that trace, the tiled step over 37 steps and its
+     resident-grid launches against per-step launches, the tiled replay,
+     per-step and resident-grid backwards (phase r's checks); bitwise, the
+     RK2 backwards within TOL_BWD_ELEM per element;
+  v. bench 43^3 + local: bench.py's scene with a friction-bearing contact
+     plane slot on every mass, a constraint plane on the top layer, a
+     direction on one bottom edge and a ball on one side face, through
+     Simulation until it lands (drive: the fused step, no tiled launch, no
+     eager step), the fused step, trace and backward against their plain
+     versions from the landed state, the gradient path (the fused adjoint,
+     phase c's checks), and how many masses each slot type acts on;
+  w. stress 100^3 + local: the same slots at 100^3 (placed to act from
+     step 0) through Simulation for 2,000 Euler steps from t = 0, every
+     count set to 0 just before and read just after: the tiled route, the
+     resident-grid and per-step launches the chunk lengths give, no fused
+     launch, no eager step; then phase r's checks and the gradient path
+     (phase s's exact counts) under Euler and Verlet over 200 steps and
+     under RK2 over one 50-step segment (LOCAL_RK2_GRAD_STEPS: the
+     contact slots' friction grows the true gradient past f32's range by
+     200 RK2 steps), and the tiled adjoint against the fused adjoint over
+     32 Verlet steps within TOL_GRAD_CROSS on the same state with the
+     contact slots' friction off (the friction case is printed beside it,
+     with the forward and gradient differences binned by each mass's
+     least sliding speed on its contact slot, slide_bins);
+  x. every slot type must act on at least one mass of each path;
+  y. time both paths' kernels as phases 4, e, p and t do, with the slot
+     rows' bytes and operations that the run's own slots need in every
+     bound (local_work);
   5. print the kernels line (one entry per kernel and path), the card's
      name and power limit, and last the result line.
 
@@ -169,6 +201,16 @@ TOL_BWD = 1e-4
 # length chain 10, 2 diff d2bar 9, both ends 6, gradients 3) and the
 # per-mass integrator, plane and carry transposes
 OPS_PER_SPRING_T, OPS_PER_MASS_T = 40, 45
+# the per-mass local-constraint slots in every bound, counted on the run's
+# own slots (local_work): each launch reads every slot's act row for every
+# mass (4 B), and a slot's other rows (6 for a contact plane, 4 for a
+# ball, a constraint plane or a direction) and its operations of one force
+# pass only where its act row is set, as the kernels skip the rest (a
+# contact plane with friction 45, a ball 15, a constraint plane 20, a
+# direction 22); a transpose does twice a slot's forward on top of its
+# recompute
+LOCAL_OPS = (45, 15, 20, 22)
+LOCAL_DATA_ROWS = (6, 4, 4, 4)
 SEG, GRAD_STEPS = 100, 200
 VARIANTS = ("plain", "friction", "static_friction", "ball", "damping",
             "breathing", "actuated", "drag", "deleted", "verlet", "rk2",
@@ -420,11 +462,34 @@ def bound_ms_per_step(shape, state, n_steps):
                 + 2 * f * shape.has_breathing + 2 * f * shape.has_actuated
                 + shape.has_drag + 9 + f * shape.has_actuated)
     n_springs = int(state.stencil.mask.sum())
-    t_bytes = 4 * per_mass * n / n_steps / HBM_BYTES_PER_S * 1e3
-    t_ops = (OPS_PER_SPRING * n_springs + OPS_PER_MASS * n) \
-        / F32_FLOPS_PER_S * 1e3
+    passes = 2 if shape.config.integrator.name == "RK2" else 1
+    # the slot rows are read by every launch, one per force pass
+    l_rows, l_ops = local_work(shape, state)
+    t_bytes = (4 * per_mass * n / n_steps
+               + 4 * l_rows * n * passes) / HBM_BYTES_PER_S * 1e3
+    t_ops = (OPS_PER_SPRING * n_springs + OPS_PER_MASS * n
+             + passes * l_ops * n) / F32_FLOPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
             ), t_bytes, t_ops
+
+
+def local_work(shape, state):
+    """(rows, operations) per mass, averaged over the scene's masses, that
+    one force pass's local-constraint slots need on this state's own slots:
+    every slot's act row for every mass, and a slot's other rows and
+    operations only on the masses whose act row is set (slot j of a type is
+    set where j < the mass's count, ops/forces.py::stage_local)."""
+    lcon, n = state.lcon, shape.n_masses
+    caps = (shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)
+    counts = (lcon.cp_count, lcon.ball_count, lcon.pl_count, lcon.dir_count)
+    rows, ops = float(sum(caps)), 0.0
+    for cap, count, data, op in zip(caps, counts, LOCAL_DATA_ROWS,
+                                    LOCAL_OPS):
+        for j in range(cap):
+            frac = int((count > j).sum()) / n
+            rows += data * frac
+            ops += op * frac
+    return rows, ops
 
 
 def time_path(name, shape, state):
@@ -698,14 +763,18 @@ def adjoint_bound_ms(shape, state, seg):
                + 2 * shape.has_actuated)
     # invariants: cf 3, minv, fixed, (drag) and the family planes
     inv = 3 + 2 + shape.has_drag + fam
-    trace_bytes = 4 * n * (seg * 6 + 9 + inv)
+    rk2 = 2 if shape.config.integrator.name == "RK2" else 1
+    # the local-constraint slot rows, read by each force launch
+    l_rows, l_ops = local_work(shape, state)
+    lc = l_rows * seg * rk2
+    trace_bytes = 4 * n * (seg * 6 + 9 + inv + lc)
     grads = 9 + 3 + 1 + shape.has_drag + f * (
         2 + shape.has_damping + shape.has_breathing + shape.has_actuated)
-    bwd_bytes = 4 * n * (seg * 6 + 9 + inv + grads)
-    rk2 = 2 if shape.config.integrator.name == "RK2" else 1
-    ops_fwd = rk2 * (OPS_PER_SPRING * n_springs + OPS_PER_MASS * n)
+    bwd_bytes = 4 * n * (seg * 6 + 9 + inv + grads + lc)
+    ops_fwd = rk2 * (OPS_PER_SPRING * n_springs
+                     + (OPS_PER_MASS + l_ops) * n)
     ops_bwd = ops_fwd + rk2 * (OPS_PER_SPRING_T * n_springs
-                               + OPS_PER_MASS_T * n)
+                               + (OPS_PER_MASS_T + 2 * l_ops) * n)
     out = []
     for nbytes, ops in ((trace_bytes, ops_fwd), (bwd_bytes, ops_bwd)):
         tb = nbytes / seg / HBM_BYTES_PER_S * 1e3
@@ -1906,7 +1975,7 @@ def integrator_shape(shape, integrator):
         shape.config, integrator=integrator))
 
 
-def tiled_bytes_per_mass(shape, mode):
+def tiled_bytes_per_mass(shape, state, mode):
     """The distinct bytes per mass of one launch in `mode` ("euler",
     "verlet", "rk2a", "rk2b"; a resident-grid launch moves those of one
     step): each input read once, each output written once."""
@@ -1915,6 +1984,7 @@ def tiled_bytes_per_mass(shape, mode):
     plan = tiled_step._plan(shape)
     inv = 12 + 4 + 4 + 4 * f * len(plan) + (4 if "k" not in plan else 0) \
         + 4 * shape.has_drag                  # const_f, minv, fixed, planes
+    inv += 4 * local_work(shape, state)[0]    # the local-constraint slots
     state_in = {"euler": 24, "verlet": 36, "rk2a": 24, "rk2b": 48}[mode]
     state_out = {"euler": 36, "verlet": 36, "rk2a": 24, "rk2b": 36}[mode]
     return inv + state_in + state_out
@@ -1925,10 +1995,12 @@ def tiled_bound_ms(shape, state, mode, steps):
     force passes: bytes over 3.35 TB/s, operations (22 per spring, 25 per
     mass, per pass) over 67 TFLOP/s."""
     n_springs = int(state.stencil.mask.sum())
-    t_bytes = tiled_bytes_per_mass(shape, mode) * shape.n_masses \
+    t_bytes = tiled_bytes_per_mass(shape, state, mode) * shape.n_masses \
         / HBM_BYTES_PER_S * 1e3
     t_ops = steps * (OPS_PER_SPRING * n_springs
-                     + OPS_PER_MASS * shape.n_masses) / F32_FLOPS_PER_S * 1e3
+                     + (OPS_PER_MASS + local_work(shape, state)[1])
+                     * shape.n_masses) \
+        / F32_FLOPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations")), t_bytes, t_ops
 
@@ -2120,6 +2192,39 @@ def read_adjoint_counts():
             for k, (obj, attr) in adjoint_counters().items()}
 
 
+def bwd_diffs(got, ref, rk2):
+    """A backward kernel's gradients against its plain version's: (max
+    |d|, {key: error}, bitwise, failures).  Euler and Verlet must agree
+    bitwise (error max |d| / max |plain|); RK2 per element within
+    TOL_BWD_ELEM (|d| / (|plain| + 1e-3 max |plain|)).  k, damping and
+    aratedt are compared where a spring exists, as assemble_ct masks
+    them."""
+    import torch
+    ok = ref["pair_ok"]
+    abs_err, rel, bitwise, fails = 0.0, {}, True, []
+    for key, b in ref.items():
+        if key == "pair_ok":
+            continue
+        a = got[key]
+        if key in ("k", "damping", "aratedt"):
+            a, b = torch.where(ok, a, 0.0), torch.where(ok, b, 0.0)
+        if not bool(torch.isfinite(a).all()):
+            fails.append(f"non-finite {key}")
+        d = (a - b).abs()
+        bitwise = bitwise and bool(torch.equal(a, b))
+        abs_err = max(abs_err, float(d.max()))
+        scale = max(float(b.abs().max()), 1e-30)
+        if rk2:
+            rel[key] = float((d / (b.abs() + 1e-3 * scale)).max())
+            if rel[key] > TOL_BWD_ELEM:
+                fails.append(f"{key} {rel[key]:.3e}")
+        else:
+            rel[key] = float(d.max()) / scale
+            if not torch.equal(a, b):
+                fails.append(f"{key} not bitwise ({rel[key]:.3e})")
+    return abs_err, rel, bitwise, fails
+
+
 def tiled_adjoint_vs_plain(shape, state, label, bad):
     """B6 bitwise tiled_trace_run_plain over TRACE_STEPS steps (and its
     last entry bitwise the kernel chunk's state); B7's per-step launches
@@ -2148,28 +2253,7 @@ def tiled_adjoint_vs_plain(shape, state, label, bad):
     b7 = at._tiled_bwd_cuda(shape, state, trace, *cts, inv, mega=False)
     ref = at.tiled_bwd_run_plain(shape, state, trace, *cts, inv)
     torch.cuda.synchronize()
-    ok = ref["pair_ok"]
-    abs_err, rel, bitwise, fails = 0.0, {}, True, []
-    for key, b in ref.items():
-        if key == "pair_ok":
-            continue
-        a = b7[key]
-        if key in ("k", "damping", "aratedt"):   # masked in assemble_ct
-            a, b = torch.where(ok, a, 0.0), torch.where(ok, b, 0.0)
-        if not bool(torch.isfinite(a).all()):
-            fails.append(f"non-finite {key}")
-        d = (a - b).abs()
-        bitwise = bitwise and bool(torch.equal(a, b))
-        abs_err = max(abs_err, float(d.max()))
-        scale = max(float(b.abs().max()), 1e-30)
-        if rk2:
-            rel[key] = float((d / (b.abs() + 1e-3 * scale)).max())
-            if rel[key] > TOL_BWD_ELEM:
-                fails.append(f"{key} {rel[key]:.3e}")
-        else:
-            rel[key] = float(d.max()) / scale
-            if not torch.equal(a, b):
-                fails.append(f"{key} not bitwise ({rel[key]:.3e})")
+    abs_err, rel, bitwise, fails = bwd_diffs(b7, ref, rk2)
     kind = "per element" if rk2 else "max |d| / max |plain|"
     print(f"tiled adjoint vs plain [{label}]: trace ({TRACE_STEPS} steps) "
           + ("bitwise" if same else f"DIFFERS ({dtr:.3e})")
@@ -2229,22 +2313,22 @@ def expected_grad_counts(shape, n_steps):
     return seg, want
 
 
-def tiled_grad_path(name, shape, state):
+def tiled_grad_path(name, shape, state, n_steps=GRAD_STEPS):
     """Phase s for one integrator: diff.grad_rollout + torch.autograd.grad
-    over GRAD_STEPS steps with the default segment, every count set to 0
+    over n_steps steps with the default segment, every count set to 0
     just before and read just after; the counts must be exactly what the
     segments give, the gradients finite.  Returns the counts."""
     import torch
     from titan_tpu_torch import diff
     check(diff.grad_route(shape) == ("tiled_adjoint", None),
           f"{name}: gradient route {diff.grad_route(shape)}")
-    seg, want = expected_grad_counts(shape, GRAD_STEPS)
+    seg, want = expected_grad_counts(shape, n_steps)
     zero_adjoint_counts()
     t0 = time.perf_counter()
-    loss, grads = run_grad(shape, state, diff.grad_rollout)
+    loss, grads = run_grad(shape, state, diff.grad_rollout, n_steps)
     wall = time.perf_counter() - t0
     got = read_adjoint_counts()
-    print(f"gradient path {name}: {GRAD_STEPS} steps in segments of {seg}: "
+    print(f"gradient path {name}: {n_steps} steps in segments of {seg}: "
           + ", ".join(f"{k} {v}" for k, v in got.items())
           + f"; {wall:.3f} s wall (first call)")
     check(got == want, f"{name}: counts {got}, the segments give {want}")
@@ -2274,9 +2358,10 @@ def clamp_flips(shape, state, trace_a, trace_b):
         t_now = P["t0"] + s * P["dt"]
         caught = []
         for tr in (trace_a, trace_b):
-            f, _ = adjoint._force(tr[s, :3], tr[s, 3:], P, rg, rs, t_now,
-                                  cidx=adjoint._cidx(P, s, 1.0))
-            v1 = tr[s, 3:] + f * P["minv"] * P["dt"]
+            # the clamp reads the velocity the local constraints leave
+            f, vm, _ = adjoint._force(tr[s, :3], tr[s, 3:], P, rg, rs,
+                                      t_now, cidx=adjoint._cidx(P, s, 1.0))
+            v1 = vm + f * P["minv"] * P["dt"]
             caught.append((torch.sqrt(torch.sum(v1 * v1, dim=0)) > 1.0)
                           & move)
         flips |= caught[0] != caught[1]
@@ -2342,6 +2427,10 @@ def tiled_vs_fused_grads(name, shape, state, tol):
           f"pos {dstate[0]:.3e}, vel {dstate[1]:.3e}; {in_contact} masses "
           f"in contact at some step, {flips} of them on the other side of "
           f"the plane at some step in the other forward" + clamp)
+    bins = None
+    if shape.cap_cp and bool((state.lcon.cp_fk[:, 0] > 0).any()):
+        bins = slide_bins(state, trace_f)
+        dv = (trace_t[:, 3:6] - trace_f[:, 3:6]).norm(dim=1).amax(0)
     del trace_f, trace_t, side
     _, gt = run_grad(shape, state, diff.tiled_adjoint_rollout, n_steps)
     _, gf = run_grad(shape, state, diff.adjoint_rollout, n_steps)
@@ -2352,6 +2441,8 @@ def tiled_vs_fused_grads(name, shape, state, tol):
             a, b = torch.where(mask, a, 0.0), torch.where(mask, b, 0.0)
         errs[nm] = float((a - b).abs().max()) / max(float(b.abs().max()),
                                                     1e-8)
+    if bins is not None:
+        report_slide_bins(name, bins, dv, gt[0], gf[0])
     print(f"{name}: tiled vs fused adjoint gradients over {n_steps} steps, "
           "max |d| / max |fused|: "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
@@ -2359,6 +2450,54 @@ def tiled_vs_fused_grads(name, shape, state, tol):
     check(max(errs.values()) <= tol, f"{name}: tiled and fused adjoint "
           f"gradients differ beyond {tol:g}: {errs}")
     return max(errs.values())
+
+
+# the bins of slide_bins: a mass's least sliding speed across its contact
+# slot while inside it, in m/s
+SLIDE_EDGES = (1e-4, 1e-3, 1e-2, 1e-1)
+
+
+def slide_bins(state, trace):
+    """Per mass, the bin by SLIDE_EDGES of the least |v_perp| (its speed
+    across the normal of its first contact slot) over the steps of `trace`
+    at which it is inside that slot's plane: 0 below the first edge, ...,
+    len(SLIDE_EDGES) above the last; len(SLIDE_EDGES) + 1 for a mass that
+    never is.  Kinetic friction pulls along v_perp / |v_perp|, whose
+    derivative grows as 1 / |v_perp|."""
+    import torch
+    lc = state.lcon
+    nrm = lc.cp_normal[:, 0, :].T.float()
+    inside = (((trace[:, :3] * nrm).sum(1) - lc.cp_offset[:, 0].float() < 0)
+              & (lc.cp_count > 0))
+    vel = trace[:, 3:6]
+    vperp = (vel - (vel * nrm).sum(1, keepdim=True) * nrm).norm(dim=1)
+    vmin = torch.where(inside, vperp, math.inf).amin(0)
+    edges = torch.tensor(SLIDE_EDGES, device=vmin.device)
+    bins = torch.bucketize(vmin, edges)
+    return torch.where(torch.isinf(vmin), len(SLIDE_EDGES) + 1, bins)
+
+
+def report_slide_bins(name, bins, dv, g_tiled, g_fused):
+    """Prints, per slide_bins bin, its masses, the largest difference of
+    velocity between the two forwards at any step, and the largest
+    difference of d loss / d pos between the two gradients (over max
+    |fused|): where the two parted."""
+    scale = max(float(g_fused.abs().max()), 1e-30)
+    dg = (g_tiled - g_fused).norm(dim=0) / scale
+    labels = ([f"|v_perp| < {SLIDE_EDGES[0]:g}"]
+              + [f"{a:g}-{b:g}" for a, b in zip(SLIDE_EDGES, SLIDE_EDGES[1:])]
+              + [f">= {SLIDE_EDGES[-1]:g}", "never inside its slot"])
+    parts = []
+    for b, label in enumerate(labels):
+        sel = bins[: dg.shape[0]] == b
+        cnt = int(sel.sum())
+        if cnt:
+            parts.append(f"{label}: {cnt} masses, forward max |d vel| "
+                         f"{float(dv[sel].max()):.3e}, gradient max |d| "
+                         f"{float(dg[sel].max()):.3e}")
+    print(f"{name}: by the least |v_perp| on a friction contact slot "
+          "(tiled vs fused; gradient of pos over max |fused|): "
+          + "; ".join(parts))
 
 
 def tiled_adjoint_bound_ms(shape, state, kind, steps):
@@ -2377,19 +2516,22 @@ def tiled_adjoint_bound_ms(shape, state, kind, steps):
     n = shape.n_masses
     n_springs = int(state.stencil.mask.sum())
     mode = "euler" if rk2 else shape.config.integrator.name.lower()
+    lrows, lops = local_work(shape, state)
     if kind == "trace":
-        per_mass = tiled_bytes_per_mass(shape, mode) + 24 * steps
-        ops = steps * passes * (OPS_PER_SPRING * n_springs + OPS_PER_MASS * n)
+        per_mass = tiled_bytes_per_mass(shape, state, mode) + 24 * steps
+        ops = steps * passes * (OPS_PER_SPRING * n_springs
+                                + (OPS_PER_MASS + lops) * n)
     else:
         f = len(shape.stencil_deltas)
         plan = tiled_step._plan(shape)
         inv = 12 + 4 + 4 + 4 * f * len(plan) \
-            + (4 if "k" not in plan else 0) + 4 * shape.has_drag
+            + (4 if "k" not in plan else 0) + 4 * shape.has_drag \
+            + 4 * lrows
         _, nb = at.bar_plan(shape)
         per_mass = 24 * steps + 36 * 2 + inv + 4 * nb * 2
         ops = steps * passes * (
             (OPS_PER_SPRING + OPS_PER_SPRING_T) * n_springs
-            + (OPS_PER_MASS + OPS_PER_MASS_T) * n)
+            + (OPS_PER_MASS + OPS_PER_MASS_T + 3 * lops) * n)
     t_bytes = per_mass * n / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
@@ -2573,6 +2715,501 @@ def tiled_adjoint_phases(titan, kernels, shape, state):
                 **{k: v for k, v in t[g].items()}, library_ms=None))
 
 
+# ---------------------------------------------------------------------------
+# Local constraints (phases u-y): every kernel's local-constraint branch
+# against its plain version on small scenes, the 43^3 and 100^3 scenes with
+# per-mass slots through Simulation, their gradient paths, timing
+# ---------------------------------------------------------------------------
+
+# phase u's scenes: (slots, integrator) on a 30 x 20 x 20 lattice
+LOCAL_SCENES = (("cp", "euler"), ("cp_friction", "euler"), ("ball", "euler"),
+                ("pl", "euler"), ("dir", "euler"), ("all", "euler"),
+                ("all", "verlet"), ("all", "rk2"), ("cp_friction", "rk2"),
+                ("pl", "rk2"), ("dir", "verlet"), ("all_drag", "euler"))
+# phase w's waits (s): 1,017 and then 983 steps at dt 1e-4 from t = 0 (a
+# chunk that is no multiple of 16 runs per-step launches too)
+LOCAL_STRESS_WAITS = (0.1017, 0.0983)
+# the 100^3 local scene's RK2 gradient path: one default segment.  Every
+# mass carries a friction-bearing contact plane, and its kinetic friction
+# pulls along v_perp / |v_perp|, whose derivative grows as 1 / |v_perp|
+# on the masses that slide slowly: the true gradient then grows by orders
+# of magnitude per segment (measured at 100^3 on the card: max |d loss /
+# d pos| 1.6e16 after 50 RK2 steps, 7.7e27 after 100, past f32's range
+# after 200; without the slots' friction 1.6e4 after 200).  Euler and
+# Verlet stay finite over GRAD_STEPS (2.6e19 and 9.4e12)
+LOCAL_RK2_GRAD_STEPS = 50
+# the same friction makes phase w's tiled-vs-fused adjoint cross-check
+# ill-conditioned: the two forwards sum in other orders, and the roundings
+# set the direction kinetic friction pulls a slowly sliding mass in, so
+# within 32 Verlet steps they part by 1.06e-3 of velocity and the
+# gradients by up to 0.138 (normalised; measured on an H100).  The check
+# at TOL_GRAD_CROSS runs on the same state with the contact slots'
+# friction off (every slot type still acts); the friction case is printed
+# beside it
+SLOT_TYPES = ("contact plane", "ball", "constraint plane", "direction")
+
+
+def unit(v):
+    import numpy as np
+    v = np.asarray(v, dtype=np.float64)
+    return v / np.linalg.norm(v)
+
+
+def add_slots(st, cp=None, ball=None, pl=None, dr=None):
+    """Per-mass local-constraint records in the host store `st`, each type
+    given as (mass indices, record): a contact plane (normal, offset) as
+    Mass.addConstraint writes it, or (normal, offset, fk, fs) as the
+    per-env plane sweep writes it; a ball (centre, radius); a constraint
+    plane (normal, friction); a direction (tangent, friction)."""
+    for sel, field in ((cp, "contact_planes"), (ball, "balls"),
+                       (pl, "constraint_planes"), (dr, "directions")):
+        if sel is not None:
+            idx, rec = sel
+            for i in idx.tolist():
+                getattr(st.local_record(i), field).append(rec)
+
+
+def local_small_scene(titan, slots, integrator):
+    """A 30 x 20 x 20 lattice (12,000 masses, z in [0.2, 2.2]) sliding at
+    (0.3, 0.1, -0.2) onto a 0.4 / 0.6 friction plane, with the slots that
+    `slots` names: a contact plane at offset 0.7 on every third mass
+    ("cp"; with friction 0.4 / 0.6 for "cp_friction"; "all" has both, on
+    the first and second third), a ball of radius 0.8 around (-1.5, 0,
+    1.2) on the masses at x < -0.5, a constraint plane (normal x, friction
+    0.1) on the top layer, a direction (0.2, 0, 1) with friction 0.2 on
+    every seventh mass; "all_drag" adds drag 0.3.  Marshalled on the card;
+    returns (shape, state)."""
+    import numpy as np
+    sim = titan.Simulation(titan.SimConfig(
+        integrator=titan.Integrator[integrator.upper()]))
+    sim.createLattice(titan.Vec(0, 0, 1.2), titan.Vec(3, 2, 2), 30, 20, 20)
+    sim.setAllSpringConstantValues(1000.0)
+    sim.setTimeStep(1e-4)
+    sim.setGlobalAcceleration(titan.Vec(0, 0, -9.8))
+    sim.createPlane(titan.Vec(0, 0, 1), 0, 0.4, 0.6)
+    st = sim._store
+    n = st.n_masses
+    st.vel[:n] = (0.3, 0.1, -0.2)
+    pos = st.pos[:n]
+    idx = np.arange(n)
+    every = slots.startswith("all")
+    nrm = unit((0, 0.05, 1))
+    if slots == "cp" or every:
+        add_slots(st, cp=(idx[0::3], (nrm, 0.7)))
+    if slots == "cp_friction" or every:
+        add_slots(st, cp=(idx[1::3] if every else idx[0::3],
+                          (nrm, 0.7, 0.4, 0.6)))
+    if slots == "ball" or every:
+        add_slots(st, ball=(idx[pos[:, 0] < -0.5],
+                            (np.array([-1.5, 0.0, 1.2]), 0.8)))
+    if slots == "pl" or every:
+        top = np.isclose(pos[:, 2], pos[:, 2].max())
+        add_slots(st, pl=(idx[top], (unit((1, 0, 0)), 0.1)))
+    if slots == "dir" or every:
+        add_slots(st, dr=(idx[0::7], (unit((0.2, 0, 1)), 0.2)))
+    if slots == "all_drag":
+        st.drag[:n] = 0.3
+    sim._T = 0.0
+    sim._marshal()
+    return sim._shape, sim._state
+
+
+def local_scene(titan, nx):
+    """bench.py's scene at nx^3 (bench_scene) with the slots of the local
+    main paths: every mass a friction-bearing contact plane in the record
+    form the per-env plane sweep writes (normal (0, 0.05, 1) normalised,
+    offset 0.02, or 3.02 at the lattice's bottom face at 100^3, fk 0.4, fs
+    0.6); the top layer a constraint plane (normal (1, 0, 0), friction
+    0.1); one bottom edge a direction (0, 0, 1) with friction 0.2; the side
+    face x = -2 a ball of radius 1 around (-2, 0, 2), or (-2, 0, 3.5) at
+    100^3.  At 100^3 the constraint plane's normal is tilted to (1, 0,
+    0.05): so that every slot acts from step 0 there (the top layer of a
+    falling lattice feels no force and moves not at all along x)."""
+    import numpy as np
+    sim = bench_scene(titan, nx)
+    st = sim._store
+    n = st.n_masses
+    pos = st.pos[:n]
+    idx = np.arange(n)
+    stress = nx == STRESS_NX
+    bottom = np.isclose(pos[:, 2], pos[:, 2].min())
+    edge = bottom & np.isclose(pos[:, 1], pos[:, 1].min())
+    add_slots(
+        st, cp=(idx, (unit((0, 0.05, 1)), 3.02 if stress else 0.02, 0.4,
+                      0.6)),
+        ball=(idx[np.isclose(pos[:, 0], pos[:, 0].min())],
+              (np.array([-2.0, 0.0, 3.5 if stress else 2.0]), 1.0)),
+        pl=(idx[np.isclose(pos[:, 2], pos[:, 2].max())],
+            (unit((1, 0, 0.05 if stress else 0)), 0.1)),
+        dr=(idx[edge], (unit((0, 0, 1)), 0.2)))
+    return sim
+
+
+def fused_local_vs_plain(shape, state, label, bad, steps=100):
+    """The fused step over `steps` steps, the adjoint's trace over
+    BWD_STEPS steps and its backward on that trace against their plain
+    versions: bitwise, the RK2 backward per element (bwd_diffs).  Appends
+    failures to `bad`; returns (step, trace, backward) max |d|."""
+    import torch
+    from titan_tpu_torch.ops import adjoint, fused_step
+    rk2 = shape.config.integrator.name == "RK2"
+    got = fused_step.fused_chunk(shape, state, steps)
+    want = fused_step.fused_chunk_plain(shape, state, steps)
+    torch.cuda.synchronize()
+    d, same = state_diffs(got, want, rest=shape.has_actuated)
+    trace = adjoint.trace_run(shape, state, BWD_STEPS)
+    twant = adjoint.trace_run_plain(shape, state, BWD_STEPS)
+    torch.cuda.synchronize()
+    dtr = float((trace - twant).abs().max())
+    tsame = bool(torch.equal(trace, twant))
+    del twant
+    cts = seeded_cotangents(shape.n_masses, trace.device)
+    g = adjoint.bwd_run(shape, state, trace, *cts)
+    ref = adjoint.bwd_run_plain(shape, state, trace, *cts)
+    torch.cuda.synchronize()
+    dbw, rel, bitwise, fails = bwd_diffs(g, ref, rk2)
+    print(f"fused local vs plain [{label}]: step ({steps} steps) "
+          + ("bitwise" if same else f"DIFFERS {d}") + f"; trace "
+          f"({BWD_STEPS} steps) " + ("bitwise" if tsame else
+                                     f"DIFFERS ({dtr:.3e})")
+          + "; backward " + ("bitwise" if bitwise else "per element: "
+                             + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in rel.items()))
+          + (f"  FAIL {fails}" if fails else ""))
+    if not same:
+        bad.append(f"{label}: fused kernel differs from plain: {d}")
+    if not tsame:
+        bad.append(f"{label}: trace differs from plain by {dtr:.3e}")
+    if fails:
+        bad.append(f"{label}: backward differs from plain: {fails}")
+    return max(d.values()), dtr, dbw
+
+
+def local_small_scenes(titan):
+    """Phase u: on the 12 LOCAL_SCENES, the fused step, the fused trace and
+    backward (fused_local_vs_plain), the tiled step over TRACE_STEPS steps
+    (two resident-grid segments and a tail) and its resident-grid launches
+    against per-step launches, and the tiled trace replay, per-step and
+    resident-grid backwards (tiled_adjoint_vs_plain), each against its
+    plain version.  Returns the worst max |d| per kernel family."""
+    from titan_tpu_torch.ops import fused_step, tiled_step
+    bad = []
+    worst = dict(step=0.0, trace=0.0, bwd=0.0, tiled=0.0, tiled_trace=0.0,
+                 tiled_bwd=0.0)
+    for slots, integ in LOCAL_SCENES:
+        shape, state = local_small_scene(titan, slots, integ)
+        label = f"local {slots}, {integ}"
+        caps = (shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)
+        check(any(caps) and fused_step.fused_reject_reason(shape) is None
+              and tiled_step.tiled_reject_reason(shape) is None,
+              f"{label}: caps {caps}, fused "
+              f"{fused_step.fused_reject_reason(shape)}, tiled "
+              f"{tiled_step.tiled_reject_reason(shape)}")
+        e_step, e_tr, e_bw = fused_local_vs_plain(shape, state, label, bad)
+        e_tiled, _ = tiled_vs_plain(shape, state, TRACE_STEPS, label, bad)
+        mega_vs_steps(shape, state, label, bad)
+        t_tr, t_bw, _, _ = tiled_adjoint_vs_plain(shape, state, label, bad)
+        for k, v in (("step", e_step), ("trace", e_tr), ("bwd", e_bw),
+                     ("tiled", e_tiled), ("tiled_trace", t_tr),
+                     ("tiled_bwd", t_bw)):
+            worst[k] = max(worst[k], v)
+    check(not bad, "; ".join(bad))
+    return worst
+
+
+def slot_activity(shape, state):
+    """{slot type: masses on which that type changes the force or the
+    velocity} at `state`: the plain force pass (ops/adjoint.py::_force,
+    the fused step's staging) gives the force and velocity entering each
+    slot, and the slot alone is applied to them."""
+    import torch
+    from titan_tpu_torch.ops import adjoint
+    from titan_tpu_torch.ops import forces as F
+    P = adjoint._prep(shape, state)
+    rg, rs = adjoint.torch_rolls()
+    m = state.masses
+    _, _, st = adjoint._force(m.pos, m.vel, P, rg, rs, P["t0"],
+                              keep_stages=True, cidx=adjoint._cidx(P, 0, 1))
+    lc, caps, nc = P["lc"], P["caps"], P["normal_coeff"]
+    changed = [torch.zeros_like(m.valid) for _ in SLOT_TYPES]
+    o = 0
+    for j in range(caps[0]):
+        f_in = st["lcp_in"][j]
+        f_out = F.apply_contact_plane(f_in, m.pos, m.vel, lc[o + 1:o + 4],
+                                      lc[o + 4], lc[o + 5], lc[o + 6], nc)
+        changed[0] |= (lc[o] > 0.5) & (f_out != f_in).any(0)
+        o += 7
+    for j in range(caps[1]):
+        dvec = m.pos - lc[o + 1:o + 4]
+        dist = dvec.pow(2).sum(0).sqrt()
+        changed[1] |= (lc[o] > 0.5) & (dist <= lc[o + 4]) & (dist > 0)
+        o += 5
+    for k, (cap, stage, fn) in enumerate((
+            (caps[2], "lpl_in", F.apply_constraint_plane),
+            (caps[3], "ldir_in", F.apply_direction))):
+        for j in range(cap):
+            f_in, v_in = st[stage][j]
+            f_out, v_out = fn(f_in, v_in, lc[o + 1:o + 4], lc[o + 4],
+                              lc[o] > 0.5)
+            changed[2 + k] |= (f_out != f_in).any(0) | (v_out != v_in).any(0)
+            o += 5
+    return {name: int((c & m.valid).sum())
+            for name, c in zip(SLOT_TYPES, changed)}
+
+
+def report_activity(name, when, act):
+    print(f"{name}: masses each slot type acts on at {when}: "
+          + ", ".join(f"{k} {v}" for k, v in act.items()))
+
+
+def local_bench_path(titan, kernels):
+    """Phases v and x at 43^3: the local scene through the public API
+    (drive: the fused step, 0 tiled launches, 0 eager steps), its slot
+    activity at the landed state and after a timed window, the fused step,
+    trace and backward against their plain versions from the landed state,
+    the gradient path (the fused adjoint) and timing; appends its entries
+    to ``kernels``."""
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import fused_step
+    from titan_tpu_torch.ops.adjoint import adjoint_resident_bytes
+    from titan_tpu_torch.ops.step import chunk_route, resident_bytes
+    name = "bench 43^3 + local"
+    launches, (shape, state) = drive(local_scene(titan, 43), name, 3.5)
+    caps = (shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)
+    print(f"{name}: caps {caps}, route {chunk_route(shape)[0]} "
+          f"(resident_bytes {resident_bytes(shape) / 1e6:.2f} MB), gradient "
+          f"route {diff.grad_route(shape)[0]} (adjoint_resident_bytes "
+          f"{adjoint_resident_bytes(shape) / 2 ** 20:.2f} MiB)")
+    check(caps == (1, 1, 1, 1), f"{name}: caps {caps}")
+    check(chunk_route(shape) == ("fused", None)
+          and diff.grad_route(shape) == ("adjoint", None),
+          f"{name}: routes {chunk_route(shape)}, {diff.grad_route(shape)}")
+    act = slot_activity(shape, state)
+    report_activity(name, "the landed state", act)
+    bad = []
+    err = fused_local_vs_plain(shape, state, f"{name} landed", bad, steps=200)
+    check(not bad, "; ".join(bad))
+    tr_launches, bwd_launches, (tr_err, abs_err, rel_err) = grad_path(
+        name, shape, state)
+    with uncounted():
+        end = fused_step.fused_chunk(shape, state, TIMED_STEPS)
+        act_end = slot_activity(shape, end)
+        report_activity(name, f"the end of a {TIMED_STEPS}-step window",
+                        act_end)
+        t = time_path(name, shape, state)
+    for k in SLOT_TYPES:
+        check(max(act[k], act_end[k]) > 0, f"{name}: no {k} slot acted")
+    kernels.append(dict(
+        name=f"fused_step ({name})", route="cuda",
+        source="titan_tpu_torch/csrc/fused_step.cu",
+        replaces="titan_tpu/ops/pallas_step.py:185", launches=launches,
+        max_abs_err=err[0], slot_masses=act, **t, library_ms=None))
+    tr_t, bwd_t = time_adjoint(name, shape, state)
+    for kname, line, n_launch, tm, e in (
+            ("adjoint_trace", 1283, tr_launches, tr_t, max(tr_err, err[1])),
+            ("adjoint_bwd", 1384, bwd_launches, bwd_t, max(abs_err, err[2]))):
+        kernels.append(dict(
+            name=f"{kname} ({name})", route="cuda",
+            source="titan_tpu_torch/csrc/adjoint.cu",
+            replaces=f"titan_tpu/ops/adjoint.py:{line}", launches=n_launch,
+            max_abs_err=e, **({} if kname == "adjoint_trace"
+                              else dict(max_rel_err=rel_err)),
+            **tm, library_ms=None))
+
+
+def drive_local_stress(titan, name):
+    """Phase w: the 100^3 local scene through the public API from t = 0,
+    start -> wait -> getAll -> resume -> wait -> getAll -> stop at
+    LOCAL_STRESS_WAITS (2,000 Euler steps), every count set to 0 just
+    before and read just after: the tiled route, with exactly the
+    resident-grid and per-step launches the chunk lengths give, no fused
+    launch and no eager step.  Returns (counts, (shape, state) at the
+    end)."""
+    import numpy as np
+    import torch
+    from titan_tpu_torch.ops import tiled_step
+    from titan_tpu_torch.ops.step import chunk_route, resident_bytes
+    from titan_tpu_torch.runtime import simulation as rsim
+    t0 = time.perf_counter()
+    sim = local_scene(titan, STRESS_NX)
+    t_build = time.perf_counter() - t0
+    n = sim._store.n_masses
+    lengths, recorded = [], []
+    built = rsim.build_chunk_fn
+
+    def recording(shape):
+        fn = built(shape)
+        recorded.append(shape)
+
+        def chunk(state, n_steps):
+            lengths.append(int(n_steps))
+            return fn(state, n_steps)
+        return chunk
+
+    rsim.build_chunk_fn = recording
+    try:
+        zero_tiled_counts()
+        t0 = time.perf_counter()
+        sim.start()
+        t_marshal = time.perf_counter() - t0
+        shape = sim._shape
+        caps = (shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)
+        print(f"main path {name}: built with its slots in {t_build:.2f} s, "
+              f"marshalled in {t_marshal:.2f} s (host); {n} masses, caps "
+              f"{caps}, route {chunk_route(shape)[0]} (resident_bytes "
+              f"{resident_bytes(shape) / 1e6:.1f} MB)")
+        check(caps == (1, 1, 1, 1), f"{name}: caps {caps}")
+        check(chunk_route(shape) == ("tiled", None),
+              f"{name}: route {chunk_route(shape)}")
+        for k, t in enumerate(LOCAL_STRESS_WAITS):
+            sim.wait(t)
+            sim.getAll()
+            if k < len(LOCAL_STRESS_WAITS) - 1:
+                sim.resume()
+        end = (sim._shape, sim._snapshot())
+        t_end = sim.time()
+        pos = sim._store.pos[:n].copy()
+        vel = sim._store.vel[:n].copy()
+        sim.stop()
+        torch.cuda.synchronize()
+    finally:
+        rsim.build_chunk_fn = built
+        for key in recorded:
+            rsim._CHUNK_CACHE.pop(key, None)
+    counts = read_tiled_counts()
+    wall = time.perf_counter() - t0
+    seg = tiled_step.MEGA_SEG
+    want = dict(mega=sum(k // seg for k in lengths),
+                step=sum(k % seg for k in lengths))
+    print(f"main path {name}: {len(lengths)} chunks {lengths}, "
+          f"{sum(lengths)} steps to t={t_end:.4f} in {wall:.2f} s wall; "
+          f"tiled resident-grid launches {counts['mega']} (chunk lengths "
+          f"give {want['mega']}), tiled per-step launches {counts['step']} "
+          f"(give {want['step']}), fused_step launches {counts['fused']}, "
+          f"eager steps {counts['eager']}")
+    check(sum(lengths) >= 2000, f"{name}: {sum(lengths)} steps")
+    check(counts["mega"] > 0 and counts["step"] > 0,
+          f"{name}: resident-grid and per-step launches {counts}")
+    check(counts["mega"] == want["mega"] and counts["step"] == want["step"],
+          f"{name}: launches {counts} against the chunk lengths' {want}")
+    check(counts["fused"] == 0 and counts["eager"] == 0,
+          f"{name}: fused launches or eager steps on the tiled path: "
+          f"{counts}")
+    check(abs(t_end - sum(LOCAL_STRESS_WAITS)) < 1e-9, f"{name}: t {t_end}")
+    check(np.isfinite(pos).all() and np.isfinite(vel).all(),
+          f"{name}: non-finite state")
+    speed = np.sqrt((vel * vel).sum(1))
+    check(speed.max() <= 1.0 + 1e-5, f"{name}: clamp broken ({speed.max()})")
+    return counts, end
+
+
+def local_stress_path(titan, kernels):
+    """Phases w-y at 100^3: the local scene through Simulation, its slot
+    activity, the tiled kernels against their plain versions from its end
+    state under Euler, Verlet and RK2, the gradient path under each (B6,
+    then B8 or B7, exact counts; RK2 over LOCAL_RK2_GRAD_STEPS), the tiled
+    adjoint against the fused adjoint over CROSS_GRAD_STEPS Verlet steps
+    (held without the contact slots' friction, see LOCAL_RK2_GRAD_STEPS),
+    and timing; appends the entries to ``kernels``."""
+    import dataclasses
+    import torch
+    from titan_tpu_torch.config import Integrator
+    from titan_tpu_torch.ops import tiled_step
+    name = "stress 100^3 + local"
+    counts, (shape, state) = drive_local_stress(titan, name)
+    act = slot_activity(shape, state)
+    report_activity(name, f"t={sum(LOCAL_STRESS_WAITS):.4f}", act)
+    runs, bad = {}, []
+    for integ in (Integrator.EULER, Integrator.VERLET, Integrator.RK2):
+        sh = integrator_shape(shape, integ)
+        label = f"{name}, {integ.name}"
+        with uncounted():
+            e, _ = tiled_vs_plain(sh, state, TRACE_STEPS, label, bad)
+            mega_vs_steps(sh, state, label, bad)
+            ta = tiled_adjoint_vs_plain(sh, state, label, bad)
+        if integ is Integrator.EULER:
+            c = counts
+        else:
+            zero_tiled_counts()
+            tiled_step.tiled_chunk(sh, state, CROSS_STEPS)
+            torch.cuda.synchronize()
+            c = read_tiled_counts()
+        grad_counts = tiled_grad_path(
+            label, sh, state, LOCAL_RK2_GRAD_STEPS
+            if integ is Integrator.RK2 else GRAD_STEPS)
+        runs[integ] = (sh, c, e, ta, grad_counts)
+    check(not bad, "; ".join(bad))
+    sh_v = runs[Integrator.VERLET][0]
+    cross_fric = tiled_vs_fused_grads(f"{name}, VERLET", sh_v, state,
+                                      math.inf)
+    lc = state.lcon
+    smooth = dataclasses.replace(state, lcon=dataclasses.replace(
+        lc, cp_fk=torch.zeros_like(lc.cp_fk),
+        cp_fs=torch.zeros_like(lc.cp_fs)))
+    cross = tiled_vs_fused_grads(f"{name} without the contact slots' "
+                                 "friction, VERLET", sh_v, smooth,
+                                 TOL_GRAD_CROSS)
+    end = tiled_step.tiled_chunk(shape, state, CROSS_STEPS)
+    act_end = slot_activity(shape, end)
+    report_activity(name, f"{CROSS_STEPS} steps later", act_end)
+    for k in SLOT_TYPES:
+        check(max(act[k], act_end[k]) > 0, f"{name}: no {k} slot acted")
+    src_step = "titan_tpu_torch/csrc/tiled_step.cu"
+    src_adj = "titan_tpu_torch/csrc/tiled_adjoint.cu"
+    for integ, (sh, c, e, ta, gc) in runs.items():
+        rk2 = integ is Integrator.RK2
+        key = integ.name.lower()
+        path = name if integ is Integrator.EULER else \
+            f"{name}, {key}, {CROSS_STEPS} steps"
+        t = time_tiled(f"{name} {key}", sh, state)
+        mega = "tiled_megark2_kernel" if rk2 else "tiled_mega_kernel"
+        for kname, launches, replaces in (
+                (mega, c["mega"], "1222" if rk2 else "1134"),
+                ("tiled_step_kernel", c["step"], "1051")):
+            kernels.append(dict(
+                name=f"{kname} ({path})", route="cuda", source=src_step,
+                replaces=f"titan_tpu/ops/pallas_tiled.py:{replaces}",
+                launches=launches, max_abs_err=e,
+                **({"slot_masses": act} if integ is Integrator.EULER
+                   else {}), **t[kname], library_ms=None))
+        ta_t = time_tiled_adjoint(f"{name} {integ.name}", sh, state)
+        gpath = (f"{name} gradient path, {integ.name}, "
+                 f"{LOCAL_RK2_GRAD_STEPS if rk2 else GRAD_STEPS} steps")
+        for g, kname, replaces in (
+                ("trace_mega", ("tiled_megark2_kernel<true>" if rk2 else
+                                "tiled_mega_kernel<MODE, true>")
+                 + " (trace replay", "titan_tpu/ops/pallas_tiled.py:1305"),
+                ("trace_step", "tiled_step_kernel<MODE, true> (trace replay",
+                 "titan_tpu/ops/pallas_tiled.py:1305"),
+                ("bwd_step", "bwd_force_kernel + bwd_spring_kernel"
+                 + (" + bwd_mid_kernel" if rk2 else "")
+                 + "<TiledBwdArgs> (per-step backward",
+                 "titan_tpu/ops/adjoint_tiled.py:671"),
+                ("bwd_mega", "tiled_megabwd_kernel (resident-grid backward",
+                 "titan_tpu/ops/adjoint_tiled.py:906")):
+            if gc[g] == 0 or g not in ta_t:
+                continue
+            kernels.append(dict(
+                name=f"{kname}, {gpath})", route="cuda", source=src_adj,
+                replaces=replaces, launches=gc[g],
+                max_abs_err=ta[0] if g.startswith("trace") else ta[1],
+                **({} if g.startswith("trace") else dict(
+                    max_rel_err=ta[2],
+                    **({} if integ is not Integrator.VERLET else dict(
+                        grad_vs_fused_adjoint=cross,
+                        grad_vs_fused_adjoint_with_friction=cross_fric)))),
+                **ta_t[g], library_ms=None))
+
+
+def local_phases(titan, kernels):
+    """Phases u-y: the local-constraint branch of every kernel."""
+    worst = local_small_scenes(titan)
+    print("local small scenes: worst max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    local_bench_path(titan, kernels)
+    local_stress_path(titan, kernels)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2669,6 +3306,10 @@ def main() -> int:
 
     # r-t. the tiled adjoint's kernels, the 100^3 gradient path, timing
     tiled_adjoint_phases(titan, kernels, *landed_stress)
+
+    # u-y. local constraints: every kernel's branch on small scenes, the
+    # 43^3 and 100^3 scenes with slots, their gradient paths, timing
+    local_phases(titan, kernels)
 
     # 5. result lines
     smi = subprocess.run(

@@ -12,7 +12,8 @@ CPU, where its wrappers run their plain versions.
   is not run here: in Pallas interpret mode it costs tens of seconds a
   case, and tests/test_adjoint_tiled.py already holds it to the same
   reference.  Each reference is ``jax.jit`` of the gradient, compiled once
-  per case (its variants differ in static flags, so no two share one).
+  per case (its variants differ in static flags, so no two share one)
+  without XLA's optimisation passes (``test_torch_step.py::jax_grad_ref``).
 - ``tiled_bwd_run_plain`` against ``torch.autograd.grad`` through the plain
   tiled steps on the same segment, on the other tiled variants (and
   actuation under Euler and RK2, whose closed-form rest the tiled forward
@@ -31,9 +32,10 @@ The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
 """
 
+import torch_threads  # noqa: F401  (before torch)
+
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,7 +48,7 @@ from titan_tpu.state import xla_only_shape
 from titan_tpu_torch import diff as tdiff
 from titan_tpu_torch.ops import adjoint_tiled, tiled_step
 
-from test_torch_step import carry_over
+from test_torch_step import carry_over, jax_grad_ref
 from test_torch_tiled import _lattice_shape, tiled_scene
 
 # _check_grads of tests/test_adjoint_tiled.py
@@ -74,15 +76,6 @@ AUTOGRAD_VARIANTS = {
     "deleted": dict(deleted=True),
 }
 GRAD_ARGS = ("pos", "vel", "k", "rest", "m", "extern_force", "g")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    # on these tiny tensors several threads make a step many times slower
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _with(state, args):
@@ -117,7 +110,7 @@ def test_tiled_adjoint_grads_match_jax(variant):
 
     m, stc = jstate.masses, jstate.stencil
     jargs = (m.pos, m.vel, stc.k, stc.rest, m.m, m.extern_force, jstate.g)
-    want = jax.jit(jax.grad(jloss, argnums=tuple(range(7))))(*jargs)
+    want = jax_grad_ref(jloss, tuple(range(7)), jargs)
 
     shape, state = carry_over(jsim)
     assert tdiff.grad_route(shape)[0] == "adjoint"   # small: fused adjoint
@@ -248,10 +241,12 @@ def test_grad_route_on_shapes():
     rk2 = _lattice_shape(100, config=titan_tpu_torch.SimConfig(
         device="cpu", integrator=titan_tpu_torch.Integrator.RK2))
     assert tdiff.grad_route(rk2)[0] == "tiled_adjoint"
-    for flags in (dict(has_magnets=True), dict(cap_cp=1)):
-        route, reason = tdiff.grad_route(_lattice_shape(100, **flags))
-        assert route == "fast"
-        assert "fused adjoint:" in reason and "tiled adjoint:" in reason
+    route, reason = tdiff.grad_route(_lattice_shape(100, has_magnets=True))
+    assert route == "fast"
+    assert "fused adjoint:" in reason and "tiled adjoint:" in reason
+    # local constraints run in both adjoints: by the residency rule
+    assert tdiff.grad_route(_lattice_shape(100, cap_cp=1)) == (
+        "tiled_adjoint", None)
     # past the residency rule but outside the tiled adjoint (33 families,
     # one more than the existence mask has bits): the fused adjoint, which
     # has no size cap on the card

@@ -13,6 +13,8 @@ the JAX package's.
   and ``fast_rollout`` / ``trajectory``.
 """
 
+import torch_threads  # noqa: F401  (before torch)
+
 import dataclasses
 
 import jax
@@ -28,14 +30,15 @@ from titan_tpu_torch import diff as tdiff
 from titan_tpu_torch.ops import fused_step
 
 from test_adjoint import SCENES, _scene
-from test_torch_step import build_scene, carry_over
+from test_torch_step import build_scene, carry_over, jax_grad_ref
 from test_torch_tiled import _lattice_shape
 
-# The scenes of test_adjoint.py inside the port's envelope.  A case's JAX
-# reference (tracing and compiling the gradient of a 20-step scan) takes
-# ~10-20 s here, so they are spread over this file,
-# test_torch_diff_scenes.py and test_torch_diff_integrators.py, which
-# pytest-xdist runs side by side.
+# The scenes of test_adjoint.py inside the port's envelope (the local
+# ones are in test_torch_adjoint_local.py).  A case's JAX reference
+# (tracing and compiling the gradient of a 20-step scan, without XLA's
+# optimisation passes: jax_grad_ref) takes ~3-7 s here, so they are spread
+# over this file, test_torch_diff_scenes.py and
+# test_torch_diff_integrators.py, which pytest-xdist runs side by side.
 ADJ_SCENES = ["friction_damping", "clamp", "drag_ball", "beam_fixed",
               "deleted_extern", "breathing", "verlet", "rk2", "actuated",
               "rk2_actuated"]
@@ -120,7 +123,7 @@ def check_adjoint_scene(scene_name):
              jstate.stencil.rest, jstate.masses.m,
              jstate.masses.extern_force, jstate.g, jstate.stencil.omega,
              jstate.stencil.rate)
-    want = jax.grad(jloss, argnums=tuple(range(9)))(*jargs)
+    want = jax_grad_ref(jloss, tuple(range(9)), jargs)
 
     shape, state = carry_over(jsim)
     assert tdiff.adjoint_supported(shape)
@@ -183,7 +186,7 @@ def test_rollout_grads_match_jax_rollout_f64(variant, ckpt, x64):
              jstate.stencil.rest, jstate.masses.m,
              jstate.masses.extern_force, jstate.g, jstate.stencil.omega,
              jstate.stencil.rate)
-    want = jax.grad(jloss, argnums=tuple(range(9)))(*jargs)
+    want = jax_grad_ref(jloss, tuple(range(9)), jargs)
 
     shape, state = carry_over(jsim)
     args, st = _port_args(state)

@@ -2,6 +2,8 @@
 JAX package's XLA rollout (``test_torch_diff.py::check_adjoint_scene``), on
 the Verlet and RK2 scenes of test_adjoint.py."""
 
+import torch_threads  # noqa: F401  (before torch)
+
 import pytest
 
 from test_torch_diff import check_adjoint_scene

@@ -3,6 +3,8 @@ JAX package's XLA rollout (``test_torch_diff.py::check_adjoint_scene``), on
 the Euler scenes of test_adjoint.py with a fixed face, deleted masses,
 breathing and actuation."""
 
+import torch_threads  # noqa: F401  (before torch)
+
 import pytest
 
 from test_torch_diff import check_adjoint_scene

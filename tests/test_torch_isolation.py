@@ -1,6 +1,8 @@
 """The port stands alone: neither ``titan_tpu_torch``, ``chip_smoke.py`` nor
-the port's GPU script ``scripts/cuda_fmad_ab.py`` imports JAX or anything
-of the JAX package, statically or at run time."""
+the port's GPU scripts ``scripts/cuda_*.py`` import JAX or anything of the
+JAX package, statically or at run time."""
+
+import torch_threads  # noqa: F401  (before torch)
 
 import ast
 import pathlib
@@ -30,8 +32,8 @@ def _imported_roots(path):
 
 def _port_files():
     files = sorted((ROOT / "titan_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py",
-                    ROOT / "scripts" / "cuda_fmad_ab.py"]
+    return (files + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("cuda_*.py")))
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -23,6 +23,8 @@
 Small tensors: torch runs these on one thread.
 """
 
+import torch_threads  # noqa: F401  (before torch)
+
 import dataclasses
 import logging
 
@@ -42,14 +44,6 @@ from titan_tpu_torch.ops import fused_step
 from titan_tpu_torch.ops.adjoint import adjoint_reject_reason
 
 from test_torch_step import carry_over
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

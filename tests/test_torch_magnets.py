@@ -25,6 +25,8 @@ Small tensors: torch runs these on one thread (several threads cost more
 than they save at these sizes).
 """
 
+import torch_threads  # noqa: F401  (before torch)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,14 +54,6 @@ CUTOFF = 0.14
 # one compiled program per scene instead of one per eager operation
 jax_binned = jax.jit(binned_magnet_forces, static_argnums=(1, 2, 3),
                      static_argnames=("receivers",))
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

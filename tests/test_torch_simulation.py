@@ -12,6 +12,8 @@ round those forces differently, so two correct f32 runs drift apart by
 positions and velocities to 1e-9.
 """
 
+import torch_threads  # noqa: F401  (before torch)
+
 import jax
 import numpy as np
 import pytest

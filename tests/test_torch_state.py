@@ -7,6 +7,8 @@ flag must be identical.  ``state_from_numpy`` must carry a titan_tpu state
 across unchanged.
 """
 
+import torch_threads  # noqa: F401  (before torch)
+
 import dataclasses
 
 import numpy as np

@@ -9,6 +9,8 @@ also runs against the independent numpy oracle ``reference_impl``.
 ``build_scene`` is shared with the other ``test_torch_*`` files.
 """
 
+import torch_threads  # noqa: F401  (before torch)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,6 +89,31 @@ def build_scene(pkg, variant="plain", dtype="float32", n=4, marshal=True):
         sim._T = 0.0
         sim._marshal()
     return sim
+
+
+# XLA's CPU compile without its optimisation passes.  The gradient
+# references below (jax.grad through titan_tpu.diff.rollout) spend most of
+# their time in XLA's compile; unoptimised, the same program builds 2-3x
+# faster on an 8-core CPU, and its values move by at most ~6e-7 of the
+# largest gradient in f32, three orders under the tolerances they are
+# held to.
+FAST_XLA = dict(xla_backend_optimization_level=0,
+                xla_llvm_disable_expensive_passes=True)
+
+
+def jax_grad_ref(f, argnums, args):
+    """``jax.grad(f, argnums)(*args)``, jitted with the ``FAST_XLA``
+    compile."""
+    g = jax.jit(jax.grad(f, argnums=argnums))
+    return g.lower(*args).compile(compiler_options=FAST_XLA)(*args)
+
+
+def jax_chunk_ref(jshape, jstate, steps):
+    """``titan_tpu``'s XLA chunk of ``steps`` steps from ``jstate``, with
+    the ``FAST_XLA`` compile."""
+    fn = jax_chunk_fn(jshape)
+    n = jnp.int32(steps)
+    return fn.lower(jstate, n).compile(compiler_options=FAST_XLA)(jstate, n)
 
 
 def carry_over(jsim):

@@ -21,6 +21,8 @@ card by ``chip_smoke.py`` (this suite imports JAX, which the machine with
 the card does not have).
 """
 
+import torch_threads  # noqa: F401  (before torch)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -219,14 +221,19 @@ def test_chunk_route_on_shapes(caplog):
     rk2 = _lattice_shape(100, config=titan_tpu_torch.SimConfig(
         device="cpu", integrator=titan_tpu_torch.Integrator.RK2))
     assert tstep.chunk_route(rk2)[0] == "tiled"
+    # local constraints run in both step kernels: by the residency rule,
+    # whose slot rows count, as on a TPU
     local = _lattice_shape(100, cap_cp=1)
-    route, reason = tstep.chunk_route(local)
+    assert tstep.chunk_route(local) == ("tiled", None)
+    assert tstep.chunk_route(_lattice_shape(43, cap_cp=1)) == ("fused", None)
+    # a scene neither kernel takes falls back to the eager loop, with a
+    # warning naming both reasons
+    rem = _lattice_shape(100, has_remainder=True)
+    route, reason = tstep.chunk_route(rem)
     assert route == "eager"
-    assert "local constraints" in reason and "B1" in reason
+    assert "remainder" in reason and "B2" in reason
     with caplog.at_level("WARNING", logger="titan_tpu_torch"):
-        # the eager step does not apply local constraints yet either
-        with pytest.raises(NotImplementedError, match="local constraints"):
-            tstep.build_chunk_fn(local)
+        tstep.build_chunk_fn(rem)
     assert "eager" in caplog.text and "tiled step" in caplog.text
 
 

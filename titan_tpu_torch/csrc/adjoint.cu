@@ -15,10 +15,11 @@
 //
 // Backward.  One thread per mass; for each step t from seg - 1 down to 0:
 //   A (bwd_force_kernel): thread i recomputes its force from trace[t]
-//     with step_body.cuh's spring, contact and drag code (both incident
-//     springs per family, closed-form ACTUATED rest as the JAX package's
-//     transpose does), then the integrator transpose and the
-//     drag, ball and plane transposes in reverse order.  It writes the
+//     with step_body.cuh's spring, contact, local-constraint and drag code
+//     (both incident springs per family, closed-form ACTUATED rest as the
+//     JAX package's transpose does), then the integrator transpose (at the
+//     velocity the local constraints leave) and the drag, local-constraint,
+//     ball and plane transposes in reverse order.  It writes the
 //     cotangent on the spring-sum force gf[3, N] and its partial gpos /
 //     gvel, and accumulates the cf, minv and drag gradients of mass i.
 //   B (bwd_spring_kernel): thread i transposes both incident springs of
@@ -106,6 +107,7 @@ struct BwdChunkArgs {
   float* gvc;
   float* pos_h;
   float* vel_h;
+  titan::LocalSlots local;  // per-mass local-constraint slots
 
   // per-slot parameter reads of csrc/adjoint_body.cuh: dense [F, N] planes
   __device__ float k_at(int, int, size_t s) const { return k[s]; }

@@ -11,7 +11,16 @@
 // the scene's flags and pointers under the same names in both kernels and
 // answers the per-slot parameter reads through four accessors:
 // k_at, rest_at, bsign_at and bomega_at (family fi, left mass l, slot
-// s = fi N + l).  damping, aratedt and sstop are [F, N] planes in both.
+// s = fi N + l).  damping, aratedt and sstop are [F, N] planes in both, and
+// both carry the per-mass local-constraint slots as `local`.
+//
+// Local constraints.  The JAX kernel stashes each slot's inputs (the force
+// entering a contact plane; the force and velocity entering a constraint
+// plane or direction) in VMEM for the transpose.  Here the chain is per
+// mass, so each thread recomputes a slot's inputs from the force entering
+// the local block (f0 through the global planes and balls) and the input
+// velocity, running the slots before it again; with a few slots per mass
+// that costs less than storing them.
 
 #ifndef TITAN_ADJOINT_BODY_CUH_
 #define TITAN_ADJOINT_BODY_CUH_
@@ -114,50 +123,239 @@ __device__ float3 spring_sum(const A& a, int i, const float* pos,
   return f;
 }
 
-// Planes, balls and drag after the spring sum f0: the force the
-// integrator consumes (the forward's own code).
+// Planes, balls, local constraints and drag after the spring sum f0: the
+// force the integrator consumes (the forward's own code).  v becomes the
+// velocity the local constraints leave, which the integrator consumes.
 template <class A>
 __device__ __forceinline__ float3 stages_fwd(const A& a, int i, float3 f,
-                                             float3 p, float3 v) {
+                                             float3 p, float3& v) {
   return titan::contact_and_drag(a.n_planes, a.planes, a.n_balls, a.balls,
-                                 a.normal_coeff, a.has_drag, a.drag, i, f, p,
-                                 v);
+                                 a.local, a.normal_coeff, a.has_drag, a.drag,
+                                 i, a.n, f, p, v);
 }
 
-// Transpose of the drag, ball and plane stages (reverse order) at (p, v)
-// for the cotangents gf (on the final force; on return, on the spring
-// sum) and gv (on the velocity; on return, including the stages' part).
-// Returns the stages' gpos part; adds the drag gradient to *gdrag.
+// The force entering the local block: f0 through the global planes and
+// balls.
+template <class A>
+__device__ __forceinline__ float3 global_stages(const A& a, float3 f,
+                                                float3 p, float3 v) {
+  for (int pi = 0; pi < a.n_planes; ++pi) {
+    f = titan::plane_force(a.planes + 6 * pi, a.normal_coeff, f, p, v);
+  }
+  for (int bi = 0; bi < a.n_balls; ++bi) {
+    const float* b = a.balls + 4 * bi;
+    f = titan::ball_force(make_float3(b[0], b[1], b[2]), b[3],
+                          a.normal_coeff, f, p);
+  }
+  return f;
+}
+
+// The force and velocity entering local slot `stop` (slots numbered over
+// all types in reference order) of mass i, from the force fl entering the
+// local block and the input velocity v: the slots before it, run again
+// (inlined: only the backward kernels with local constraints run it).
+__device__ __forceinline__ titan::ForceVel local_inputs(
+    titan::LocalSlots ls, float nc, int i, int n, float3 fl, float3 p,
+    float3 v, int stop) {
+  int left = stop;
+  ls.cp = min(ls.cp, left);
+  left -= ls.cp;
+  ls.ball = min(ls.ball, left);
+  left -= ls.ball;
+  ls.pl = min(ls.pl, left);
+  left -= ls.pl;
+  ls.dir = min(ls.dir, left);
+  return titan::local_slots(ls, nc, i, n, fl, p, v);
+}
+
+// Transpose of a contact plane's friction select (inside, with friction)
+// at the force f entering it and velocity v: from the cotangent gf on
+// the plane's friction output, returns the cotangent on f and adds the
+// velocity part to gv.
+__device__ __forceinline__ float3 friction_transpose(float3 nv, float fk,
+                                                     float fs, float3 f,
+                                                     float3 v, float3 gf,
+                                                     float3& gv) {
+  const float fn_mag = dot3(f, nv);
+  const float3 f_n = mul3(nv, fn_mag);
+  const float vdotn = dot3(v, nv);
+  const float3 vp = sub3(v, mul3(nv, vdotn));
+  const float v_norm = sqrtf(dot3(vp, vp));
+  const bool kinetic = v_norm > 1e-16f;
+  const float fn_abs = fabsf(fn_mag);
+  const float safe_vn = kinetic ? v_norm : 1.f;
+  const float3 f_perp = sub3(f, f_n);
+  const float fp_norm = sqrtf(dot3(f_perp, f_perp));
+  const bool sta_hold = fs * fn_abs > fp_norm;
+  const float3 zero = make_float3(0.f, 0.f, 0.f);
+  const float3 gf_kin = kinetic ? gf : zero;
+  const float3 gf_sta = kinetic ? zero : gf;
+  float3 g = zero;
+  g = add3(g, gf_sta);                             // f_sta = f - f_perp
+  const float3 gf_perp = sta_hold ? neg3(gf_sta) : zero;
+  g = add3(g, gf_perp);                            // f_perp = f - f_n
+  const float3 gf_n = neg3(gf_perp);
+  g = add3(g, gf_kin);                             // f_kin = f - vp s
+  const float s = fk * fn_abs / safe_vn;
+  const float gs = -dot3(vp, gf_kin);
+  float3 gv_perp = mul3(gf_kin, -s);
+  const float gfn_abs = fk * gs / safe_vn;
+  const float gsafe_vn = -fk * fn_abs * gs / (safe_vn * safe_vn);
+  const float gv_norm = kinetic ? gsafe_vn : 0.f;
+  gv_perp = add3(gv_perp, mul3(vp, v_norm > 0.f ? gv_norm / safe_vn : 0.f));
+  gv = add3(gv, gv_perp);                          // vp = v - (v.n) n
+  const float gvdotn = -dot3(nv, gv_perp);
+  gv = add3(gv, mul3(nv, gvdotn));
+  const float gfn_mag = dot3(gf_n, nv) + signf(fn_mag) * gfn_abs;
+  return add3(g, mul3(nv, gfn_mag));
+}
+
+// Transpose of a ball of centre c and radius r at p for the force
+// cotangent gf (which passes through): adds its position part to gp.
+__device__ __forceinline__ void ball_transpose(float3 c, float r, float nc,
+                                               float3 p, float3 gf,
+                                               float3& gp) {
+  const float3 dv = sub3(p, c);
+  const float dist = sqrtf(dot3(dv, dv));
+  const float safe = dist > 0.f ? dist : 1.f;
+  const bool active = dist <= r && dist > 0.f;
+  const float push = active ? nc / safe : 0.f;
+  const float gpush = dot3(dv, gf);
+  float3 gd = mul3(gf, push);
+  const float gdist = active ? -nc * gpush / (safe * safe) : 0.f;
+  gd = add3(gd, mul3(dv, gdist / safe));
+  gp = add3(gp, gd);
+}
+
+// The cotangents local_transpose carries: on the force, on the velocity
+// and the position part.
+struct LocalBar {
+  float3 gf, gv, gp;
+};
+
+// Transpose of the local slots of mass i of n in reverse order
+// (directions, constraint planes, balls, contact planes; the plain version
+// is ops/adjoint.py::_local_transpose) at the force fl entering the local
+// block, position p and input velocity v: g.gf goes from the cotangent on
+// the block's output force to that on fl, g.gv from the cotangent on the
+// block's output velocity to that on v; the balls' and contact planes'
+// position parts are added to g.gp.  Out of line, its arguments by value,
+// as step_body.cuh::local_constraints is: so that scenes without slots do
+// not pay for its code (scripts/cuda_local_cost_ab.py).
+__device__ __noinline__ LocalBar local_transpose(titan::LocalSlots ls,
+                                                    float nc, int i, int n,
+                                                    float3 fl, float3 p,
+                                                    float3 v, LocalBar g) {
+  const int ball_base = 7 * ls.cp;
+  const int pl_base = ball_base + 5 * ls.ball;
+  const int dir_base = pl_base + 5 * ls.pl;
+  const int q_pl = ls.cp + ls.ball, q_dir = q_pl + ls.pl;
+  float3& gf = g.gf;
+  float3& gv = g.gv;
+  float3& gp = g.gp;
+  for (int j = ls.dir - 1; j >= 0; --j) {
+    const int o = dir_base + 5 * j;
+    if (!(titan::slot_row(ls, o, i, n) > 0.5f)) continue;
+    const float3 t = titan::slot_vec(ls, o + 1, i, n);
+    const float fric = titan::slot_row(ls, o + 4, i, n);
+    const titan::ForceVel in =
+        local_inputs(ls, nc, i, n, fl, p, v, q_dir + j);
+    const float3 nfv = sub3(in.f, mul3(t, dot3(in.f, t)));
+    const float v_norm = sqrtf(dot3(in.v, in.v));
+    const float nf_norm = sqrtf(dot3(nfv, nfv));
+    float gnn = 0.f;
+    if (v_norm >= 1e-16f) {  // v_out = t (v_in . t); f3 = f2 - |nfv| fric t
+      gv = mul3(t, dot3(t, gv));
+      gnn = -fric * dot3(t, gf);
+    }
+    // f2 = f_in - nfv, nfv = f_in - t (f_in . t)
+    const float3 gnfv = sub3(mul3(nfv, nf_norm > 0.f ? gnn / nf_norm : 0.f),
+                             gf);
+    gf = add3(gf, sub3(gnfv, mul3(t, dot3(t, gnfv))));
+  }
+  for (int j = ls.pl - 1; j >= 0; --j) {
+    const int o = pl_base + 5 * j;
+    if (!(titan::slot_row(ls, o, i, n) > 0.5f)) continue;
+    const float3 nv = titan::slot_vec(ls, o + 1, i, n);
+    const float fric = titan::slot_row(ls, o + 4, i, n);
+    const titan::ForceVel in =
+        local_inputs(ls, nc, i, n, fl, p, v, q_pl + j);
+    const float nf = dot3(in.f, nv);
+    const float v_norm = sqrtf(dot3(in.v, in.v));
+    float gnf = 0.f;
+    if (v_norm >= 1e-16f) {  // v_out = v2c; f3 = f2 - fric nf v2c / |v_in|
+      const float3 v2c = sub3(in.v, mul3(nv, dot3(in.v, nv)));
+      const float s = fric / v_norm;
+      const float d = dot3(v2c, gf);
+      gnf = -s * d;
+      const float3 gv2c = sub3(gv, mul3(gf, s * nf));
+      const float gsafe = fric * nf * d / (v_norm * v_norm);
+      gv = sub3(gv2c, mul3(nv, dot3(nv, gv2c)));
+      gv = add3(gv, mul3(in.v, gsafe / v_norm));
+    }
+    // f2 = f_in - n nf, nf = f_in . n
+    gnf = gnf - dot3(nv, gf);
+    gf = add3(gf, mul3(nv, gnf));
+  }
+  for (int j = ls.ball - 1; j >= 0; --j) {
+    const int o = ball_base + 5 * j;
+    if (!(titan::slot_row(ls, o, i, n) > 0.5f)) continue;
+    ball_transpose(titan::slot_vec(ls, o + 1, i, n),
+                   titan::slot_row(ls, o + 4, i, n), nc, p, gf, gp);
+  }
+  for (int j = ls.cp - 1; j >= 0; --j) {
+    const int o = 7 * j;
+    if (!(titan::slot_row(ls, o, i, n) > 0.5f)) continue;
+    const float3 nv = titan::slot_vec(ls, o + 1, i, n);
+    const float off = titan::slot_row(ls, o + 4, i, n);
+    const float fk = titan::slot_row(ls, o + 5, i, n);
+    const float fs = titan::slot_row(ls, o + 6, i, n);
+    const float disp = dot3(p, nv) - off;
+    if (!(disp < 0.f)) continue;    // the plane added nothing here
+    gp = add3(gp, mul3(nv, -nc * dot3(gf, nv)));
+    if (!(fs > 0.f || fk > 0.f)) continue;
+    // contact planes precede every velocity mutation: friction reads v
+    const titan::ForceVel in = local_inputs(ls, nc, i, n, fl, p, v, j);
+    gf = friction_transpose(nv, fk, fs, in.f, v, gf, gv);
+  }
+  return g;
+}
+
+// Transpose of the drag, local-constraint, ball and plane stages (reverse
+// order) at (p, v) for the cotangents gf (on the final force; on return,
+// on the spring sum) and gv (on the velocity the integrator consumed, vf,
+// the one the local constraints leave; on return, on the input velocity v,
+// including the stages' part).  Returns the stages' gpos part; adds the
+// drag gradient to *gdrag.
 template <class A>
 __device__ float3 stages_transpose(const A& a, int i, float3 f0, float3 p,
-                                   float3 v, float3& gf, float3& gv,
-                                   float* gdrag) {
+                                   float3 v, float3 vf, float3& gf,
+                                   float3& gv, float* gdrag) {
   const float nc = a.normal_coeff;
   float3 gp = make_float3(0.f, 0.f, 0.f);
   if (a.has_drag) {
-    const float sq = dot3(v, v);
+    const float sq = dot3(vf, vf);
     const float vn = sq > 0.f ? sqrtf(sq) : 1.f;
     const float vnm = sq > 0.f ? vn : 0.f;
-    const float dotv = dot3(v, gf);
+    const float dotv = dot3(vf, gf);
     const float w = sq > 0.f ? dotv / vn : 0.f;
     const float dr = a.drag[i];
-    gv = make_float3(gv.x - dr * (vnm * gf.x + w * v.x),
-                     gv.y - dr * (vnm * gf.y + w * v.y),
-                     gv.z - dr * (vnm * gf.z + w * v.z));
+    gv = make_float3(gv.x - dr * (vnm * gf.x + w * vf.x),
+                     gv.y - dr * (vnm * gf.y + w * vf.y),
+                     gv.z - dr * (vnm * gf.z + w * vf.z));
     *gdrag = -(vnm * dotv);
+  }
+  if (a.local.lc != nullptr) {
+    const LocalBar g = local_transpose(a.local, nc, i, a.n,
+                                       global_stages(a, f0, p, v), p, v,
+                                       LocalBar{gf, gv, gp});
+    gf = g.gf;
+    gv = g.gv;
+    gp = g.gp;
   }
   for (int bi = a.n_balls - 1; bi >= 0; --bi) {
     const float* b = a.balls + 4 * bi;
-    const float3 dv = make_float3(p.x - b[0], p.y - b[1], p.z - b[2]);
-    const float dist = sqrtf(dot3(dv, dv));
-    const float safe = dist > 0.f ? dist : 1.f;
-    const bool active = dist <= b[3] && dist > 0.f;
-    const float push = active ? nc / safe : 0.f;
-    const float gpush = dot3(dv, gf);
-    float3 gd = mul3(gf, push);
-    const float gdist = active ? -nc * gpush / (safe * safe) : 0.f;
-    gd = add3(gd, mul3(dv, gdist / safe));
-    gp = add3(gp, gd);
+    ball_transpose(make_float3(b[0], b[1], b[2]), b[3], nc, p, gf, gp);
   }
   for (int pi = a.n_planes - 1; pi >= 0; --pi) {
     const float* pl = a.planes + 6 * pi;
@@ -174,40 +372,8 @@ __device__ float3 stages_transpose(const A& a, int i, float3 f0, float3 p,
     for (int q = 0; q < pi; ++q) {
       f = titan::plane_force(a.planes + 6 * q, nc, f, p, v);
     }
-    const float fn_mag = dot3(f, nv);
-    const float3 f_n = mul3(nv, fn_mag);
-    const float vdotn = dot3(v, nv);
-    const float3 vp = sub3(v, mul3(nv, vdotn));
-    const float v_norm = sqrtf(dot3(vp, vp));
-    const bool kinetic = v_norm > 1e-16f;
-    const float fn_abs = fabsf(fn_mag);
-    const float safe_vn = kinetic ? v_norm : 1.f;
-    const float3 f_perp = sub3(f, f_n);
-    const float fp_norm = sqrtf(dot3(f_perp, f_perp));
-    const bool sta_hold = fs * fn_abs > fp_norm;
     // inside and with friction: the select takes the friction branch
-    const float3 zero = make_float3(0.f, 0.f, 0.f);
-    const float3 gf_kin = kinetic ? gf : zero;
-    const float3 gf_sta = kinetic ? zero : gf;
-    float3 g = zero;
-    g = add3(g, gf_sta);                             // f_sta = f - f_perp
-    const float3 gf_perp = sta_hold ? neg3(gf_sta) : zero;
-    g = add3(g, gf_perp);                            // f_perp = f - f_n
-    const float3 gf_n = neg3(gf_perp);
-    g = add3(g, gf_kin);                             // f_kin = f - vp s
-    const float s = fk * fn_abs / safe_vn;
-    const float gs = -dot3(vp, gf_kin);
-    float3 gv_perp = mul3(gf_kin, -s);
-    const float gfn_abs = fk * gs / safe_vn;
-    const float gsafe_vn = -fk * fn_abs * gs / (safe_vn * safe_vn);
-    const float gv_norm = kinetic ? gsafe_vn : 0.f;
-    gv_perp = add3(gv_perp,
-                   mul3(vp, v_norm > 0.f ? gv_norm / safe_vn : 0.f));
-    gv = add3(gv, gv_perp);                          // vp = v - (v.n) n
-    const float gvdotn = -dot3(nv, gv_perp);
-    gv = add3(gv, mul3(nv, gvdotn));
-    const float gfn_mag = dot3(gf_n, nv) + signf(fn_mag) * gfn_abs;
-    gf = add3(g, mul3(nv, gfn_mag));
+    gf = friction_transpose(nv, fk, fs, f, v, gf, gv);
   }
   return gp;
 }
@@ -220,10 +386,11 @@ __device__ __forceinline__ void bwd_mid_mass(const A& a, const float* pos,
   const float tn = eval_time(a, t, 1);
   const float cidx = eval_cidx(a, t, 1);
   const float3 p = ld3(pos, i, n), v = ld3(vel, i, n);
+  float3 v1 = v;    // pass 1's mutated velocity
   const float3 f1 =
-      stages_fwd(a, i, spring_sum(a, i, pos, vel, p, v, tn, cidx), p, v);
+      stages_fwd(a, i, spring_sum(a, i, pos, vel, p, v, tn, cidx), p, v1);
   float3 ph, vh;
-  titan::rk2_midpoint(p, v, mul3(f1, a.minv[i]), a.scal[0],
+  titan::rk2_midpoint(p, v1, mul3(f1, a.minv[i]), a.scal[0],
                       a.fixed[i] != 0.f, ph, vh);
   st3(a.pos_h, i, n, ph);
   st3(a.vel_h, i, n, vh);
@@ -245,7 +412,8 @@ __device__ __forceinline__ void bwd_force_mass(const A& a, const float* pos,
   const float cidx = eval_cidx(a, t, call);
   const float3 p = ld3(pos, i, n), v = ld3(vel, i, n);
   const float3 f0 = spring_sum(a, i, pos, vel, p, v, tn, cidx);
-  const float3 ff = stages_fwd(a, i, f0, p, v);
+  float3 vf = v;    // the velocity the integrator consumed
+  const float3 ff = stages_fwd(a, i, f0, p, vf);
   const float dt = a.scal[0];
   const float minv = a.minv[i];
   const float fx = a.fixed[i], nf = 1.f - fx;
@@ -267,7 +435,7 @@ __device__ __forceinline__ void bwd_force_mass(const A& a, const float* pos,
       const float3 gv2c = mul3(gv2, nf);
       float3 gv1 = gv2c;
       if (a.clamp) {  // transpose of v / |v| where |v| > 1
-        const float3 v1 = add3(v, mul3(mul3(ff, minv), dt));
+        const float3 v1 = add3(vf, mul3(mul3(ff, minv), dt));
         const float vn2 = dot3(v1, v1);
         const float vn = sqrtf(vn2 > 0.f ? vn2 : 1.f);
         if (vn2 > 0.f && vn > 1.f) {
@@ -294,7 +462,8 @@ __device__ __forceinline__ void bwd_force_mass(const A& a, const float* pos,
   float3 gf = mul3(gacc, minv);
   a.gminv[i] += dot3(gacc, ff);
   float gdrag = 0.f;
-  const float3 gp = stages_transpose(a, i, f0, p, v, gf, gvm, &gdrag);
+  const float3 gp =
+      stages_transpose(a, i, f0, p, v, vf, gf, gvm, &gdrag);
   if (a.has_drag) a.gdrag[i] += gdrag;
   a.gcf[i] += gf.x;
   a.gcf[n + i] += gf.y;

@@ -4,12 +4,14 @@
 // (launched by build_pallas_chunk): n whole steps of stencil-family springs
 // (Hooke + axial damping, breathing, ACTUATED_* rest), the constant force
 // (gravity + persistent external force), global contact planes with static
-// and kinetic friction, balls, quadratic drag and the Euler (clamp on/off),
-// Verlet or RK2 update, with fixed and invalid masses frozen.  The plain
-// PyTorch version of the same function, which the card's results are held
-// against, is titan_tpu_torch/ops/fused_step.py::fused_chunk_plain.
-// Remainder springs and local constraints are not in this kernel yet
-// (fused_reject_reason sends such scenes to the eager step).  Magnets enter
+// and kinetic friction, balls, the per-mass local constraints (contact
+// planes, balls, constraint planes, directions; pallas_step.py:494-571),
+// quadratic drag and the Euler (clamp on/off), Verlet or RK2 update, with
+// fixed and invalid masses frozen.  The plain PyTorch version of the same
+// function, which the card's results are held against, is
+// titan_tpu_torch/ops/fused_step.py::fused_chunk_plain.  Remainder springs
+// are not in this kernel yet (fused_reject_reason sends such scenes to the
+// eager step).  Magnets enter
 // through the constant force: for a magnet scene the caller computes the
 // field of each force pass (csrc/magnets.cu or csrc/magnets_grid.cu) and
 // launches that pass alone through titan_fused_pass with cforce =
@@ -38,6 +40,10 @@
 // ~25 per mass, 0.35 us per step at 43^3 at 67 TFLOP/s f32.  The kernel is
 // held back by the latency of each thread's chain of ~26 gathers, not by
 // bytes: its time barely changes from 8,064 to 79,616 masses.
+// A scene with local constraints also reads its slot rows, 22 floats per
+// mass at one slot of each type, and mutates the velocity that drag and the
+// update read; RK2 then stores pass 1's mutated velocity (12 B per mass)
+// for the corrector launch, which starts from it.
 // Next steps: more independent loads in flight per thread (restrict
 // pointers, families unrolled with compile-time feature flags),
 // family-uniform k/rest as scalars instead of [F, N] planes, then the chunk
@@ -97,6 +103,7 @@ struct PassArgs {
   float* vel_dst;
   float* acc_dst;   // null for the RK2 predictor
   float* rest_dst;  // [F, N] (actuated only)
+  float* vel_v1;    // RK2 with local constraints: pass 1's mutated velocity
 };
 
 // Enqueue one launch of the step kernel: pass `p` of a chunk whose
@@ -121,6 +128,8 @@ extern "C" int titan_fused_pass(const ChunkArgs* c, const PassArgs* p,
   a.pos_dst = p->pos_dst;
   a.vel_dst = p->vel_dst;
   a.acc_dst = p->acc_dst;
+  a.v1_dst = p->mode == titan::kRk2Half ? p->vel_v1 : nullptr;
+  a.v1_src = p->mode == titan::kRk2Full ? p->vel_v1 : nullptr;
   const int threads = 256;
   const int blocks = (c->n + threads - 1) / threads;
   fused_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -6,7 +6,10 @@
 // one launch per step (two for RK2) on the caller's stream, with
 // pos/vel/acc (and actuated rest) ping-ponging between output and scratch
 // buffers.  What the step computes, and why it is laid out this way, is
-// set out at the top of csrc/fused_step.cu.
+// set out at the top of csrc/fused_step.cu.  The non-spring part of a force
+// evaluation (global planes and balls, per-mass local constraints, drag) is
+// contact_and_drag, which the tiled step (csrc/tiled_body.cuh) and the
+// adjoints' recompute (csrc/adjoint_body.cuh) call too.
 
 #ifndef TITAN_STEP_BODY_CUH_
 #define TITAN_STEP_BODY_CUH_
@@ -18,6 +21,16 @@
 namespace titan {
 
 enum Mode { kEuler = 0, kVerlet = 1, kRk2Half = 2, kRk2Full = 3 };
+
+// The per-mass local-constraint slots of a scene: the capacity of each type
+// and the stacked [L, N] slot array of titan_tpu_torch/ops/forces.py::
+// stage_local (per contact plane 7 rows: act, normal xyz, offset, fk, fs;
+// per ball, constraint plane and direction 5: act, vector xyz, radius or
+// friction).  A slot acts where its act row is > 0.5.
+struct LocalSlots {
+  int cp, ball, pl, dir;
+  const float* lc;  // [L, N], null when every capacity is 0
+};
 
 // One launch = one force evaluation + one update of every mass.
 struct StepArgs {
@@ -40,6 +53,7 @@ struct StepArgs {
   const float* arate;    // [F, N] +rate / -rate / 0, validity-folded
   const float* abound;   // [F, N] l_max / l_min
   const float* drag;     // [N]
+  LocalSlots local;
   const float* rest_src;  // [F, N]
   float* rest_dst;        // [F, N] (actuated only)
   const float* fpos;  // [3, N] state the forces are evaluated at
@@ -50,6 +64,10 @@ struct StepArgs {
   float* pos_dst;
   float* vel_dst;
   float* acc_dst;     // unused by the RK2 predictor
+  // RK2 with local constraints: the predictor stores pass 1's mutated
+  // velocity in v1_dst, the corrector starts from v1_src (else from vel0)
+  float* v1_dst;
+  const float* v1_src;
 };
 
 __device__ __forceinline__ float3 ld3(const float* a, int i, int n) {
@@ -138,22 +156,135 @@ __device__ __forceinline__ float3 plane_force(const float* pl,
   return add3(f, mul3(nv, -disp * normal_coeff));
 }
 
-// What acts on mass i after the spring sum f, at (p, v): the global
+// Ball of centre c and radius r on a mass at p: the radial penalty
+// inside it (object.cu:56-59), nothing at its centre.
+__device__ __forceinline__ float3 ball_force(float3 c, float r,
+                                             float normal_coeff, float3 f,
+                                             float3 p) {
+  const float3 dv = sub3(p, c);
+  const float dist = sqrtf(dot3(dv, dv));
+  if (dist <= r && dist > 0.f) f = add3(f, mul3(dv, normal_coeff / dist));
+  return f;
+}
+
+// Constraint plane of unit normal nv and friction fric on a mass with
+// force f and velocity v (object.cu:118-127): the normal force and
+// velocity are projected out.  The reference's quirk is kept: |v| is taken
+// before the normal velocity is removed, and the friction term divides the
+// updated velocity by that old norm.  Updates f and v.
+__device__ __forceinline__ void constraint_plane(float3 nv, float fric,
+                                                 float3& f, float3& v) {
+  const float nf = dot3(f, nv);
+  const float3 f2 = sub3(f, mul3(nv, nf));
+  const float v_norm = sqrtf(dot3(v, v));
+  if (!(v_norm >= 1e-16f)) {
+    f = f2;
+    return;
+  }
+  const float3 v2 = sub3(v, mul3(nv, dot3(v, nv)));
+  const float s = fric * nf;
+  f = make_float3(f2.x - v2.x * s / v_norm, f2.y - v2.y * s / v_norm,
+                  f2.z - v2.z * s / v_norm);
+  v = v2;
+}
+
+// Direction constraint of unit tangent t and friction fric
+// (object.cu:136-144): only motion along t.  Updates f and v.
+__device__ __forceinline__ void direction(float3 t, float fric, float3& f,
+                                          float3& v) {
+  const float3 nfv = sub3(f, mul3(t, dot3(f, t)));
+  const float3 f2 = sub3(f, nfv);
+  const float v_norm = sqrtf(dot3(v, v));
+  if (!(v_norm >= 1e-16f)) {
+    f = f2;
+    return;
+  }
+  const float nf_norm = sqrtf(dot3(nfv, nfv));
+  f = sub3(f2, mul3(t, nf_norm * fric));
+  v = mul3(t, dot3(v, t));
+}
+
+// Row r of mass i in the [L, N] slot array.
+__device__ __forceinline__ float slot_row(const LocalSlots& ls, int r, int i,
+                                          int n) {
+  return ls.lc[static_cast<size_t>(r) * static_cast<size_t>(n) + i];
+}
+__device__ __forceinline__ float3 slot_vec(const LocalSlots& ls, int r, int i,
+                                           int n) {
+  return make_float3(slot_row(ls, r, i, n), slot_row(ls, r + 1, i, n),
+                     slot_row(ls, r + 2, i, n));
+}
+
+// A force and a velocity.
+struct ForceVel {
+  float3 f, v;
+};
+
+// The per-mass local constraints of mass i (sim.cu:1311-1326), in
+// reference order: contact planes (the global plane's own code on a copy
+// of the slot), balls, constraint planes, directions, from the force f and
+// velocity v entering them.  Returns the force and the velocity:
+// constraint planes and directions change it, and drag and the integrator
+// read the changed one.  Plain version: ops/forces.py::local_slots.
+__device__ __forceinline__ ForceVel local_slots(LocalSlots ls,
+                                                float normal_coeff, int i,
+                                                int n, float3 f, float3 p,
+                                                float3 v) {
+  int o = 0;
+  for (int j = 0; j < ls.cp; ++j, o += 7) {
+    if (!(slot_row(ls, o, i, n) > 0.5f)) continue;
+    float pl[6];
+    for (int c = 0; c < 6; ++c) pl[c] = slot_row(ls, o + 1 + c, i, n);
+    f = plane_force(pl, normal_coeff, f, p, v);
+  }
+  for (int j = 0; j < ls.ball; ++j, o += 5) {
+    if (!(slot_row(ls, o, i, n) > 0.5f)) continue;
+    f = ball_force(slot_vec(ls, o + 1, i, n), slot_row(ls, o + 4, i, n),
+                   normal_coeff, f, p);
+  }
+  for (int j = 0; j < ls.pl; ++j, o += 5) {
+    if (!(slot_row(ls, o, i, n) > 0.5f)) continue;
+    constraint_plane(slot_vec(ls, o + 1, i, n), slot_row(ls, o + 4, i, n), f,
+                     v);
+  }
+  for (int j = 0; j < ls.dir; ++j, o += 5) {
+    if (!(slot_row(ls, o, i, n) > 0.5f)) continue;
+    direction(slot_vec(ls, o + 1, i, n), slot_row(ls, o + 4, i, n), f, v);
+  }
+  return ForceVel{f, v};
+}
+
+// local_slots out of line, its arguments by value, for the step kernels:
+// inlined, its code cost them registers and time on scenes without slots
+// too (scripts/cuda_local_cost_ab.py).
+__device__ __noinline__ ForceVel local_constraints(LocalSlots ls,
+                                                   float normal_coeff, int i,
+                                                   int n, float3 f, float3 p,
+                                                   float3 v) {
+  return local_slots(ls, normal_coeff, i, n, f, p, v);
+}
+
+// What acts on mass i of n after the spring sum f, at (p, v): the global
 // contact planes in registration order, the global balls
-// (object.cu:56-59) and quadratic drag -C |v| v (sim.cu:1329-1332).
-// `drag` is read only with has_drag.
+// (object.cu:56-59), the per-mass local constraints and quadratic drag
+// -C |v| v (sim.cu:1329-1332).  Returns the force; v becomes the velocity
+// the local constraints leave, which drag reads and the integrator must
+// read.  `drag` is read only with has_drag.
 __device__ __forceinline__ float3 contact_and_drag(
     int n_planes, const float* planes, int n_balls, const float* balls,
-    float normal_coeff, int has_drag, const float* drag, int i, float3 f,
-    float3 p, float3 v) {
+    const LocalSlots& local, float normal_coeff, int has_drag,
+    const float* drag, int i, int n, float3 f, float3 p, float3& v) {
   for (int pi = 0; pi < n_planes; ++pi) {
     f = plane_force(planes + 6 * pi, normal_coeff, f, p, v);
   }
   for (int bi = 0; bi < n_balls; ++bi) {
     const float* b = balls + 4 * bi;
-    const float3 dv = make_float3(p.x - b[0], p.y - b[1], p.z - b[2]);
-    const float dist = sqrtf(dot3(dv, dv));
-    if (dist <= b[3] && dist > 0.f) f = add3(f, mul3(dv, normal_coeff / dist));
+    f = ball_force(make_float3(b[0], b[1], b[2]), b[3], normal_coeff, f, p);
+  }
+  if (local.lc != nullptr) {
+    const ForceVel fv = local_constraints(local, normal_coeff, i, n, f, p, v);
+    f = fv.f;
+    v = fv.v;
   }
   if (has_drag) f = sub3(f, mul3(v, drag[i] * sqrtf(dot3(v, v))));
   return f;
@@ -212,7 +343,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int mode,
   const float3 zero = make_float3(0.f, 0.f, 0.f);
 
   const float3 p = ld3(a.fpos, i, n);
-  const float3 v = ld3(a.fvel, i, n);
+  float3 v = ld3(a.fvel, i, n);
   if (trace != nullptr) {
     st3(trace, i, n, p);
     st3(trace + 3 * static_cast<size_t>(n), i, n, v);
@@ -247,8 +378,9 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int mode,
     }
   }
 
-  f = contact_and_drag(a.n_planes, a.planes, a.n_balls, a.balls,
-                       a.normal_coeff, a.has_drag, a.drag, i, f, p, v);
+  // from here on v is the velocity the local constraints leave
+  f = contact_and_drag(a.n_planes, a.planes, a.n_balls, a.balls, a.local,
+                       a.normal_coeff, a.has_drag, a.drag, i, n, f, p, v);
 
   const float minv = a.minv[i];
   const float3 acc = mul3(f, minv);
@@ -259,6 +391,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int mode,
     rk2_midpoint(p, v, acc, dt, frozen, ph, vh);
     st3(a.pos_dst, i, n, ph);
     st3(a.vel_dst, i, n, vh);
+    if (a.v1_dst != nullptr) st3(a.v1_dst, i, n, v);
     return;
   }
 
@@ -280,7 +413,9 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int mode,
                      p.y + (v2.y * dt + 0.5f * acc.y * dt * dt),
                      p.z + (v2.z * dt + 0.5f * acc.z * dt * dt));
   } else if (mode == kRk2Full) {  // corrector from the backups (1344-1349)
-    v2 = make_float3(v0.x + acc.x * dt, v0.y + acc.y * dt, v0.z + acc.z * dt);
+    // from pass 1's mutated velocity; the position with pass 2's
+    const float3 vb = a.v1_src != nullptr ? ld3(a.v1_src, i, n) : v0;
+    v2 = make_float3(vb.x + acc.x * dt, vb.y + acc.y * dt, vb.z + acc.z * dt);
     p2 = make_float3(p0.x + v.x * dt, p0.y + v.y * dt, p0.z + v.z * dt);
   } else {  // Euler with the optional unit-speed clamp (sim.cu:1355-1362)
     v2 = make_float3(v.x + acc.x * dt, v.y + acc.y * dt, v.z + acc.z * dt);
@@ -329,8 +464,10 @@ struct ChunkArgs {
   float* acc_tmp;
   float* pos_half;
   float* vel_half;
+  float* vel_v1;  // RK2 with local constraints: pass 1's mutated velocity
   float* rest_out;
   float* rest_tmp;
+  titan::LocalSlots local;
 };
 
 namespace titan {
@@ -364,6 +501,7 @@ inline StepArgs step_args(const ChunkArgs* c) {
   a.arate = c->arate;
   a.abound = c->abound;
   a.drag = c->drag;
+  a.local = c->local;
   return a;
 }
 
@@ -419,10 +557,14 @@ int enqueue_chunk(const ChunkArgs* c, void* stream, Launch launch) {
       a.pos_dst = c->pos_half;
       a.vel_dst = c->vel_half;
       a.acc_dst = nullptr;
+      a.v1_dst = c->vel_v1;
+      a.v1_src = nullptr;
       if ((err = eval(kRk2Half, s, true)) != cudaSuccess) return (int)err;
       a.half = 0.5f;
       a.fpos = c->pos_half;
       a.fvel = c->vel_half;
+      a.v1_dst = nullptr;
+      a.v1_src = c->vel_v1;
     }
     a.pos_dst = pd;
     a.vel_dst = vd;

@@ -34,11 +34,14 @@
 // whose per-slot reads follow the tiled step's data contract: a k that is
 // uniform in its family is that family's scalar times bit f of the int32
 // existence mask, a uniform rest or breathing field the family's scalar,
-// everything else an [F, N] plane; cf, minv, fixed and drag are the
-// tiled step's own staging.  Per reversed step, one thread per mass and
-// no atomics: A (bwd_force_kernel) recomputes the force at the traced
-// state, transposes integrator, drag, balls and planes, and writes the
-// cotangent on the spring sum gf; B (bwd_spring_kernel) gathers both
+// everything else an [F, N] plane; cf, minv, fixed, drag and the
+// local-constraint slot rows are the tiled step's own staging, so the
+// local-constraint transpose (adjoint_body.cuh::local_transpose, the
+// TPU's :1421 branch) is the fused adjoint's too.  Per reversed step,
+// one thread per mass and no atomics: A (bwd_force_kernel) recomputes the
+// force at the traced state, transposes integrator, drag, local
+// constraints, balls and planes, and writes the cotangent on the spring
+// sum gf; B (bwd_spring_kernel) gathers both
 // incident springs of each family, finishes the carry and adds the bars
 // of slot (f, i), which only thread i writes.  RK2 adds the midpoint
 // launch and a second A/B pair: five launches per step.  This replaces the
@@ -128,6 +131,7 @@ struct TiledBwdArgs {
   float* gvc;
   float* pos_h;
   float* vel_h;
+  titan::LocalSlots local;  // per-mass local-constraint slots
 
   // per-slot parameter reads of csrc/adjoint_body.cuh, as
   // csrc/tiled_body.cuh::tiled_spring reads them

@@ -57,6 +57,7 @@ struct TiledArgs {
   const float* minv;     // [N]
   const float* fixed;    // [N] 1 = frozen (fixed or invalid), else 0
   const float* drag;     // [N] (has_drag only)
+  titan::LocalSlots local;  // per-mass local-constraint slots
 };
 
 // The state one force evaluation reads and its update writes.
@@ -71,6 +72,10 @@ struct StepIO {
   float* vel_dst;
   float* acc_dst;     // null: acc is not written (rk2a, and Euler/RK2 mega
                       // steps before the segment's last)
+  // RK2 with local constraints: rk2a stores pass 1's mutated velocity in
+  // v1_dst and rk2b starts its corrector from v1 (else from vel0)
+  float* v1_dst;
+  const float* v1;
 };
 
 // Slot (fi, s): the spring from left mass s to right mass s + d_fi, at
@@ -117,13 +122,14 @@ __device__ __forceinline__ float3 tiled_spring(const TiledArgs& a, int fi,
 // The force on mass i at state (pos, vel): per family "- left + right"
 // from zero (the TPU's fw - f + roll_scatter(f, d)), then the constant
 // force (f_acc = fw + const_f, pallas_tiled.py:740), then the global
-// planes, balls and drag (mass_tail :748, without local constraints).  A
-// slot whose partner lies outside [0, N) is skipped: the TPU evaluates it
-// with k = 0 and adds a zero.
+// planes, balls, the per-mass local constraints and drag (mass_tail :748).
+// `vm` receives the velocity the local constraints leave.  A slot whose
+// partner lies outside [0, N) is skipped: the TPU evaluates it with k = 0
+// and adds a zero.
 __device__ __forceinline__ float3 tiled_force(const TiledArgs& a, int i,
                                               const float* pos,
                                               const float* vel, float t,
-                                              float adv_base) {
+                                              float adv_base, float3& vm) {
   const int n = a.n;
   const float3 zero = make_float3(0.f, 0.f, 0.f);
   const float3 p = ld3(pos, i, n);
@@ -145,9 +151,10 @@ __device__ __forceinline__ float3 tiled_force(const TiledArgs& a, int i,
     }
   }
   const float3 f = add3(fw, ld3(a.cforce, i, n));
+  vm = v;
   return titan::contact_and_drag(a.n_planes, a.planes, a.n_balls, a.balls,
-                                 a.normal_coeff, a.has_drag, a.drag, i, f,
-                                 p, v);
+                                 a.local, a.normal_coeff, a.has_drag, a.drag,
+                                 i, n, f, p, vm);
 }
 
 // x * keep + y * frozen, the TPU's arithmetic select of frozen masses
@@ -159,7 +166,9 @@ __device__ __forceinline__ float3 blend3(float3 x, float keep, float3 y,
 // One force evaluation and update of mass i in mode MODE
 // (pallas_tiled.py:852-930): t and the actuation count follow the step
 // index, t0 + step dt (+ dt / 2 for the corrector) and step (2 step, 2 step
-// + 1 under RK2, whose rest advances once per force pass).
+// + 1 under RK2, whose rest advances once per force pass).  The update
+// reads the velocity the local constraints leave (vm); frozen masses keep
+// the pass's input velocity, except at the RK2 midpoint, which keeps vm.
 template <int MODE>
 __device__ __forceinline__ void tiled_mass(const TiledArgs& a,
                                            const StepIO& io, int i) {
@@ -174,7 +183,8 @@ __device__ __forceinline__ void tiled_mass(const TiledArgs& a,
     t = __fadd_rn(a.scal[1], __fmul_rn(fstep, dt));
     adv_base = MODE == kRk2a ? __fmul_rn(2.f, fstep) : fstep;
   }
-  const float3 f = tiled_force(a, i, io.pos, io.vel, t, adv_base);
+  float3 vm;
+  const float3 f = tiled_force(a, i, io.pos, io.vel, t, adv_base, vm);
   const float3 p = ld3(io.pos, i, n);
   const float3 v = ld3(io.vel, i, n);
   const float frozen = a.fixed[i];
@@ -182,36 +192,39 @@ __device__ __forceinline__ void tiled_mass(const TiledArgs& a,
   const float3 acc = mul3(f, a.minv[i]);
 
   if (MODE == kRk2a) {  // midpoint predictor (sim.cu:1336-1343)
-    const float3 ph = make_float3(p.x + 0.5f * v.x * dt, p.y + 0.5f * v.y * dt,
-                                  p.z + 0.5f * v.z * dt);
-    const float3 vh = make_float3(v.x + 0.5f * acc.x * dt,
-                                  v.y + 0.5f * acc.y * dt,
-                                  v.z + 0.5f * acc.z * dt);
+    const float3 ph = make_float3(p.x + 0.5f * vm.x * dt,
+                                  p.y + 0.5f * vm.y * dt,
+                                  p.z + 0.5f * vm.z * dt);
+    const float3 vh = make_float3(vm.x + 0.5f * acc.x * dt,
+                                  vm.y + 0.5f * acc.y * dt,
+                                  vm.z + 0.5f * acc.z * dt);
     st3(io.pos_dst, i, n, blend3(ph, keep, p, frozen));
-    st3(io.vel_dst, i, n, blend3(vh, keep, v, frozen));
+    st3(io.vel_dst, i, n, blend3(vh, keep, vm, frozen));
+    if (io.v1_dst != nullptr) st3(io.v1_dst, i, n, vm);
     return;
   }
   float3 v2, p2;
   if (MODE == kRk2b) {  // corrector from the step's input (1344-1349)
-    // without local constraints the predictor's velocity is vel0 itself
+    // from pass 1's mutated velocity; the position with pass 2's
     const float3 v0 = ld3(io.vel0, i, n);
     const float3 p0 = ld3(io.pos0, i, n);
-    v2 = blend3(make_float3(v0.x + acc.x * dt, v0.y + acc.y * dt,
-                            v0.z + acc.z * dt),
+    const float3 vb = io.v1 != nullptr ? ld3(io.v1, i, n) : v0;
+    v2 = blend3(make_float3(vb.x + acc.x * dt, vb.y + acc.y * dt,
+                            vb.z + acc.z * dt),
                 keep, v0, frozen);
-    p2 = add3(p0, mul3(mul3(v, dt), keep));
+    p2 = add3(p0, mul3(mul3(vm, dt), keep));
   } else if (MODE == kVerlet) {  // reference 'Verlet' (sim.cu:1350-1354)
     const float3 a0 = ld3(io.acc, i, n);
-    v2 = make_float3(v.x + 0.5f * (a0.x + acc.x) * dt,
-                     v.y + 0.5f * (a0.y + acc.y) * dt,
-                     v.z + 0.5f * (a0.z + acc.z) * dt);
+    v2 = make_float3(vm.x + 0.5f * (a0.x + acc.x) * dt,
+                     vm.y + 0.5f * (a0.y + acc.y) * dt,
+                     vm.z + 0.5f * (a0.z + acc.z) * dt);
     v2 = blend3(v2, keep, v, frozen);
     p2 = add3(p, mul3(make_float3(v2.x * dt + 0.5f * acc.x * dt * dt,
                                   v2.y * dt + 0.5f * acc.y * dt * dt,
                                   v2.z * dt + 0.5f * acc.z * dt * dt),
                       keep));
   } else {  // Euler with the optional unit-speed clamp (sim.cu:1355-1362)
-    v2 = make_float3(v.x + acc.x * dt, v.y + acc.y * dt, v.z + acc.z * dt);
+    v2 = make_float3(vm.x + acc.x * dt, vm.y + acc.y * dt, vm.z + acc.z * dt);
     if (a.clamp) {
       const float vn = sqrtf(dot3(v2, v2));
       if (vn > 1.f) v2 = make_float3(v2.x / vn, v2.y / vn, v2.z / vn);

@@ -84,13 +84,14 @@ __global__ void tiled_mega_kernel(TiledArgs a, int step0, int k_seg,
   }
 }
 
-// The same for RK2: per step the predictor (state -> half), a barrier, the
+// The same for RK2: per step the predictor (state -> half, and with local
+// constraints pass 1's mutated velocity -> vel_v1), a barrier, the
 // corrector (half and the step's input -> next state), a barrier.
 template <bool TRACE>
 __global__ void tiled_megark2_kernel(TiledArgs a, int step0, int k_seg,
                                      State3 in, State3 buf_a, State3 buf_b,
                                      float* pos_half, float* vel_half,
-                                     float* trace) {
+                                     float* vel_v1, float* trace) {
   cg::grid_group grid = cg::this_grid();
   const int stride = gridDim.x * blockDim.x;
   for (int s = 0; s < k_seg; ++s) {
@@ -102,6 +103,7 @@ __global__ void tiled_megark2_kernel(TiledArgs a, int step0, int k_seg,
     io.vel = src.vel;
     io.pos_dst = pos_half;
     io.vel_dst = vel_half;
+    io.v1_dst = vel_v1;
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
       if (TRACE) {
         trace_store(trace_entry(trace, s, a.n), io.pos, io.vel, i, a.n);
@@ -113,6 +115,8 @@ __global__ void tiled_megark2_kernel(TiledArgs a, int step0, int k_seg,
     io.vel = vel_half;
     io.pos0 = src.pos;
     io.vel0 = src.vel;
+    io.v1_dst = nullptr;
+    io.v1 = vel_v1;
     io.pos_dst = dst.pos;
     io.vel_dst = dst.vel;
     io.acc_dst = s == k_seg - 1 ? dst.acc : nullptr;
@@ -169,6 +173,7 @@ struct TiledChunk {
   float* acc_tmp;
   float* pos_half;  // RK2 only
   float* vel_half;
+  float* vel_v1;    // RK2 with local constraints: pass 1's mutated velocity
 };
 
 namespace titan_tiled {
@@ -208,12 +213,13 @@ int enqueue_tiled_chunk(const TiledChunk* c, float* trace, void* stream) {
     int k_seg = c->k_seg;
     float* ph = c->pos_half;
     float* vh = c->vel_half;
+    float* v1 = c->vel_v1;
     for (int seg = 0; seg < n_seg; ++seg) {
       int step0 = seg * c->k_seg;
       float* tr = TRACE ? trace + static_cast<size_t>(step0) * entry : nullptr;
       void* params_ee[] = {&args, &step0, &k_seg, &cur, &buf_a, &buf_b, &tr};
       void* params_rk[] = {&args, &step0, &k_seg, &cur, &buf_a, &buf_b,
-                           &ph,   &vh,    &tr};
+                           &ph,   &vh,    &v1,    &tr};
       err = cudaLaunchCooperativeKernel(entry_fn, dim3(blocks),
                                         dim3(kThreads),
                                         rk2 ? params_rk : params_ee, 0, st);
@@ -234,6 +240,7 @@ int enqueue_tiled_chunk(const TiledChunk* c, float* trace, void* stream) {
     if (rk2) {
       io.pos_dst = c->pos_half;
       io.vel_dst = c->vel_half;
+      io.v1_dst = c->vel_v1;
       tiled_step_kernel<kRk2a, TRACE><<<blocks, kThreads, 0, st>>>(a, io, tr);
       if ((err = cudaGetLastError()) != cudaSuccess) {
         return static_cast<int>(err);
@@ -242,6 +249,8 @@ int enqueue_tiled_chunk(const TiledChunk* c, float* trace, void* stream) {
       io.vel = c->vel_half;
       io.pos0 = cur.pos;
       io.vel0 = cur.vel;
+      io.v1_dst = nullptr;
+      io.v1 = c->vel_v1;
     }
     io.pos_dst = dst.pos;
     io.vel_dst = dst.vel;

@@ -10,9 +10,14 @@
 // held against, is titan_tpu_torch/ops/tiled_step.py::tiled_chunk_plain.
 // Physics: stencil-family springs (Hooke + axial damping, breathing,
 // closed-form ACTUATED_* rest), the constant force, global contact planes
-// with friction, balls, drag and the Euler (clamp on/off), Verlet or RK2
-// update, fixed and invalid masses frozen.  Remainder springs, local
-// constraints and magnets are outside its envelope (tiled_reject_reason).
+// with friction, balls, the per-mass local constraints (the fused step's
+// device function, csrc/step_body.cuh::local_constraints, on the same
+// stacked slot rows; pallas_tiled.py:789-865), drag and the Euler (clamp
+// on/off), Verlet or RK2 update, fixed and invalid masses frozen.
+// Remainder springs and magnets are outside its envelope
+// (tiled_reject_reason).  With local constraints the RK2 predictor also
+// stores pass 1's mutated velocity, which the corrector starts from (the
+// TPU's megark2 cell carries it in its midpoint buffer, :898).
 //
 // What carries over from the TPU kernel is its data contract, not its
 // layout.  A family-uniform field rides as one scalar per family (the

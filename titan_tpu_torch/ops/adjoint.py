@@ -22,7 +22,11 @@ tensors with a roll pair (``rg`` reads index n + d, ``rs`` is its
 inverse; ``torch_rolls``), in the sqrt + divide form that the CPU and
 ``fused_step.cu`` compute.  The adjoint of a step recomputes the step's
 forward from the traced (pos, vel) and transposes it: integrator, drag,
-balls, planes (static and kinetic friction), then the spring families.
+the per-mass local constraints (directions, constraint planes, balls,
+contact planes), balls, planes (static and kinetic friction), then the
+spring families.  Constraint planes and directions mutate the velocity the
+integrator reads, so each force pass's velocity cotangent threads back
+through them to the pass's input velocity.
 
 ACTUATED rest is evaluated in closed form in the transpose (after c force
 calls, rest_c = rest0 + min(c, s_stop) arate dt), as the JAX package does,
@@ -31,13 +35,14 @@ by about 1e-7 relative.
 
 Differentiable inputs: masses.pos, vel, acc, extern_force, m, drag,
 stencil.k, rest, damping, omega, rate, and g.  dt, plane and ball
-geometry, t and the actuation bounds get no gradient.
+geometry, the local-constraint slots, t and the actuation bounds get no
+gradient.
 
 Envelope (``adjoint_reject_reason``): the fused step's, without magnets
 and without spring-less scenes.  A trace that does not fit on the card
 raises out-of-memory in the backward; a shorter ``segment`` makes it
-smaller.  Remainder springs and local constraints wait for the fused step's
-envelope to grow, the magnet branches for a later slice.
+smaller.  Remainder springs wait for the fused step's envelope to grow, the
+magnet branches for a later slice.
 """
 
 from __future__ import annotations
@@ -51,8 +56,11 @@ from torch.autograd.function import once_differentiable
 
 from ..config import ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator
 from ..state import SceneShape, SimState
-from .fused_step import (_ChunkArgs, _chunk_args, _checked, deltas_on,
-                         fused_chunk, fused_reject_reason, prep_invariants)
+from . import forces as F
+from .fused_step import (_ChunkArgs, _LocalSlots, _chunk_args, _checked,
+                         deltas_on, fused_chunk, fused_reject_reason,
+                         local_struct, prep_invariants)
+from .step import local_caps
 
 
 def adjoint_reject_reason(shape: SceneShape):
@@ -80,19 +88,32 @@ def adjoint_supported(shape: SceneShape) -> bool:
 
 def adjoint_resident_bytes(shape: SceneShape) -> int:
     """Bytes the TPU's fused adjoint would hold resident in VMEM for this
-    scene: the port's copy of ``titan_tpu/ops/adjoint.py:107-137``, the
-    rule by which the reference sends a gradient to its tiled adjoint
-    (budget ``ops/step.py::RESIDENT_BUDGET``, 100 MB, as the JAX package's
-    ``_VMEM_BUDGET``).  The remainder, local-constraint and magnet terms
-    are left out, as ``ops/step.py::resident_bytes`` leaves them out: the
-    fused adjoint refuses those scenes before this rule is read.  Per
-    mass: the per-family parameters in and their gradient accumulators
-    out, the carries, two trace slots and ~10 vec3 temporaries."""
+    scene: the port's copy of ``titan_tpu/ops/adjoint.py:107-137``, term
+    for term, the rule by which the reference sends a gradient to its tiled
+    adjoint (budget ``ops/step.py::RESIDENT_BUDGET``, 100 MB, as the JAX
+    package's ``_VMEM_BUDGET``).  Per mass: the per-family parameters in
+    and their gradient accumulators out, the local-constraint slot rows and
+    the transpose's staged stage inputs (f per contact plane, (f, v) per
+    constraint plane and direction; two passes' worth under RK2), the
+    carries, two trace slots and ~10 vec3 temporaries; plus the remainder
+    springs' selectors and per-spring terms and the magnet transpose's
+    temporaries."""
     n, f = shape.n_masses, len(shape.stencil_deltas)
     fam = f * ((3 if shape.has_damping else 2) * 2
                + (3 if shape.has_breathing else 0)
                + (3 if shape.has_actuated else 0))
-    return 4 * n * (fam + 3 * 14 + 8 + 12)
+    caps = local_caps(shape)
+    lc_stash = 3 * (caps[0] + 2 * caps[2] + 2 * caps[3])
+    if shape.config.integrator is Integrator.RK2:
+        lc_stash *= 2
+    nbytes = 4 * n * (fam + F.local_slot_rows(caps) + lc_stash + 3 * 14
+                      + 8 + 12)
+    if shape.has_remainder:
+        s = shape.n_springs
+        nbytes += 4 * 2 * s * (n // 128 + 5 * 128) + 4 * s * 24
+    if shape.has_magnets:
+        nbytes += 8 * (n // 128) * 128 * 128 * 4
+    return nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -101,9 +122,10 @@ def adjoint_resident_bytes(shape: SceneShape) -> int:
 # ``P`` is a dict: k / rest / damping / bsign / bomega / aratedt / sstop
 # [F, N]; minv / fixed / drag [1, N]; cf [3, N]; planes: list of
 # (nx, ny, nz, off, fk, fs) scalars; plane_friction: per-plane bools;
-# balls: list of (cx, cy, cz, rad); dt; plus the static flags deltas,
-# clamp, verlet, rk2, has_damping, has_drag, has_breathing, has_actuated
-# and normal_coeff.
+# balls: list of (cx, cy, cz, rad); lc: the stacked local-constraint slots
+# [L, N] (``forces.stage_local``) or None, and caps their capacities; dt;
+# plus the static flags deltas, clamp, verlet, rk2, has_damping, has_drag,
+# has_breathing, has_actuated and normal_coeff.
 # ---------------------------------------------------------------------------
 
 def torch_rolls():
@@ -146,10 +168,14 @@ def _rest_eff(P, fi, t_now, cidx=None):
 
 
 def _force(pos, vel, P, rg, rs, t_now=None, keep_stages=False, cidx=None):
-    """Full force evaluation (springs, planes, balls, drag), the fused
-    step's ``compute_forces``.  Returns (f, stages): with keep_stages,
-    stages holds the force entering each plane (its friction selects read
-    it) and the per-family intermediates the transpose reuses."""
+    """Full force evaluation (springs, planes, balls, local constraints,
+    drag), the fused step's ``compute_forces``.  Returns (f, v, stages):
+    v is the velocity the local constraints leave (what drag and the
+    integrator read); with keep_stages, stages holds the force entering
+    each plane and local contact plane (their friction selects read it),
+    the (force, velocity) entering each constraint plane and direction,
+    the final velocity and the per-family intermediates the transpose
+    reuses."""
     f = P["cf"] + 0.0
     fam = ({"inv": [], "cm": [], "ax": [], "ln": []} if keep_stages
            else None)
@@ -169,7 +195,8 @@ def _force(pos, vel, P, rg, rs, t_now=None, keep_stages=False, cidx=None):
             fam["cm"].append(cm)
             fam["ax"].append(axdot)
             fam["ln"].append(ln)
-    stages = {"plane_in": [], "fam": fam} if keep_stages else None
+    stages = ({"plane_in": [], "lcp_in": [], "lpl_in": [], "ldir_in": [],
+               "fam": fam} if keep_stages else None)
     for p, pp in enumerate(P["planes"]):
         if keep_stages:
             stages["plane_in"].append(f)
@@ -177,10 +204,16 @@ def _force(pos, vel, P, rg, rs, t_now=None, keep_stages=False, cidx=None):
                        P["normal_coeff"])
     for bb in P["balls"]:
         f = _ball_fwd(f, pos, bb, P["normal_coeff"])
+    v = vel
+    if P.get("lc") is not None:
+        f, v = F.local_slots(f, pos, v, P["lc"], P["caps"],
+                             P["normal_coeff"], stages)
     if P["has_drag"]:
-        vn = torch.sqrt(_vdot3(vel, vel))
-        f = f - P["drag"] * vn * vel
-    return f, stages
+        vn = torch.sqrt(_vdot3(v, v))
+        f = f - P["drag"] * vn * v
+    if keep_stages:
+        stages["v_final"] = v
+    return f, v, stages
 
 
 def _nvec(nx, ny, nz, like):
@@ -239,30 +272,34 @@ def _cidx(P, s_idx, call):
 
 def forward_step(pos, vel, acc_prev, P, rg, rs, t_now=None, s_idx=0.0):
     """One Euler, Verlet or RK2 step (the fused step's body with the
-    closed-form actuated rest).  Returns (pos2, vel2, acc)."""
+    closed-form actuated rest).  The constraint-mutated velocities feed
+    the update: under RK2 pass 1's (vel1) the predictor and the corrector,
+    pass 2's (vel2) the position.  Returns (pos2, vel2, acc)."""
     nf = 1.0 - P["fixed"]
     fx = P["fixed"]
     dt = P["dt"]
     if P["rk2"]:
-        f1, _ = _force(pos, vel, P, rg, rs, t_now, cidx=_cidx(P, s_idx, 1.0))
+        f1, vel1, _ = _force(pos, vel, P, rg, rs, t_now,
+                             cidx=_cidx(P, s_idx, 1.0))
         acc1 = f1 * P["minv"]
-        pos_h = (pos + 0.5 * vel * dt) * nf + pos * fx
-        vel_h = (vel + 0.5 * acc1 * dt) * nf + vel * fx
+        pos_h = (pos + 0.5 * vel1 * dt) * nf + pos * fx
+        vel_h = (vel1 + 0.5 * acc1 * dt) * nf + vel1 * fx
         t_h = None if t_now is None else t_now + 0.5 * dt
-        f2, _ = _force(pos_h, vel_h, P, rg, rs, t_h,
-                       cidx=_cidx(P, s_idx, 2.0))
+        f2, vel2, _ = _force(pos_h, vel_h, P, rg, rs, t_h,
+                             cidx=_cidx(P, s_idx, 2.0))
         acc = f2 * P["minv"]
-        v2 = (vel + acc * dt) * nf + vel * fx
-        pos2 = pos + vel_h * dt * nf
+        v2 = (vel1 + acc * dt) * nf + vel * fx
+        pos2 = pos + vel2 * dt * nf
         return pos2, v2, acc * nf + acc_prev * fx
-    f, _ = _force(pos, vel, P, rg, rs, t_now, cidx=_cidx(P, s_idx, 1.0))
+    f, vel_m, _ = _force(pos, vel, P, rg, rs, t_now,
+                         cidx=_cidx(P, s_idx, 1.0))
     acc = f * P["minv"]
     if P["verlet"]:
-        v2 = vel + 0.5 * (acc_prev + acc) * dt
+        v2 = vel_m + 0.5 * (acc_prev + acc) * dt
         v2 = v2 * nf + vel * fx
         pos2 = pos + (v2 * dt + 0.5 * acc * dt * dt) * nf
     else:
-        v2 = vel + acc * dt
+        v2 = vel_m + acc * dt
         if P["clamp"]:
             vn = torch.sqrt(_vdot3(v2, v2))
             v2 = torch.where(vn > 1.0, v2 / torch.where(vn > 0, vn, 1.0), v2)
@@ -295,16 +332,18 @@ def backward_step(pos, vel, gpos2, gvel2, gacc2, P, rg, rs, t_now=None,
         # two force passes per dt, each with its own transpose; the
         # midpoint is recomputed from the traced (pos, vel)
         c1, c2 = _cidx(P, s_idx, 1.0), _cidx(P, s_idx, 2.0)
-        f1, st1 = _force(pos, vel, P, rg, rs, t_now, keep_stages=True,
-                         cidx=c1)
+        f1, vel1, st1 = _force(pos, vel, P, rg, rs, t_now, keep_stages=True,
+                               cidx=c1)
         acc1 = f1 * P["minv"]
-        pos_h = (pos + 0.5 * vel * dt) * nf + pos * fx
-        vel_h = (vel + 0.5 * acc1 * dt) * nf + vel * fx
+        pos_h = (pos + 0.5 * vel1 * dt) * nf + pos * fx
+        vel_h = (vel1 + 0.5 * acc1 * dt) * nf + vel1 * fx
         t_h = None if t_now is None else t_now + 0.5 * dt
-        f2, st2 = _force(pos_h, vel_h, P, rg, rs, t_h, keep_stages=True,
-                         cidx=c2)
-        # v2 = (vel + acc dt) nf + vel fx; pos2 = pos + vel_h dt nf;
-        # acc_out = acc nf + acc_prev fx
+        f2, _, st2 = _force(pos_h, vel_h, P, rg, rs, t_h, keep_stages=True,
+                            cidx=c2)
+        # v2 = (vel1 + acc dt) nf + vel fx; pos2 = pos + vel2 dt nf;
+        # acc_out = acc nf + acc_prev fx; each pass's velocity cotangent
+        # (on its mutated vel1 / vel2) threads back through its own force
+        # transpose
         gpos = gpos2 + 0.0
         gacc_prev = gacc2 * fx
         gvel2ct = gpos2 * (dt * nf)
@@ -315,7 +354,7 @@ def backward_step(pos, vel, gpos2, gvel2, gacc2, P, rg, rs, t_now=None,
         minv_bar = torch.sum(gacc * f2, dim=0, keepdim=True)
         gpos_h, gv_h, bars = _force_transpose(pos_h, vel_h, gf2, gvel2ct,
                                               P, rg, rs, t_h, st2, cidx=c2)
-        # vel_h = (vel + 0.5 acc1 dt) nf + vel fx; pos_h likewise
+        # vel_h = (vel1 + 0.5 acc1 dt) nf + vel1 fx; pos_h likewise
         gvel1 = gvel1 + gv_h + gpos_h * (0.5 * dt * nf)
         gacc1 = gv_h * (0.5 * dt * nf)
         gpos = gpos + gpos_h
@@ -328,8 +367,8 @@ def backward_step(pos, vel, gpos2, gvel2, gacc2, P, rg, rs, t_now=None,
         return gpos + gp_c, gvel0 + gv_c, gacc_prev, bars
 
     c1 = _cidx(P, s_idx, 1.0)
-    f_final, st = _force(pos, vel, P, rg, rs, t_now, keep_stages=True,
-                         cidx=c1)
+    f_final, vel_m, st = _force(pos, vel, P, rg, rs, t_now, keep_stages=True,
+                                cidx=c1)
     acc = f_final * P["minv"]
     gpos = gpos2 + 0.0
     gv2 = gvel2 + gpos2 * (dt * nf)
@@ -345,7 +384,7 @@ def backward_step(pos, vel, gpos2, gvel2, gacc2, P, rg, rs, t_now=None,
         gvel0 = gv2 * fx
         gv2c = gv2 * nf
         if P["clamp"]:
-            v1 = vel + acc * dt
+            v1 = vel_m + acc * dt
             vn2 = _vdot3(v1, v1)
             vn = torch.sqrt(torch.where(vn2 > 0, vn2, 1.0))
             over = (vn2 > 0) & (vn > 1.0)
@@ -368,25 +407,32 @@ def backward_step(pos, vel, gpos2, gvel2, gacc2, P, rg, rs, t_now=None,
 def _force_transpose(pos, vel, gf, gvel_mut, P, rg, rs, t_now, st,
                      cidx=None):
     """Transpose of ``_force`` at primal (pos, vel) for the cotangents
-    ``gf`` (on the force) and ``gvel_mut`` (on the velocity the
-    integrator consumed): returns (gpos part, gvel part, parameter bars).
-    ``st`` is the matching ``_force(..., keep_stages=True)`` stages.
-    Legacy (sqrt + divide) branch of titan_tpu/ops/adjoint.py:692-1120."""
+    ``gf`` (on the force) and ``gvel_mut`` (on the constraint-mutated
+    velocity the integrator consumed): returns (gpos part, gvel part on
+    the input velocity, parameter bars).  ``st`` is the matching
+    ``_force(..., keep_stages=True)`` stages.  Legacy (sqrt + divide)
+    branch of titan_tpu/ops/adjoint.py:692-1120."""
     gpos = torch.zeros_like(pos)
     bars = {}
     nc = P["normal_coeff"]
     gvel = gvel_mut + 0.0
 
-    # ---- drag ----
+    # ---- drag (reads the final mutated velocity) ----
     if P["has_drag"]:
-        sq = _vdot3(vel, vel)
+        vF = st["v_final"]
+        sq = _vdot3(vF, vF)
         vn = torch.sqrt(torch.where(sq > 0, sq, 1.0))
         vnm = torch.where(sq > 0, vn, 0.0)
-        dotv = _vdot3(vel, gf)
+        dotv = _vdot3(vF, gf)
         gvel = gvel - P["drag"] * (vnm * gf
                                    + torch.where(sq > 0, dotv / vn, 0.0)
-                                   * vel)
+                                   * vF)
         bars["drag"] = -(vnm * dotv)[None]
+
+    # ---- local constraints (reverse slot order); afterwards gvel is the
+    # cotangent on the input velocity ----
+    if P.get("lc") is not None:
+        gf, gvel, gpos = _local_transpose(pos, vel, gf, gvel, gpos, P, st)
 
     # ---- balls (reverse order); gf passes through ----
     for bb in reversed(P["balls"]):
@@ -426,34 +472,11 @@ def _force_transpose(pos, vel, gf, gvel_mut, P, rg, rs, t_now, st,
             fp_norm = torch.sqrt(_vdot3(f_perp, f_perp))
             sta_hold = fs * fn_abs > fp_norm
             sel = inside & has_fric
-            gf1 = gf
-            gf_fric = torch.where(sel, gf1, 0.0)
-            gf = torch.where(sel, 0.0, gf1)
-            gf_kin = torch.where(kinetic, gf_fric, 0.0)
-            gf_sta = torch.where(kinetic, 0.0, gf_fric)
-            # f_sta = where(hold, f - f_perp, f)
-            gf = gf + gf_sta
-            gf_perp = torch.where(sta_hold, -gf_sta, 0.0)
-            # f_perp = f - f_n
-            gf = gf + gf_perp
-            gf_n = -gf_perp
-            # f_kin = f - v_perp * s,  s = fk fn_abs / safe_vn
-            gf = gf + gf_kin
-            s = fk * fn_abs / safe_vn
-            gs = -_vdot3(v_perp, gf_kin)
-            gv_perp = -s * gf_kin
-            gfn_abs = fk * gs / safe_vn
-            gsafe_vn = -fk * fn_abs * gs / (safe_vn * safe_vn)
-            gv_norm = torch.where(kinetic, gsafe_vn, 0.0)
-            gv_perp = gv_perp + torch.where(v_norm > 0, gv_norm / safe_vn,
-                                            0.0) * v_perp
-            # v_perp = vel - vdotn n
-            gvel = gvel + gv_perp
-            gvdotn = -_vdot3(nvec, gv_perp)
-            gvel = gvel + gvdotn * nvec
-            # f_n = fn_mag n; fn_abs = |fn_mag|; fn_mag = dot(f, n)
-            gfn_mag = _vdot3(gf_n, nvec) + torch.sign(fn_mag) * gfn_abs
-            gf = gf + gfn_mag * nvec
+            gf_fric = torch.where(sel, gf, 0.0)
+            gf = torch.where(sel, 0.0, gf)
+            gf, gvel = _friction_transpose(gf, gvel, gf_fric, nvec, vel,
+                                           v_perp, v_norm, kinetic, fn_mag,
+                                           fn_abs, safe_vn, sta_hold, fk)
 
     # ---- spring families (f_acc += -f + rs(f, d)) ----
     nfam = len(P["deltas"])
@@ -523,6 +546,153 @@ def _force_transpose(pos, vel, gf, gvel_mut, P, rg, rs, t_now, st,
     return gpos, gvel, bars
 
 
+def _local_transpose(pos, vel, gf, gv, gpos, P, st):
+    """Transpose of ``forces.local_slots`` in reverse order (directions,
+    constraint planes, balls, contact planes; titan_tpu/ops/adjoint.py:
+    718-860) for the force cotangent ``gf`` and the running velocity
+    cotangent ``gv``; adds the balls' and contact planes' position parts to
+    ``gpos``.  Returns (gf, gv, gpos): gf on the force entering the local
+    block, gv on the input velocity."""
+    lc, caps, nc = P["lc"], P["caps"], P["normal_coeff"]
+    ball_base = 7 * caps[0]
+    pl_base = ball_base + 5 * caps[1]
+    dir_base = pl_base + 5 * caps[2]
+    for idx in reversed(range(caps[3])):               # directions
+        o = dir_base + 5 * idx
+        act = lc[o] > 0.5
+        tvec, fric = lc[o + 1:o + 4], lc[o + 4]
+        f_in, v_in = st["ldir_in"][idx]
+        nfv = f_in - tvec * _vdot3(f_in, tvec)
+        v_norm = torch.sqrt(_vdot3(v_in, v_in))
+        moving = v_norm >= 1e-16
+        nf_norm = torch.sqrt(_vdot3(nfv, nfv))
+        # v_out = where(act & moving, t dot(v_in, t), v_in)
+        selv = act & moving
+        gtd = torch.where(selv, gv, 0.0)
+        gv = torch.where(selv, 0.0, gv) + tvec * _vdot3(tvec, gtd)
+        # f_out = where(act, where(moving, f3, f2), f_in);
+        # f3 = f2 - |nfv| fric t;  f2 = f_in - nfv
+        gf3 = torch.where(act & moving, gf, 0.0)
+        gf2 = gf3 + torch.where(act & ~moving, gf, 0.0)
+        gf_keep = torch.where(~act, gf, 0.0)
+        gnf_norm = -fric * _vdot3(tvec, gf3)
+        gnfv = (torch.where(nf_norm > 0,
+                            gnf_norm / torch.where(nf_norm > 0, nf_norm, 1.0),
+                            0.0) * nfv - gf2)
+        gf = gf_keep + gf2 + (gnfv - tvec * _vdot3(tvec, gnfv))
+    for idx in reversed(range(caps[2])):               # constraint planes
+        o = pl_base + 5 * idx
+        act = lc[o] > 0.5
+        nvec, fric = lc[o + 1:o + 4], lc[o + 4]
+        f_in, v_in = st["lpl_in"][idx]
+        nf_ = _vdot3(f_in, nvec)
+        v_norm = torch.sqrt(_vdot3(v_in, v_in))
+        moving = v_norm >= 1e-16
+        v2c = v_in - nvec * _vdot3(v_in, nvec)
+        safe = torch.where(moving, v_norm, 1.0)
+        # v_out = where(act & moving, v2c, v_in)
+        selv = act & moving
+        gv2c = torch.where(selv, gv, 0.0)
+        gv = torch.where(selv, 0.0, gv)
+        # f_out = where(act, where(moving, f3, f2), f_in);
+        # f3 = f2 - fric nf v2c / safe;  f2 = f_in - n nf
+        gf3 = torch.where(act & moving, gf, 0.0)
+        gf2 = gf3 + torch.where(act & ~moving, gf, 0.0)
+        gf_keep = torch.where(~act, gf, 0.0)
+        s = fric / safe
+        gnf = -s * _vdot3(v2c, gf3)
+        gv2c = gv2c - (s * nf_) * gf3
+        gsafe = fric * nf_ * _vdot3(v2c, gf3) / (safe * safe)
+        gv_norm = torch.where(moving, gsafe, 0.0)
+        gv = gv + gv2c - nvec * _vdot3(nvec, gv2c)
+        gv = gv + (torch.where(v_norm > 0,
+                               gv_norm / torch.where(v_norm > 0, v_norm, 1.0),
+                               0.0) * v_in)
+        gnf = gnf - _vdot3(nvec, gf2)
+        gf = gf_keep + gf2 + gnf * nvec
+    for idx in reversed(range(caps[1])):               # balls
+        o = ball_base + 5 * idx
+        act = lc[o] > 0.5
+        dvec = pos - lc[o + 1:o + 4]
+        dist = torch.sqrt(_vdot3(dvec, dvec))
+        safe = torch.where(dist > 0, dist, 1.0)
+        hit = (dist <= lc[o + 4]) & (dist > 0)
+        push = torch.where(hit, safe.new_full((), nc) / safe, 0.0)
+        # f_out = f_in + where(act, dvec push, 0)
+        geff = torch.where(act, gf, 0.0)
+        gpush = _vdot3(dvec, geff)
+        gdvec = push * geff
+        gdist = torch.where(hit, -nc * gpush / (safe * safe), 0.0)
+        gpos = gpos + (gdvec + (gdist / safe) * dvec)
+    for idx in reversed(range(caps[0])):               # contact planes
+        o = 7 * idx
+        act = lc[o] > 0.5
+        nvec = lc[o + 1:o + 4]
+        off, fk, fs = lc[o + 4], lc[o + 5], lc[o + 6]
+        f_in = st["lcp_in"][idx]
+        # contact planes precede every velocity mutation: their friction
+        # reads the input velocity
+        disp = _vdot3(pos, nvec) - off
+        inside = disp < 0
+        fn_mag = _vdot3(f_in, nvec)
+        has_fric = (fs > 0) | (fk > 0)
+        v_perp = vel - _vdot3(vel, nvec) * nvec
+        v_norm = torch.sqrt(_vdot3(v_perp, v_perp))
+        kinetic = v_norm > 1e-16
+        fn_abs = torch.abs(fn_mag)
+        safe_vn = torch.where(kinetic, v_norm, 1.0)
+        f_perp = f_in - fn_mag * nvec
+        fp_norm = torch.sqrt(_vdot3(f_perp, f_perp))
+        sta_hold = fs * fn_abs > fp_norm
+        # f_out = where(act, f_new, f_in)
+        gnew = torch.where(act, gf, 0.0)
+        gf = torch.where(~act, gf, 0.0)
+        # + where(inside, -disp nc, 0) n
+        gdisp = torch.where(inside, -nc * _vdot3(gnew, nvec), 0.0)
+        gpos = gpos + gdisp * nvec
+        # f_new = where(inside & has_fric, f_fric, f_in)
+        sel = inside & has_fric
+        gf_fric = torch.where(sel, gnew, 0.0)
+        gf = gf + torch.where(sel, 0.0, gnew)
+        gf, gv = _friction_transpose(gf, gv, gf_fric, nvec, vel, v_perp,
+                                     v_norm, kinetic, fn_mag, fn_abs,
+                                     safe_vn, sta_hold, fk)
+    return gf, gv, gpos
+
+
+def _friction_transpose(gf, gv, gf_fric, nvec, vel, v_perp, v_norm, kinetic,
+                        fn_mag, fn_abs, safe_vn, sta_hold, fk):
+    """Transpose of a contact plane's friction select f_fric = where(
+    kinetic, f - v_perp fk |f_n| / |v_perp|, where(hold, f - f_perp, f))
+    for its cotangent ``gf_fric``: adds the parts on the entering force to
+    ``gf`` and on the velocity to ``gv``."""
+    gf_kin = torch.where(kinetic, gf_fric, 0.0)
+    gf_sta = torch.where(kinetic, 0.0, gf_fric)
+    # f_sta = where(hold, f - f_perp, f)
+    gf = gf + gf_sta
+    gf_perp = torch.where(sta_hold, -gf_sta, 0.0)
+    # f_perp = f - f_n
+    gf = gf + gf_perp
+    gf_n = -gf_perp
+    # f_kin = f - v_perp * s,  s = fk fn_abs / safe_vn
+    gf = gf + gf_kin
+    s = fk * fn_abs / safe_vn
+    gs = -_vdot3(v_perp, gf_kin)
+    gv_perp = -s * gf_kin
+    gfn_abs = fk * gs / safe_vn
+    gsafe_vn = -fk * fn_abs * gs / (safe_vn * safe_vn)
+    gv_norm = torch.where(kinetic, gsafe_vn, 0.0)
+    gv_perp = gv_perp + torch.where(v_norm > 0, gv_norm / safe_vn,
+                                    0.0) * v_perp
+    # v_perp = vel - (vel . n) n
+    gv = gv + gv_perp
+    gvdotn = -_vdot3(nvec, gv_perp)
+    gv = gv + gvdotn * nvec
+    # f_n = fn_mag n; fn_abs = |fn_mag|; fn_mag = dot(f, n)
+    gfn_mag = _vdot3(gf_n, nvec) + torch.sign(fn_mag) * gfn_abs
+    return gf + gfn_mag * nvec, gv
+
+
 # ---------------------------------------------------------------------------
 # Staging (titan_tpu/ops/adjoint.py:1576-1658)
 # ---------------------------------------------------------------------------
@@ -577,6 +747,7 @@ def _prep(shape: SceneShape, state: SimState, inv: dict = None) -> dict:
         "bsign": inv["bsign"] if shape.has_breathing else None,
         "bomega": inv["bomega"] if shape.has_breathing else None,
         "aratedt": None, "sstop": None, "pair_ok": inv["pair_ok"],
+        "lc": inv.get("lc"), "caps": local_caps(shape),
     }
     if shape.has_actuated:
         P["aratedt"], P["sstop"] = _actuation_inputs(state, inv["pair_ok"])
@@ -710,7 +881,8 @@ class _BwdArgs(ctypes.Structure):
             "drag", "trace", "gpos_in", "gvel_in", "gacc_in", "gpos",
             "gvel", "gacc", "gk", "grest", "gdamp", "gomega", "garate",
             "gcf", "gminv", "gdrag", "gf", "gpc", "gvc", "pos_h",
-            "vel_h")])
+            "vel_h")]
+        + [("local", _LocalSlots)])
 
 
 def _bwd_run_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
@@ -778,6 +950,7 @@ def _bwd_run_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
             setattr(a, field, g[key].data_ptr())
     a.gcf, a.gminv = g["cf"].data_ptr(), g["minv"].data_ptr()
     a.gf, a.gpc, a.gvc, a.pos_h, a.vel_h = (t.data_ptr() for t in scratch)
+    a.local = local_struct(shape, inv)
 
     rc = lib.titan_adjoint_bwd(ctypes.byref(a),
                                torch.cuda.current_stream(dev).cuda_stream)

@@ -39,10 +39,11 @@ each family, so the transpose needs no halo), the VMEM sizing of the
 backward tile (``_bwd_vmem_est``, ``_shrink_bwd_tile``, ``_geom``) and the
 A/B hooks (``TITAN_MEGA_ADJ``, ``TITAN_MEGA_COMPACT``, ``CARRY_MODE``).
 
-Envelope (``tiled_adjoint_reject_reason``): the tiled step's.  Its glue
-modes (magnets and remainder springs through the constant force, with the
-split RK2 backward of ``_build_bwd_tile_kernel``'s rk2a / rk2b modes) and
-local constraints are outside it, as they are outside the tiled step's.
+Envelope (``tiled_adjoint_reject_reason``): the tiled step's, local
+constraints included.  Its glue modes (magnets and remainder springs
+through the constant force, with the split RK2 backward of
+``_build_bwd_tile_kernel``'s rk2a / rk2b modes) are outside it, as they
+are outside the tiled step's.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ from ..config import Integrator
 from ..state import SceneShape, SimState
 from .adjoint import (LEAVES, assemble_ct, leaves_of, segment_outputs,
                       state_from_outputs, sweep_plain, with_leaves)
-from .fused_step import _checked
+from .fused_step import _LocalSlots, _checked, local_struct
+from .step import local_caps
 from .tiled_step import (_INTEGRATOR_CODE, _MAX_FAMILIES, _TiledChunk,
                          chunk_struct, launch_counts, mega_seg,
                          prep_tiled_inputs, tiled_chunk, tiled_chunk_plain,
@@ -78,9 +80,13 @@ def tiled_adjoint_reject_reason(shape: SceneShape):
 
 def mega_adjoint_ok(shape: SceneShape) -> bool:
     """True where the backward runs one resident-grid launch per segment
-    (B8; ``_mega_adjoint_ok`` :194 without its VMEM fit): Euler and
-    Verlet.  RK2 runs B7's per-step launches, as in the JAX package."""
-    return shape.config.integrator in (Integrator.EULER, Integrator.VERLET)
+    (B8; ``_mega_adjoint_ok`` :194-215 without its VMEM fit): Euler and
+    Verlet scenes whose forward runs resident grids, that is with no
+    per-step glue (``tiled_step.mega_seg``, the reference's
+    ``_mega_env_ok``).  RK2 runs B7's per-step launches, as in the JAX
+    package."""
+    return (shape.config.integrator in (Integrator.EULER, Integrator.VERLET)
+            and mega_seg(shape) > 0)
 
 
 def bar_plan(shape: SceneShape):
@@ -164,6 +170,7 @@ def _plain_inputs(shape: SceneShape, inv: dict) -> dict:
         "bomega": field("bomega", 4) if shape.has_breathing else None,
         "aratedt": inv.get("aratedt"), "sstop": inv.get("sstop"),
         "pair_ok": inv["pair_ok"],
+        "lc": inv.get("lc"), "caps": local_caps(shape),
     }
 
 
@@ -209,7 +216,8 @@ class _TiledBwdArgs(ctypes.Structure):
             "minv", "fixed", "drag", "trace", "gpos_in", "gvel_in",
             "gacc_in", "gpos", "gvel", "gacc", "gk", "grest", "gdamp",
             "gomega", "garate", "gcf", "gminv", "gdrag", "gf", "gpc", "gvc",
-            "pos_h", "vel_h")])
+            "pos_h", "vel_h")]
+        + [("local", _LocalSlots)])
 
 
 def _lib():
@@ -359,6 +367,7 @@ def _tiled_bwd_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
             setattr(a, field, g[key].data_ptr())
     a.gf, a.gpc, a.gvc, a.pos_h, a.vel_h = (t.data_ptr()
                                             for t in scratch[:5])
+    a.local = local_struct(shape, inv, kern)
     gf_odd = scratch[5].data_ptr() if mega else None
 
     rc = _lib().titan_tiled_bwd(ctypes.byref(a), int(mega), gf_odd,

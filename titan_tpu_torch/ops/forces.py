@@ -5,8 +5,8 @@ path.  All functions are pure: they consume and produce ``[3, N]``
 component-major tensors and never write into their inputs.  Norms are
 sqrt + divide, as the JAX package computes them on the CPU
 (``titan_tpu/ops/forces.py::use_rsqrt``), and every norm goes through
-``_safe_norm`` so that autograd through the step stays finite.  Local
-constraints and SEGMENT scatter are later slices of the port.
+``_safe_norm`` so that autograd through the step stays finite.  SEGMENT
+scatter is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ import torch
 
 from ..config import (ACTIVE_CONTRACT_THEN_EXPAND, ACTIVE_EXPAND_THEN_CONTRACT,
                       ACTUATED_CONTRACT, ACTUATED_EXPAND, ScatterMode)
-from ..state import GlobalConstraints, MassState, SpringState, Topology
+from ..state import (GlobalConstraints, LocalConstraints, MassState,
+                     SpringState, Topology)
 
 Tensor = torch.Tensor
 
@@ -135,8 +136,8 @@ def scatter_spring_forces(f_springs: Tensor, topo: Topology, fixed: Tensor,
 
 
 def _vdot(a: Tensor, n: Tensor) -> Tensor:
-    """dot of a [3, N] field with a [3] vector -> [N]."""
-    return torch.sum(a * n[:, None], dim=0)
+    """dot of a [3, N] field with a [3] or [3, N] vector -> [N]."""
+    return torch.sum(a * (n[:, None] if n.dim() == 1 else n), dim=0)
 
 
 def apply_contact_plane(f: Tensor, pos: Tensor, vel: Tensor, normal: Tensor,
@@ -147,8 +148,9 @@ def apply_contact_plane(f: Tensor, pos: Tensor, vel: Tensor, normal: Tensor,
     object.cu:76-109): inside (disp < 0) and with friction, kinetic
     (|v_perp| > 1e-16) f -= v_perp fk |f_n| / |v_perp|, else static
     f -= f_perp when fs |f_n| > |f_perp|, from the force accumulated so
-    far; then the penalty f += -disp NORMAL n."""
-    nb = normal[:, None]
+    far; then the penalty f += -disp NORMAL n.  ``normal`` is [3] (a
+    global plane) or [3, N] (a per-mass contact-plane slot)."""
+    nb = normal[:, None] if normal.dim() == 1 else normal
     disp = _vdot(pos, normal) - offset
     inside = disp < 0
     if static_friction_hint:
@@ -179,6 +181,145 @@ def apply_ball(f: Tensor, pos: Tensor, center: Tensor, radius: Tensor,
     safe = torch.where(dist > 0, dist, 1.0)
     push = torch.where((dist <= radius) & (dist > 0), normal_coeff / safe, 0.0)
     return f + d * push
+
+
+def apply_constraint_plane(f: Tensor, vel: Tensor, normal: Tensor,
+                           friction: Tensor, active: Tensor
+                           ) -> Tuple[Tensor, Tensor]:
+    """Per-mass constraint plane (reference CudaConstraintPlane::applyForce,
+    object.cu:118-127): the normal force and velocity are projected out.
+    A reference quirk kept: |v| is taken BEFORE the normal velocity is
+    removed, and the friction term divides the updated velocity by that old
+    norm.  ``normal`` is [3, N], ``friction`` and ``active`` [N].  Returns
+    (force, velocity)."""
+    nf = _vdot(f, normal)
+    f2 = f - normal * nf
+    v_norm = _safe_norm(torch.sum(vel * vel, dim=0))
+    moving = v_norm >= 1e-16
+    v2 = vel - normal * _vdot(vel, normal)
+    safe_vn = torch.where(moving, v_norm, 1.0)
+    f3 = f2 - friction * nf * v2 / safe_vn
+    f_out = torch.where(active, torch.where(moving, f3, f2), f)
+    return f_out, torch.where(active & moving, v2, vel)
+
+
+def apply_direction(f: Tensor, vel: Tensor, tangent: Tensor,
+                    friction: Tensor, active: Tensor
+                    ) -> Tuple[Tensor, Tensor]:
+    """Per-mass direction constraint (reference CudaDirection::applyForce,
+    object.cu:136-144): motion only along the tangent t,
+      nf = f - dot(f, t) t;  f -= nf;
+      if |v| >= 1e-16: v = t dot(v, t);  f += -|nf| friction t.
+    Returns (force, velocity)."""
+    nf = f - tangent * _vdot(f, tangent)
+    f2 = f - nf
+    v_norm = _safe_norm(torch.sum(vel * vel, dim=0))
+    moving = v_norm >= 1e-16
+    nf_norm = _safe_norm(torch.sum(nf * nf, dim=0))
+    f3 = f2 - nf_norm * friction * tangent
+    f_out = torch.where(active, torch.where(moving, f3, f2), f)
+    return f_out, torch.where(active & moving,
+                              tangent * _vdot(vel, tangent), vel)
+
+
+def local_slot_rows(caps: Tuple[int, int, int, int]) -> int:
+    """Rows of the stacked local-constraint slot array ``stage_local``
+    builds (``titan_tpu/ops/pallas_step.py::_lc_planes``)."""
+    cp, ball, pl, dr = caps
+    return 7 * cp + 5 * (ball + pl + dr)
+
+
+def stage_local(lcon: LocalConstraints, caps: Tuple[int, int, int, int],
+                dtype=None) -> Tensor:
+    """The per-mass local-constraint slots as one [L, N] array in the
+    kernels' reference order (``titan_tpu/ops/pallas_step.py::
+    stage_local_constraints``): per contact plane act, normal xyz, offset,
+    fk, fs (7 rows); per ball act, centre xyz, radius (5); per constraint
+    plane act, normal xyz, friction (5); per direction act, tangent xyz,
+    friction (5).  ``act`` is 1 where slot j < the mass's count.  Every
+    step of the port reads its slots from this one array."""
+    cp, ball, pl, dr = caps
+    dtype = dtype or lcon.cp_offset.dtype
+    parts = []
+
+    def act(j, count):
+        return (j < count).to(dtype)[None]
+
+    for j in range(cp):
+        parts += [act(j, lcon.cp_count), lcon.cp_normal[:, j, :].T,
+                  lcon.cp_offset[:, j][None], lcon.cp_fk[:, j][None],
+                  lcon.cp_fs[:, j][None]]
+    for j in range(ball):
+        parts += [act(j, lcon.ball_count), lcon.ball_center[:, j, :].T,
+                  lcon.ball_radius[:, j][None]]
+    for j in range(pl):
+        parts += [act(j, lcon.pl_count), lcon.pl_normal[:, j, :].T,
+                  lcon.pl_friction[:, j][None]]
+    for j in range(dr):
+        parts += [act(j, lcon.dir_count), lcon.dir_tangent[:, j, :].T,
+                  lcon.dir_friction[:, j][None]]
+    return torch.cat(parts, dim=0).to(dtype).contiguous()
+
+
+def local_slots(f: Tensor, pos: Tensor, vel: Tensor, lc: Tensor,
+                caps: Tuple[int, int, int, int], normal_coeff: float,
+                stages: dict = None) -> Tuple[Tensor, Tensor]:
+    """The local-constraint slots of ``stage_local`` in reference order
+    (sim.cu:1311-1326): contact planes, balls, constraint planes,
+    directions; slot j of a type acts where its ``act`` row is set.
+    Constraint planes and directions mutate the velocity, which drag and
+    the integrator then read.  The plain version of every kernel's local
+    branch (``csrc/step_body.cuh::local_constraints``), in its operation
+    order.  With a ``stages`` dict, the force entering each contact plane
+    (``lcp_in``) and the (force, velocity) entering each constraint plane
+    (``lpl_in``) and direction (``ldir_in``) are appended to it, as the
+    adjoint's transpose reads them.  Returns (force, velocity)."""
+    cp, ball, pl, dr = caps
+    o = 0
+    for _ in range(cp):
+        act = lc[o] > 0.5
+        if stages is not None:
+            stages["lcp_in"].append(f)
+        f_new = apply_contact_plane(f, pos, vel, lc[o + 1:o + 4], lc[o + 4],
+                                    lc[o + 5], lc[o + 6], normal_coeff)
+        f = torch.where(act, f_new, f)
+        o += 7
+    for _ in range(ball):
+        act = lc[o] > 0.5
+        dvec = pos - lc[o + 1:o + 4]
+        dist = _safe_norm(torch.sum(dvec * dvec, dim=0))
+        safe = torch.where(dist > 0, dist, 1.0)
+        # tensor / tensor: float / tensor rounds twice (module docstring
+        # of ops/fused_step.py)
+        push = torch.where((dist <= lc[o + 4]) & (dist > 0),
+                           safe.new_full((), normal_coeff) / safe, 0.0)
+        f = torch.where(act, f + dvec * push, f)
+        o += 5
+    for _ in range(pl):
+        if stages is not None:
+            stages["lpl_in"].append((f, vel))
+        f, vel = apply_constraint_plane(f, vel, lc[o + 1:o + 4], lc[o + 4],
+                                        lc[o] > 0.5)
+        o += 5
+    for _ in range(dr):
+        if stages is not None:
+            stages["ldir_in"].append((f, vel))
+        f, vel = apply_direction(f, vel, lc[o + 1:o + 4], lc[o + 4],
+                                 lc[o] > 0.5)
+        o += 5
+    return f, vel
+
+
+def apply_local_constraints(f: Tensor, vel: Tensor, masses: MassState,
+                            lcon: LocalConstraints,
+                            caps: Tuple[int, int, int, int],
+                            normal_coeff: float) -> Tuple[Tensor, Tensor]:
+    """Per-mass local constraints in reference order: contact planes,
+    balls, constraint planes, directions (sim.cu:1311-1326,
+    ``titan_tpu/ops/forces.py::apply_local_constraints``); slot j of a
+    type is active iff j < the mass's count.  Returns (force, velocity)."""
+    return local_slots(f, masses.pos, vel, stage_local(lcon, caps), caps,
+                       normal_coeff)
 
 
 def apply_global_constraints(f: Tensor, masses: MassState,

@@ -6,8 +6,16 @@ step, two for RK2); for state on the CPU it runs ``fused_chunk_plain``, a
 plain PyTorch transcription of the TPU kernel's body
 (``pallas_step.py::_build_kernel``) with ``torch.roll`` for its rolls and its
 accumulation order: the constant force first, then per family
-``f_acc - f + roll(f, d)``, then planes, balls, drag and the update.  There
-is no fallback between the two: a CUDA tensor goes to the kernel or raises.
+``f_acc - f + roll(f, d)``, then planes, balls, the per-mass local
+constraints, drag and the update.  There is no fallback between the two: a
+CUDA tensor goes to the kernel or raises.
+
+Local constraints.  The per-mass slots ride as one stacked [L, N] array
+(``forces.stage_local``, built once per chunk): contact planes, balls,
+constraint planes and directions in reference order.  Constraint planes and
+directions mutate the velocity that drag and the update read; under RK2 the
+corrector starts from pass 1's mutated velocity and advances the position
+with pass 2's, as ``titan_tpu/ops/step.py``'s RK2 branch does.
 
 Magnets.  The step kernel has no magnet code.  For a magnet scene each force
 pass first computes the magnet field at that pass's positions, 0 on fixed
@@ -22,9 +30,9 @@ and the passes are launched one at a time from Python
 Scenes without magnets keep one C call per chunk.
 
 Envelope (``fused_reject_reason``): f32, persistent external force, every
-spring in a stencil family (or no springs at all), no local constraints.
-Unlike the TPU kernel there is no on-chip memory budget, so N has no cap,
-with magnets or without.
+spring in a stencil family (or no springs at all).  Unlike the TPU kernel
+there is no on-chip memory budget, so N has no cap, with magnets or
+without.
 """
 
 from __future__ import annotations
@@ -38,8 +46,9 @@ import torch
 from ..config import (ACTIVE_CONTRACT_THEN_EXPAND, ACTIVE_EXPAND_THEN_CONTRACT,
                       ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator)
 from ..state import SceneShape, SimState
+from . import forces as F
 from .magnets import pairwise_params
-from .step import chunk_ridx, magnet_pass, magnet_route
+from .step import chunk_ridx, local_caps, magnet_pass, magnet_route
 
 _INTEGRATOR_CODE = {Integrator.EULER: 0, Integrator.VERLET: 1,
                     Integrator.RK2: 2}
@@ -60,8 +69,6 @@ def fused_reject_reason(shape: SceneShape):
     if shape.has_remainder:
         return ("irregular (remainder) springs are not in the fused kernel "
                 "yet" + ("" if cfg.use_stencil else " (use_stencil is off)"))
-    if any((shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)):
-        return "local constraints are not in the fused kernel yet"
     return None
 
 
@@ -70,9 +77,11 @@ def prep_invariants(shape: SceneShape, state: SimState) -> dict:
     validity folded into k / damping / arate (validity changes only at a
     re-marshal), breathing sign and frequency, inverse mass, the frozen
     mask (fixed or invalid), the constant force m g + extern, the
-    [dt, t] scalars and the plane / ball tables, and ``pair_ok`` (where a
-    spring exists between two valid masses), which the adjoint masks its
-    k / damping / rate gradients with."""
+    [dt, t] scalars, the plane / ball tables, the stacked local-constraint
+    slots ``lc`` [L, N] (``forces.stage_local``; only where the scene has
+    them), and ``pair_ok`` (where a spring exists between two valid
+    masses), which the adjoint masks its k / damping / rate gradients
+    with."""
     m = state.masses
     dtype = m.pos.dtype
     pair_ok = state.stencil.mask
@@ -111,6 +120,8 @@ def prep_invariants(shape: SceneShape, state: SimState) -> dict:
             state.gcon.ball_center, state.gcon.ball_radius[:, None]],
             dim=1).float()
     inv["planes"], inv["balls"] = planes, balls
+    if any(local_caps(shape)):
+        inv["lc"] = F.stage_local(state.lcon, local_caps(shape), dtype)
     if shape.has_actuated:
         # +rate / -rate / 0 and the matching bound; invalid pairs never
         # mutate rest (reference early-return, sim.cu:1163)
@@ -183,8 +194,10 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
     k, damp = inv["k_eff"], inv["damp_eff"]
     planes, balls = inv["planes"], inv["balls"]
     nc = cfg.normal_coeff
+    caps = local_caps(shape)
 
     def compute_forces(pos, vel, t_now, rest):
+        """(force, mutated velocity, rest) at (pos, vel)."""
         f_acc = inv["const_f"]
         if shape.has_magnets:
             f_acc = f_acc + field(pos)
@@ -244,10 +257,13 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
             push = torch.where((dist <= balls[b, 3]) & (dist > 0),
                                safe.new_full((), nc) / safe, 0.0)
             f_acc = f_acc + dvec * push
+        if any(caps):
+            f_acc, vel = F.local_slots(f_acc, pos, vel, inv["lc"], caps, nc)
         if shape.has_drag:
             vn = torch.sqrt(torch.sum(vel * vel, dim=0))
             f_acc = f_acc - m.drag * vn * vel
-        return f_acc, (torch.stack(new_rest) if shape.has_actuated else rest)
+        return f_acc, vel, (torch.stack(new_rest) if shape.has_actuated
+                            else rest)
 
     pos, vel, acc = m.pos, m.vel, m.acc
     rest = state.stencil.rest
@@ -256,22 +272,26 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
             trace.append(torch.cat([pos, vel]))
         t_base = t0 + step * dt
         if cfg.integrator is Integrator.RK2:
-            f1, rest = compute_forces(pos, vel, t_base, rest)
+            # the predictor and the corrector start from pass 1's mutated
+            # velocity vel1 (a frozen mass's midpoint velocity is vel1);
+            # the position advances with pass 2's mutated velocity vel2
+            f1, vel1, rest = compute_forces(pos, vel, t_base, rest)
             acc1 = f1 * minv
-            pos_h = torch.where(frozen, pos, pos + 0.5 * vel * dt)
-            vel_h = torch.where(frozen, vel, vel + 0.5 * acc1 * dt)
-            f2, rest = compute_forces(pos_h, vel_h, t_base + 0.5 * dt, rest)
+            pos_h = torch.where(frozen, pos, pos + 0.5 * vel1 * dt)
+            vel_h = torch.where(frozen, vel1, vel1 + 0.5 * acc1 * dt)
+            f2, vel2, rest = compute_forces(pos_h, vel_h, t_base + 0.5 * dt,
+                                            rest)
             new_acc = f2 * minv
-            v2 = vel + new_acc * dt
-            p2 = pos + vel_h * dt
+            v2 = vel1 + new_acc * dt
+            p2 = pos + vel2 * dt
         else:
-            f, rest = compute_forces(pos, vel, t_base, rest)
+            f, vel_m, rest = compute_forces(pos, vel, t_base, rest)
             new_acc = f * minv
             if cfg.integrator is Integrator.VERLET:
-                v2 = vel + 0.5 * (acc + new_acc) * dt
+                v2 = vel_m + 0.5 * (acc + new_acc) * dt
                 p2 = pos + (v2 * dt + 0.5 * new_acc * dt * dt)
             else:
-                v2 = vel + new_acc * dt
+                v2 = vel_m + new_acc * dt
                 if cfg.velocity_clamp:
                     vn = torch.sqrt(torch.sum(v2 * v2, dim=0))
                     v2 = torch.where(vn > 1.0,
@@ -281,6 +301,29 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
         vel = torch.where(frozen, vel, v2)
         acc = torch.where(frozen, acc, new_acc)
     return _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest)
+
+
+class _LocalSlots(ctypes.Structure):
+    """Mirror of ``struct LocalSlots`` in ``csrc/step_body.cuh``: the slot
+    capacities and the stacked [L, N] slot array (null without slots)."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in ("cp", "ball", "pl", "dir")]
+                + [("lc", ctypes.c_void_p)])
+
+
+def local_struct(shape: SceneShape, inv: dict,
+                 kernel: str = "fused") -> _LocalSlots:
+    """The kernels' ``LocalSlots`` of a scene from its staging ``inv``
+    (whose ``lc`` is ``forces.stage_local``), checked as ``kernel`` takes
+    it."""
+    ls = _LocalSlots()
+    caps = local_caps(shape)
+    ls.cp, ls.ball, ls.pl, ls.dir = caps
+    if any(caps):
+        ls.lc = _checked("lc", inv["lc"],
+                         (F.local_slot_rows(caps), shape.n_masses),
+                         kernel=kernel)
+    return ls
 
 
 class _ChunkArgs(ctypes.Structure):
@@ -296,7 +339,8 @@ class _ChunkArgs(ctypes.Structure):
             "acc_in", "cforce", "minv", "fixed", "k", "rest_in", "damping",
             "bsign", "bomega", "arate", "abound", "drag", "pos_out",
             "vel_out", "acc_out", "pos_tmp", "vel_tmp", "acc_tmp",
-            "pos_half", "vel_half", "rest_out", "rest_tmp")])
+            "pos_half", "vel_half", "vel_v1", "rest_out", "rest_tmp")]
+        + [("local", _LocalSlots)])
 
 
 def _checked(name, t, shape, dtype=torch.float32, kernel="fused"):
@@ -337,7 +381,10 @@ def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
     vec, fam = (3, n), (nf, n)
     empty = lambda s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     pos_out, vel_out, acc_out = empty(vec), empty(vec), empty(vec)
-    scratch = [empty(vec) for _ in range(5)]     # pos/vel/acc tmp, pos/vel half
+    caps = local_caps(shape)
+    rk2_local = cfg.integrator is Integrator.RK2 and any(caps)
+    # pos/vel/acc tmp, pos/vel half (+ RK2's pass-1 mutated velocity)
+    scratch = [empty(vec) for _ in range(6 if rk2_local else 5)]
     rest_in = state.stencil.rest
     rest_out = empty(fam) if shape.has_actuated else rest_in
     rest_tmp = empty(fam) if shape.has_actuated else rest_in
@@ -353,6 +400,7 @@ def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
     a.normal_coeff = float(cfg.normal_coeff)
     a.deltas = _checked("deltas", deltas, (nf,), torch.int32)
     a.scal = _checked("scal", inv["scal"], (2,))
+    a.local = local_struct(shape, inv)
     a.planes = _checked("planes", inv["planes"], (max(shape.n_planes, 1), 6))
     a.balls = _checked("balls", inv["balls"], (max(shape.n_balls, 1), 4))
     a.pos_in = _checked("pos", m.pos, vec)
@@ -373,7 +421,9 @@ def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
     a.pos_out, a.vel_out, a.acc_out = (t.data_ptr()
                                        for t in (pos_out, vel_out, acc_out))
     (a.pos_tmp, a.vel_tmp, a.acc_tmp, a.pos_half,
-     a.vel_half) = (t.data_ptr() for t in scratch)
+     a.vel_half) = (t.data_ptr() for t in scratch[:5])
+    if rk2_local:
+        a.vel_v1 = scratch[5].data_ptr()
     a.rest_out, a.rest_tmp = rest_out.data_ptr(), rest_tmp.data_ptr()
     # The temporaries are freed when the caller drops them, while the
     # kernels may still be running: safe, because the caching allocator
@@ -389,7 +439,8 @@ class _PassArgs(ctypes.Structure):
     _fields_ = ([("step", ctypes.c_int), ("mode", ctypes.c_int)]
                 + [(f, ctypes.c_void_p) for f in (
                     "fpos", "fvel", "pos0", "vel0", "acc0", "rest_src",
-                    "cforce", "pos_dst", "vel_dst", "acc_dst", "rest_dst")])
+                    "cforce", "pos_dst", "vel_dst", "acc_dst", "rest_dst",
+                    "vel_v1")])
 
 
 # the kernel's step modes (csrc/step_body.cuh enum Mode)
@@ -444,6 +495,10 @@ def _magnet_passes(lib, shape, state, n_steps, a, inv, stream, field):
     pos, vel, acc, rest = m.pos, m.vel, m.acc, state.stencil.rest
     empty = torch.empty_like
     p = _PassArgs()
+    # RK2 with local constraints: the predictor stores pass 1's mutated
+    # velocity here and the corrector starts from it
+    v1 = empty(vel) if rk2 and any(local_caps(shape)) else None
+    p.vel_v1 = None if v1 is None else v1.data_ptr()
 
     def launch(step, mode, fpos, fvel, dst):
         nonlocal rest

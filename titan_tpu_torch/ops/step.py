@@ -97,7 +97,9 @@ def _mass_forces(state: SimState, masses: MassState, f: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All non-spring forces in the reference order (massForcesAndUpdate,
     sim.cu:1296-1332): magnets, gravity, persistent external force, global
-    planes/balls, drag.  Returns (force [3, N], velocity [3, N])."""
+    planes/balls, local constraints, drag.  Constraint planes and
+    directions mutate the velocity, which drag and the integrator read.
+    Returns (force [3, N], velocity [3, N])."""
     cfg = shape.config
     if shape.has_magnets:
         # fixed masses return before the magnet pass (sim.cu:1292-1298)
@@ -110,6 +112,10 @@ def _mass_forces(state: SimState, masses: MassState, f: torch.Tensor,
         f, masses, state.gcon, shape.n_planes, shape.n_balls, cfg.normal_coeff,
         plane_friction=shape.plane_friction)
     vel = masses.vel
+    caps = local_caps(shape)
+    if any(caps):
+        f, vel = F.apply_local_constraints(f, vel, masses, state.lcon, caps,
+                                           cfg.normal_coeff)
     if shape.has_drag:
         # -C |v|^2 v_hat == -C |v| v (reference sim.cu:1329-1332); the
         # guarded norm keeps reverse mode finite at |v| = 0
@@ -118,18 +124,15 @@ def _mass_forces(state: SimState, masses: MassState, f: torch.Tensor,
     return f, vel
 
 
-def check_ported(shape: SceneShape) -> None:
-    """Raise for the scene features later slices of the port bring."""
-    if any((shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)):
-        raise NotImplementedError(
-            "per-mass local constraints are not ported to titan_tpu_torch "
-            "yet; they come with the fused kernel's next envelope items "
-            "(ROADMAP B1)")
+def local_caps(shape: SceneShape) -> Tuple[int, int, int, int]:
+    """The per-mass local-constraint slot capacities (contact planes,
+    balls, constraint planes, directions); all 0 in a scene without
+    local constraints."""
+    return shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir
 
 
 def build_step_fn(shape: SceneShape) -> Callable[[SimState], SimState]:
     """The plain single step for a static scene shape."""
-    check_ported(shape)
     cfg = shape.config
 
     def spring_pass(state: SimState, masses: MassState, t):
@@ -233,16 +236,21 @@ RESIDENT_BUDGET = 100 * 1024 * 1024
 
 def resident_bytes(shape: SceneShape) -> int:
     """Bytes the TPU's fused kernel would hold resident in VMEM for this
-    scene: the port's copy of ``titan_tpu/ops/pallas_step.py:77-108``, the
-    rule by which the reference sends a scene to its tiled kernel.  The
-    remainder and local-constraint terms are left out (the fused step
-    refuses such scenes before this rule is read), and so are the magnet
-    terms (every magnet scene takes the fused step either way)."""
+    scene: the port's copy of ``titan_tpu/ops/pallas_step.py:77-108``, term
+    for term, the rule by which the reference sends a scene to its tiled
+    kernel: seven [3, N] state planes, the [F, N] family planes, the [1, N]
+    per-mass planes (minv, fixed, drag, the magnet parameters and the
+    local-constraint slot rows), the body's temporaries and the remainder
+    springs' endpoint selectors."""
     n, f = shape.n_masses, len(shape.stencil_deltas)
+    rem = 0
+    if shape.has_remainder:
+        rem = 4 * 2 * shape.n_springs * (n // 128 + 3 * 128)
     fam = 5 * f + (3 * f if shape.has_actuated else 0)
-    sc = 2 + (1 if shape.has_drag else 0)
+    sc = 2 + (1 if shape.has_drag else 0) + (5 if shape.has_magnets else 0)
+    sc += F.local_slot_rows(local_caps(shape))
     tmp = 3 * 10 if shape.config.integrator is Integrator.RK2 else 3 * 6
-    return 4 * n * (3 * 7 + fam + sc) + 4 * n * tmp
+    return 4 * n * (3 * 7 + fam + sc) + 4 * n * tmp + rem
 
 
 def chunk_route(shape: SceneShape):

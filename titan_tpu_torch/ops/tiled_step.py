@@ -9,8 +9,9 @@ RK2: the TPU's single, rk2a and rk2b modes).  For state on the CPU it runs
 body (``pallas_tiled.py::_build_kernel`` on its non-rsqrt branch) with
 ``torch.roll`` for its rolls and its accumulation order: per family
 ``fw - f + roll(f, d)`` from zero, then ``f_acc = fw + const_f``, then
-planes, balls, drag and the update.  That is the opposite order of the fused
-step's, so the two agree to f32 rounding, not bitwise.  There is no fallback
+planes, balls, the per-mass local constraints (``forces.local_slots`` on the
+fused step's stacked slot array), drag and the update.  That is the opposite
+order of the fused step's, so the two agree to f32 rounding, not bitwise.  There is no fallback
 between the two: a CUDA tensor goes to the kernels or raises.
 
 What the TPU kernel's plan carries over (``_plan``): a field that is uniform
@@ -22,8 +23,8 @@ from the chunk's start (``pallas_tiled.py:41-51``; two advances per dt under
 RK2), so no rest is carried through the chunk.
 
 Envelope (``tiled_reject_reason``): f32 Euler, Verlet or RK2, persistent
-external force, stencil families only.  Scenes with remainder springs,
-local constraints or magnets are outside it.
+external force, stencil families only.  Scenes with remainder springs or
+magnets are outside it.
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ import torch
 from ..config import (ACTIVE_CONTRACT_THEN_EXPAND, ACTIVE_EXPAND_THEN_CONTRACT,
                       ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator)
 from ..state import SceneShape, SimState
-from .fused_step import _checked, _finish_chunk
+from . import forces as F
+from .fused_step import _LocalSlots, _checked, _finish_chunk, local_struct
 from .forces import _safe_norm
+from .step import local_caps
 
 #: steps per resident-grid launch (``pallas_tiled.py:1717``).  Even: the
 #: segment's last step lands in its first buffer.  The ``n % MEGA_SEG`` tail
@@ -91,9 +94,7 @@ def tiled_reject_reason(shape: SceneShape):
         return "strict per-step extern_force mode"
     if shape.has_remainder:
         return ("irregular (remainder) springs are not in the tiled kernel "
-                "yet (ROADMAP B1)")
-    if any((shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)):
-        return "local constraints are not in the tiled kernel yet (ROADMAP B1)"
+                "yet (ROADMAP B2)")
     if shape.has_magnets:
         return ("magnet scenes run the fused step's per-pass field route "
                 "(the tiled magnet glue is not ported, ROADMAP B2)")
@@ -106,7 +107,8 @@ def tiled_reject_reason(shape: SceneShape):
 def mega_seg(shape: SceneShape) -> int:
     """Steps per resident-grid launch for this scene, 0 for one launch per
     step (``pallas_tiled.py::_mega_env_ok``): Euler, Verlet or RK2 with no
-    per-step glue between steps."""
+    per-step glue between steps.  Local constraints are no glue: they run
+    inside every step kernel."""
     if shape.config.integrator not in _INTEGRATOR_CODE:
         return 0
     if shape.has_remainder or shape.has_magnets:
@@ -116,8 +118,7 @@ def mega_seg(shape: SceneShape) -> int:
 
 def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
     """The chunk's loop-invariant kernel inputs
-    (``pallas_tiled.py::prep_flat_inputs`` without its local-constraint
-    slots): the family scalars [5, F] (k, rest, damping, breathing sign and
+    (``pallas_tiled.py::prep_flat_inputs``): the family scalars [5, F] (k, rest, damping, breathing sign and
     frequency) taken from each family's first masked lane, the int32
     existence bitmask (bit f = a spring of family f between two valid
     masses) where k is uniform, the [F, N] planes of ``_plan`` (k and
@@ -125,7 +126,9 @@ def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
     (signed rate * dt) and ``sstop`` (the advance count at which the
     one-sided bound is crossed), and the per-mass inputs: constant force
     m g + extern, inverse mass, the frozen mask (fixed or invalid), drag,
-    the [dt, t] scalars and the plane and ball tables, and ``pair_ok``
+    the [dt, t] scalars, the plane and ball tables, the stacked
+    local-constraint slots ``lc`` [L, N] (where the scene has them, as the
+    fused step stages them), and ``pair_ok``
     (where a spring exists between two valid masses), which the tiled
     adjoint masks its per-spring gradients with."""
     m, st = state.masses, state.stencil
@@ -200,16 +203,19 @@ def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
             state.gcon.ball_center, state.gcon.ball_radius[:, None]],
             dim=1).to(f32)
     inv["planes"], inv["balls"] = planes, balls
+    if any(local_caps(shape)):
+        inv["lc"] = F.stage_local(state.lcon, local_caps(shape), f32)
     return inv
 
 
 def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
-    """The force on every mass at (pos, vel), in the TPU body's order:
-    families (``family_forces``, pallas_tiled.py:673-738), the constant
-    force, then planes, balls and drag (``mass_tail`` :748).  Its norms are
-    gradient-safe at 0 (``forces._safe_norm``, the same values), so that
-    autograd through the plain chunk stays finite: the tiled adjoint's
-    tests hold its transpose against that."""
+    """(force, mutated velocity) of every mass at (pos, vel), in the TPU
+    body's order: families (``family_forces``, pallas_tiled.py:673-738),
+    the constant force, then planes, balls, local constraints and drag
+    (``mass_tail`` :748).  Its norms are gradient-safe at 0
+    (``forces._safe_norm``, the same values), so that autograd through the
+    plain chunk stays finite: the tiled adjoint's tests hold its transpose
+    against that."""
     fp = inv["fparams"]
     nc = shape.config.normal_coeff
     fw = torch.zeros_like(pos)
@@ -270,10 +276,13 @@ def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
         push = torch.where((dist <= balls[b, 3]) & (dist > 0),
                            safe.new_full((), nc) / safe, 0.0)
         f_acc = f_acc + dvec * push
+    if "lc" in inv:
+        f_acc, vel = F.local_slots(f_acc, pos, vel, inv["lc"],
+                                   local_caps(shape), nc)
     if shape.has_drag:
         vn = _safe_norm(torch.sum(vel * vel, dim=0))
         f_acc = f_acc - inv["drag"] * vn * vel
-    return f_acc
+    return f_acc, vel
 
 
 def tiled_step_plain(shape: SceneShape, inv: dict, pos, vel, acc,
@@ -281,7 +290,10 @@ def tiled_step_plain(shape: SceneShape, inv: dict, pos, vel, acc,
     """Step ``step`` of a chunk (its index from the chunk's start), plain:
     one force evaluation and the "single" integrate tail, or under RK2 the
     rk2a predictor and the rk2b corrector (``pallas_tiled.py:852-930``).
-    Frozen masses keep pos and vel and get acc 0.  Returns (pos, vel,
+    The update reads the velocity the local constraints leave; under RK2
+    the predictor and corrector start from pass 1's (vel1) and the position
+    advances with pass 2's.  Frozen masses keep pos and vel (the midpoint
+    velocity of a frozen mass is vel1) and get acc 0.  Returns (pos, vel,
     acc)."""
     cfg = shape.config
     dt, t0 = inv["scal"][0], inv["scal"][1]
@@ -289,25 +301,24 @@ def tiled_step_plain(shape: SceneShape, inv: dict, pos, vel, acc,
     keep = 1.0 - frozen
     if cfg.integrator is Integrator.RK2:
         # rest advances once per force pass: 2 step, then 2 step + 1
-        f = _forces(shape, inv, pos, vel, t0 + step * dt, 2.0 * step)
+        f, v1 = _forces(shape, inv, pos, vel, t0 + step * dt, 2.0 * step)
         a1 = f * minv
-        ph = (pos + 0.5 * vel * dt) * keep + pos * frozen
-        vh = (vel + 0.5 * a1 * dt) * keep + vel * frozen
-        f = _forces(shape, inv, ph, vh, t0 + (step + 0.5) * dt,
-                    2.0 * step + 1.0)
+        ph = (pos + 0.5 * v1 * dt) * keep + pos * frozen
+        vh = (v1 + 0.5 * a1 * dt) * keep + v1 * frozen
+        f, v2m = _forces(shape, inv, ph, vh, t0 + (step + 0.5) * dt,
+                         2.0 * step + 1.0)
         new_acc = f * minv
-        # without local constraints the predictor's velocity is vel itself
-        v2 = (vel + new_acc * dt) * keep + vel * frozen
-        p2 = pos + vh * dt * keep
+        v2 = (v1 + new_acc * dt) * keep + vel * frozen
+        p2 = pos + v2m * dt * keep
         return p2, v2, new_acc * keep
-    f = _forces(shape, inv, pos, vel, t0 + step * dt, float(step))
+    f, vm = _forces(shape, inv, pos, vel, t0 + step * dt, float(step))
     new_acc = f * minv
     if cfg.integrator is Integrator.VERLET:
-        v2 = vel + 0.5 * (acc + new_acc) * dt
+        v2 = vm + 0.5 * (acc + new_acc) * dt
         v2 = v2 * keep + vel * frozen
         p2 = pos + (v2 * dt + 0.5 * new_acc * dt * dt) * keep
     else:
-        v2 = vel + new_acc * dt
+        v2 = vm + new_acc * dt
         if cfg.velocity_clamp:
             vn = _safe_norm(torch.sum(v2 * v2, dim=0))
             v2 = torch.where(vn > 1.0, v2 / torch.where(vn > 0, vn, 1.0), v2)
@@ -361,7 +372,8 @@ class _TiledArgs(ctypes.Structure):
         + [(f, ctypes.c_void_p) for f in (
             "scal", "fparams", "planes", "balls", "bits", "k", "rest",
             "aratedt", "sstop", "damping", "bsign", "bomega", "cforce",
-            "minv", "fixed", "drag")])
+            "minv", "fixed", "drag")]
+        + [("local", _LocalSlots)])
 
 
 class _TiledChunk(ctypes.Structure):
@@ -373,7 +385,7 @@ class _TiledChunk(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in (
                     "pos_in", "vel_in", "acc_in", "pos_out", "vel_out",
                     "acc_out", "pos_tmp", "vel_tmp", "acc_tmp", "pos_half",
-                    "vel_half")])
+                    "vel_half", "vel_v1")])
 
 
 def _lib():
@@ -441,12 +453,15 @@ def chunk_struct(shape: SceneShape, state: SimState, n_steps: int,
     a.minv = _checked("minv", inv["minv"], (n,), kernel=kern)
     a.fixed = _checked("fixed", inv["fixed"], (n,), kernel=kern)
     a.drag = _checked("drag", inv["drag"], (n,), kernel=kern)
+    a.local = local_struct(shape, inv, kern)
 
     empty = lambda s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     out = [empty(vec) for _ in range(3)]
     tmp = [empty(vec) for _ in range(3)]
     rk2 = cfg.integrator is Integrator.RK2
-    half = [empty(vec) for _ in range(2)] if rk2 else [None, None]
+    # RK2's midpoint, and with local constraints pass 1's mutated velocity
+    half = [empty(vec) if rk2 else None for _ in range(2)]
+    half.append(empty(vec) if rk2 and "lc" in inv else None)
     c = _TiledChunk()
     c.a = a
     c.n_steps, c.k_seg = n_steps, k_seg
@@ -458,8 +473,8 @@ def chunk_struct(shape: SceneShape, state: SimState, n_steps: int,
     c.acc_in = _checked("acc", m.acc, vec, kernel="tiled")
     c.pos_out, c.vel_out, c.acc_out = (t.data_ptr() for t in out)
     c.pos_tmp, c.vel_tmp, c.acc_tmp = (t.data_ptr() for t in tmp)
-    c.pos_half, c.vel_half = (None if t is None else t.data_ptr()
-                              for t in half)
+    c.pos_half, c.vel_half, c.vel_v1 = (None if t is None else t.data_ptr()
+                                        for t in half)
     return c, out, tmp + half
 
 

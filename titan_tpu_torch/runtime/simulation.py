@@ -15,8 +15,8 @@
 
 Not ported yet (ROADMAP queue A): ``distribute`` (multi-device), the viewport
 and STL import, and the JAX package's journaled incremental topology edits
--- a structural edit at a pause here re-marshals the whole scene at resume.
-Scenes with local constraints raise ``NotImplementedError`` at marshal.
+-- a structural edit at a pause here re-marshals the whole scene at resume
+(an ``addConstraint`` or ``clearConstraints`` too).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from ..config import (ACTUATED_CONTRACT, ACTUATED_EXPAND, PASSIVE_SOFT,
                       PASSIVE_STIFF, ScatterMode, SimConfig, torch_device)
 from ..containers import Beam, Container, Cube, Lattice, RobotLink
 from ..entities import HandleSeq, Mass, Spring
-from ..ops.step import build_chunk_fn, check_ported
+from ..ops.step import build_chunk_fn
 from ..state import (GlobalConstraints, LocalConstraints, MassState,
                      SceneShape, SimState, SpringState, StencilState,
                      Topology, pad_to)
@@ -411,7 +411,6 @@ class Simulation:
             config=cfg, remainder_span=rem_span,
             stencil_uniform=tuple(uniform[f] for f in _UNIFORM_FIELDS),
             **_feature_flags(st, cfg))
-        check_ported(shape)
 
         # ---- stencil families: [F, N] planes indexed by (family, left)
         F = len(families)
@@ -468,7 +467,7 @@ class Simulation:
             g=self._tensor(self._global_acc),
             masses=masses, springs=springs, stencil=stencil,
             gcon=_build_gcon(self._planes, self._balls, dt, self._tensor),
-            lcon=_empty_lcon(N, dt, self._tensor), topo=topo)
+            lcon=_marshal_local(st, N, shape, dt, self._tensor), topo=topo)
         self._chunk = _chunk_for(shape)
         self._rate = None
         self._timed_chunks = 0
@@ -940,7 +939,6 @@ class Simulation:
         it.  Every feature's arrays are always staged, so no re-stage."""
         new_shape = dataclasses.replace(
             self._shape, **_feature_flags(self._store, self.config))
-        check_ported(new_shape)
         if new_shape != self._shape:
             self._shape = new_shape
             self._chunk = _chunk_for(new_shape)
@@ -1193,14 +1191,49 @@ def _local_caps(st: HostStore):
     return cap_cp, cap_ball, cap_pl, cap_dir
 
 
-def _empty_lcon(N: int, dt, to_dev) -> LocalConstraints:
-    """Zero-capacity local-constraint slots (scenes with local constraints
-    are refused at marshal until that slice lands)."""
-    z = lambda *s: to_dev(np.zeros(s, dtype=dt))  # noqa: E731
-    cnt = lambda: to_dev(np.zeros(N, dtype=np.int32))  # noqa: E731
-    return LocalConstraints(
-        cp_normal=z(N, 0, 3), cp_offset=z(N, 0), cp_fk=z(N, 0),
-        cp_fs=z(N, 0), cp_count=cnt(),
-        ball_center=z(N, 0, 3), ball_radius=z(N, 0), ball_count=cnt(),
-        pl_normal=z(N, 0, 3), pl_friction=z(N, 0), pl_count=cnt(),
-        dir_tangent=z(N, 0, 3), dir_friction=z(N, 0), dir_count=cnt())
+def _marshal_local(st: HostStore, N: int, shape: SceneShape, dt,
+                   to_dev) -> LocalConstraints:
+    """The per-mass local-constraint slots from the host records
+    (``titan_tpu/runtime/simulation.py::_marshal_local``): slot j of a type
+    holds the mass's j-th record of it, and its count says how many are
+    live; a deleted mass gets none.  A contact plane is the record form of
+    ``Mass.addConstraint``, (normal, offset), frictionless, or the form of
+    the per-env plane sweep, (normal, offset, fk, fs)."""
+    cp, cb, cpl, cd = shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir
+    lc = dict(
+        cp_normal=np.zeros((N, cp, 3), dtype=dt),
+        cp_offset=np.zeros((N, cp), dtype=dt),
+        cp_fk=np.zeros((N, cp), dtype=dt), cp_fs=np.zeros((N, cp), dtype=dt),
+        cp_count=np.zeros(N, dtype=np.int32),
+        ball_center=np.zeros((N, cb, 3), dtype=dt),
+        ball_radius=np.zeros((N, cb), dtype=dt),
+        ball_count=np.zeros(N, dtype=np.int32),
+        pl_normal=np.zeros((N, cpl, 3), dtype=dt),
+        pl_friction=np.zeros((N, cpl), dtype=dt),
+        pl_count=np.zeros(N, dtype=np.int32),
+        dir_tangent=np.zeros((N, cd, 3), dtype=dt),
+        dir_friction=np.zeros((N, cd), dtype=dt),
+        dir_count=np.zeros(N, dtype=np.int32))
+    for i, rec in st.local.items():
+        if not st.valid[i]:
+            continue
+        for j, cp_rec in enumerate(rec.contact_planes):
+            lc["cp_normal"][i, j] = cp_rec[0]
+            lc["cp_offset"][i, j] = cp_rec[1]
+            if len(cp_rec) > 2:
+                lc["cp_fk"][i, j] = cp_rec[2]
+                lc["cp_fs"][i, j] = cp_rec[3]
+        lc["cp_count"][i] = len(rec.contact_planes)
+        for j, (c, r) in enumerate(rec.balls):
+            lc["ball_center"][i, j] = c
+            lc["ball_radius"][i, j] = r
+        lc["ball_count"][i] = len(rec.balls)
+        for j, (nrm, fr) in enumerate(rec.constraint_planes):
+            lc["pl_normal"][i, j] = nrm
+            lc["pl_friction"][i, j] = fr
+        lc["pl_count"][i] = len(rec.constraint_planes)
+        for j, (tg, fr) in enumerate(rec.directions):
+            lc["dir_tangent"][i, j] = tg
+            lc["dir_friction"][i, j] = fr
+        lc["dir_count"][i] = len(rec.directions)
+    return LocalConstraints(**{k: to_dev(v) for k, v in lc.items()})

@@ -82,8 +82,10 @@ class GlobalConstraints:
 @dataclasses.dataclass
 class LocalConstraints:
     """Per-mass local constraint slots (reference CUDA_LOCAL_CONSTRAINTS,
-    object.h:203-220).  Carried so that a JAX state crosses over whole; no
-    step of this port applies them yet."""
+    object.h:203-220; applied at sim.cu:1311-1326).  Fixed per-type
+    capacities (the shape's ``cap_*``) with per-mass counts: slot j is
+    active iff j < count.  The steps read them as one stacked [L, N] array
+    (``ops/forces.py::stage_local``)."""
 
     cp_normal: torch.Tensor    # [N, Ccp, 3]
     cp_offset: torch.Tensor    # [N, Ccp]
