@@ -167,6 +167,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   y. time both paths' kernels as phases 4, e, p and t do, with the slot
      rows' bytes and operations that the run's own slots need in every
      bound (local_work);
+  z1. every kernel's remainder-spring branch against its plain version
+     on 12 scenes of 12,000 masses with 96 cross links each (plain,
+     damped, breathing, ACTUATED expand / contract, a fixed endpoint, a
+     deleted endpoint, a hub of degree 12 or more, with all four local
+     slot types;
+     Euler, Verlet and RK2): the fused step over 100 steps, the fused trace
+     over 20 and its backward, the tiled step (per-step launches: remainder
+     scenes take no resident grid) over 37, its replay and B7; bitwise, the
+     RK2 backwards within TOL_BWD_ELEM per element.  And the fused step's
+     per-pass magnet entry fed the plain field against its plain version
+     on 64 RobotLinks with 32 links, Euler, Verlet and RK2, bitwise;
+  z2. the route on the 43^3 + links shape either side of the reference's
+     remainder-selector budget (S 2,048: fused step and adjoint; 2,176:
+     tiled);
+  z3. bench 43^3 + 1,024 links (scripts/tpu_mega_glue_breakdown.py's
+     build(cross=...) pattern) through Simulation until it lands: one
+     fused launch per step, no tiled launch, no eager step; from the landed
+     state under Euler, Verlet and RK2 the fused step (200 steps), trace
+     and backward against their plain versions, and the gradient path
+     (grad_rollout over 200 steps in segments of 100, gradients over pos,
+     vel, k and the links' k and rest) with exact counts on the fused
+     adjoint, every gradient finite, every link's rest gradient nonzero
+     and the links' k gradients not all 0; timing;
+  z4. stress 100^3 + 512 links through Simulation for 2,000 Euler steps
+     from t = 0: the tiled route, per-step launches only (0 resident-grid
+     launches), no fused launch, no eager step; from its end state under
+     Euler, Verlet and RK2 the tiled step, replay and B7 against their
+     plain versions, the gradient path (the tiled adjoint, segments of 50,
+     B7 only: 0 B8 launches) with z3's checks; timing;
+  z5. every bound counts the run's own remainder topology (rem_work);
   5. print the kernels line (one entry per kernel and path), the card's
      name and power limit, and last the result line.
 
@@ -211,6 +241,10 @@ OPS_PER_SPRING_T, OPS_PER_MASS_T = 40, 45
 # recompute
 LOCAL_OPS = (45, 15, 20, 22)
 LOCAL_DATA_ROWS = (6, 4, 4, 4)
+# a remainder spring's operations, counted at each of its two endpoints
+# (rem_work): the spring evaluation (22, as a family spring's) and its
+# transpose (40 more)
+REM_OPS, REM_OPS_T = 22, 40
 SEG, GRAD_STEPS = 100, 200
 VARIANTS = ("plain", "friction", "static_friction", "ball", "damping",
             "breathing", "actuated", "drag", "deleted", "verlet", "rk2",
@@ -465,12 +499,37 @@ def bound_ms_per_step(shape, state, n_steps):
     passes = 2 if shape.config.integrator.name == "RK2" else 1
     # the slot rows are read by every launch, one per force pass
     l_rows, l_ops = local_work(shape, state)
-    t_bytes = (4 * per_mass * n / n_steps
+    # the remainder springs' table and rows are read once per chunk
+    r_bytes, r_ops, _ = rem_work(shape, state)
+    t_bytes = (4 * per_mass * n / n_steps + r_bytes / n_steps
                + 4 * l_rows * n * passes) / HBM_BYTES_PER_S * 1e3
     t_ops = (OPS_PER_SPRING * n_springs + OPS_PER_MASS * n
-             + passes * l_ops * n) / F32_FLOPS_PER_S * 1e3
+             + passes * (l_ops * n + r_ops)) / F32_FLOPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
             ), t_bytes, t_ops
+
+
+def rem_work(shape, state):
+    """(bytes, operations per force pass, operations per transpose) that
+    the remainder springs need in one launch, from this state's own
+    topology: the incidence table (D entries of 8 B per mass), each live
+    spring's ends (8 B) and rows (k and rest, and damping, the breathing
+    sign and frequency, the actuation rate and bound where the scene has
+    them, 4 B each); each live spring is evaluated by both its endpoints,
+    REM_OPS operations each, and transposed by both, REM_OPS_T more.  All
+    0 without remainder springs."""
+    if not shape.has_remainder:
+        return 0.0, 0.0, 0.0
+    sp, m = state.springs, state.masses
+    live = int((sp.valid & m.valid[sp.left.long()]
+                & m.valid[sp.right.long()]).sum())
+    rows = 2 + shape.has_damping + 2 * shape.has_breathing \
+        + 2 * shape.has_actuated
+    degree = state.topo.inc_idx.shape[1] \
+        if state.topo.inc_idx.shape[0] == shape.n_masses \
+        else shape.max_degree
+    nbytes = 8 * shape.n_masses * degree + live * (8 + 4 * rows)
+    return nbytes, 2 * REM_OPS * live, 2 * REM_OPS_T * live
 
 
 def local_work(shape, state):
@@ -599,14 +658,11 @@ def adjoint_vs_plain(shape, state, seg, label):
     got = adjoint.bwd_run(shape, state, trace, *cts)
     ref = adjoint.bwd_run_plain(shape, state, trace, *cts)
     torch.cuda.synchronize()
-    ok = ref["pair_ok"]
     abs_err, rel, bad = 0.0, {}, []
     for key, b in ref.items():
-        if key == "pair_ok":
+        if key in ("pair_ok", "rem_ok"):
             continue
-        a = got[key]
-        if key in ("k", "damping", "aratedt"):   # masked in assemble_ct
-            a, b = torch.where(ok, a, 0.0), torch.where(ok, b, 0.0)
+        a, b = masked_bars(key, got[key], b, ref)
         if not bool(torch.isfinite(a).all()):
             bad.append(f"non-finite {key}")
         d = float((a - b).abs().max())
@@ -620,6 +676,19 @@ def adjoint_vs_plain(shape, state, seg, label):
           + (f"  FAIL {bad}" if bad else ""))
     check(not bad, f"{label}: backward kernel disagrees with plain: {bad}")
     return dtr, abs_err, max(rel.values())
+
+
+def masked_bars(key, a, b, ref):
+    """A backward's gradient `a` and its plain version's `b`, zeroed where
+    assemble_ct zeroes them: the k, damping and rate * dt of missing or
+    invalid springs (``pair_ok``, the remainder's ``rem_ok``)."""
+    import torch
+    ok = (ref["pair_ok"] if key in ("k", "damping", "aratedt") else
+          ref.get("rem_ok") if key in ("k_e", "damp_e", "aratedt_e")
+          else None)
+    if ok is None:
+        return a, b
+    return torch.where(ok, a, 0.0), torch.where(ok, b, 0.0)
 
 
 def grad_leaves(state):
@@ -767,14 +836,18 @@ def adjoint_bound_ms(shape, state, seg):
     # the local-constraint slot rows, read by each force launch
     l_rows, l_ops = local_work(shape, state)
     lc = l_rows * seg * rk2
-    trace_bytes = 4 * n * (seg * 6 + 9 + inv + lc)
+    # the remainder springs' table and rows, read once per segment, and
+    # their gradients, written once (5 per live spring at most)
+    r_bytes, r_ops, r_ops_t = rem_work(shape, state)
+    trace_bytes = 4 * n * (seg * 6 + 9 + inv + lc) + r_bytes
     grads = 9 + 3 + 1 + shape.has_drag + f * (
         2 + shape.has_damping + shape.has_breathing + shape.has_actuated)
-    bwd_bytes = 4 * n * (seg * 6 + 9 + inv + grads + lc)
+    bwd_bytes = 4 * n * (seg * 6 + 9 + inv + grads + lc) + r_bytes \
+        + 5 * r_ops_t / (2 * REM_OPS_T) * 4
     ops_fwd = rk2 * (OPS_PER_SPRING * n_springs
-                     + (OPS_PER_MASS + l_ops) * n)
+                     + (OPS_PER_MASS + l_ops) * n + r_ops)
     ops_bwd = ops_fwd + rk2 * (OPS_PER_SPRING_T * n_springs
-                               + (OPS_PER_MASS_T + 2 * l_ops) * n)
+                               + (OPS_PER_MASS_T + 2 * l_ops) * n + r_ops_t)
     out = []
     for nbytes, ops in ((trace_bytes, ops_fwd), (bwd_bytes, ops_bwd)):
         tb = nbytes / seg / HBM_BYTES_PER_S * 1e3
@@ -1709,7 +1782,8 @@ def state_diffs(a, b, fields=("pos", "vel", "acc", "T"), rest=False):
     pairs = [(f, getattr(a.masses, f), getattr(b.masses, f))
              for f in fields]
     if rest:
-        pairs.append(("rest", a.stencil.rest, b.stencil.rest))
+        pairs += [("rest", a.stencil.rest, b.stencil.rest),
+                  ("remainder rest", a.springs.rest, b.springs.rest)]
     for f, x, y in pairs:
         out[f] = float((x - y).abs().max())
         same = same and bool(torch.equal(x, y))
@@ -1995,9 +2069,10 @@ def tiled_bound_ms(shape, state, mode, steps):
     force passes: bytes over 3.35 TB/s, operations (22 per spring, 25 per
     mass, per pass) over 67 TFLOP/s."""
     n_springs = int(state.stencil.mask.sum())
-    t_bytes = tiled_bytes_per_mass(shape, state, mode) * shape.n_masses \
-        / HBM_BYTES_PER_S * 1e3
-    t_ops = steps * (OPS_PER_SPRING * n_springs
+    r_bytes, r_ops, _ = rem_work(shape, state)
+    t_bytes = (tiled_bytes_per_mass(shape, state, mode) * shape.n_masses
+               + r_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = steps * (OPS_PER_SPRING * n_springs + r_ops
                      + (OPS_PER_MASS + local_work(shape, state)[1])
                      * shape.n_masses) \
         / F32_FLOPS_PER_S * 1e3
@@ -2045,6 +2120,8 @@ def time_tiled(name, shape, state):
     out = {}
     passes = 2 if rk2 else 1
     for kname, per_launch_steps in ((names[0], seg), (names[1], None)):
+        if per_launch_steps and not tiled_step.mega_seg(shape):
+            continue            # a scene that takes per-step launches only
         t = dev.get(kname)
         if per_launch_steps:
             (b_ms, by), t_b, t_o = tiled_bound_ms(
@@ -2197,17 +2274,14 @@ def bwd_diffs(got, ref, rk2):
     |d|, {key: error}, bitwise, failures).  Euler and Verlet must agree
     bitwise (error max |d| / max |plain|); RK2 per element within
     TOL_BWD_ELEM (|d| / (|plain| + 1e-3 max |plain|)).  k, damping and
-    aratedt are compared where a spring exists, as assemble_ct masks
-    them."""
+    aratedt (and the remainder springs' k_e, damp_e, aratedt_e) are
+    compared where a spring exists, as assemble_ct masks them."""
     import torch
-    ok = ref["pair_ok"]
     abs_err, rel, bitwise, fails = 0.0, {}, True, []
     for key, b in ref.items():
-        if key == "pair_ok":
+        if key in ("pair_ok", "rem_ok"):
             continue
-        a = got[key]
-        if key in ("k", "damping", "aratedt"):
-            a, b = torch.where(ok, a, 0.0), torch.where(ok, b, 0.0)
+        a, b = masked_bars(key, got[key], b, ref)
         if not bool(torch.isfinite(a).all()):
             fails.append(f"non-finite {key}")
         d = (a - b).abs()
@@ -2308,8 +2382,9 @@ def expected_grad_counts(shape, n_steps):
                 trace_mega=n_seg * mega, trace_step=n_seg * step)
     if at.mega_adjoint_ok(shape):
         want["bwd_mega"] = n_seg
-    else:
-        want["bwd_step"] = n_steps * 5     # RK2: five launches per step
+    else:                   # five launches per RK2 step, else two
+        rk2 = shape.config.integrator.name == "RK2"
+        want["bwd_step"] = n_steps * (5 if rk2 else 2)
     return seg, want
 
 
@@ -2517,9 +2592,10 @@ def tiled_adjoint_bound_ms(shape, state, kind, steps):
     n_springs = int(state.stencil.mask.sum())
     mode = "euler" if rk2 else shape.config.integrator.name.lower()
     lrows, lops = local_work(shape, state)
+    r_bytes, r_ops, r_ops_t = rem_work(shape, state)
     if kind == "trace":
         per_mass = tiled_bytes_per_mass(shape, state, mode) + 24 * steps
-        ops = steps * passes * (OPS_PER_SPRING * n_springs
+        ops = steps * passes * (OPS_PER_SPRING * n_springs + r_ops
                                 + (OPS_PER_MASS + lops) * n)
     else:
         f = len(shape.stencil_deltas)
@@ -2529,10 +2605,12 @@ def tiled_adjoint_bound_ms(shape, state, kind, steps):
             + 4 * lrows
         _, nb = at.bar_plan(shape)
         per_mass = 24 * steps + 36 * 2 + inv + 4 * nb * 2
+        # the per-spring gradients, written once
+        r_bytes += 5 * 4 * r_ops_t / (2 * REM_OPS_T)
         ops = steps * passes * (
-            (OPS_PER_SPRING + OPS_PER_SPRING_T) * n_springs
+            (OPS_PER_SPRING + OPS_PER_SPRING_T) * n_springs + r_ops + r_ops_t
             + (OPS_PER_MASS + OPS_PER_MASS_T + 3 * lops) * n)
-    t_bytes = per_mass * n / HBM_BYTES_PER_S * 1e3
+    t_bytes = (per_mass * n + r_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations")), t_bytes, t_ops
@@ -2580,7 +2658,7 @@ def time_tiled_adjoint(name, shape, state):
     # each launch kind run alone through its wrapper, for the CUDA-event
     # fallback: (fn(k) covering k launches' worth, k)
     alone = {"trace_mega": (lambda k: at._tiled_trace_cuda(
-                 shape, state, k_seg, inv, k_seg), 1),
+                 shape, state, k_seg, inv, k_seg), 1) if k_seg else None,
              "trace_step": (lambda k: at._tiled_trace_cuda(
                  shape, state, 1, inv, 0), passes),
              "bwd_step": (lambda k: at._tiled_bwd_cuda(
@@ -2608,7 +2686,7 @@ def time_tiled_adjoint(name, shape, state):
     groups = {"trace_mega": lambda k: "mega" in k and "true>" in k,
               "trace_step": lambda k: "tiled_step_kernel" in k
               and "true>" in k,
-              "bwd_step": lambda k: "<TiledBwdArgs>" in k,
+              "bwd_step": lambda k: "<TiledBwdArgs," in k,
               "bwd_mega": lambda k: "tiled_megabwd_kernel" in k}
     dev = {}
     for e in prof.key_averages():
@@ -2634,7 +2712,7 @@ def time_tiled_adjoint(name, shape, state):
                             ("trace_step", 1, tr_plain / passes),
                             ("bwd_step", 1, bw_plain / per),
                             ("bwd_mega", seg, bw_plain * seg)):
-        if g not in alone:
+        if alone.get(g) is None:
             continue
         if g in dev:
             ms = dev[g][0] / dev[g][1] / 1e3
@@ -2695,7 +2773,8 @@ def tiled_adjoint_phases(titan, kernels, shape, state):
                  if integ is Integrator.RK2 else
                  "tiled_mega_kernel<MODE, true> (trace replay",
                  "titan_tpu/ops/pallas_tiled.py:1305"),
-                ("trace_step", "tiled_step_kernel<MODE, true> (trace replay",
+                ("trace_step",
+                 "tiled_step_kernel<MODE, REM, true> (trace replay",
                  "titan_tpu/ops/pallas_tiled.py:1305"),
                 ("bwd_step", "bwd_force_kernel + bwd_spring_kernel"
                  + (" + bwd_mid_kernel" if integ is Integrator.RK2 else "")
@@ -2769,17 +2848,10 @@ def add_slots(st, cp=None, ball=None, pl=None, dr=None):
                 getattr(st.local_record(i), field).append(rec)
 
 
-def local_small_scene(titan, slots, integrator):
-    """A 30 x 20 x 20 lattice (12,000 masses, z in [0.2, 2.2]) sliding at
-    (0.3, 0.1, -0.2) onto a 0.4 / 0.6 friction plane, with the slots that
-    `slots` names: a contact plane at offset 0.7 on every third mass
-    ("cp"; with friction 0.4 / 0.6 for "cp_friction"; "all" has both, on
-    the first and second third), a ball of radius 0.8 around (-1.5, 0,
-    1.2) on the masses at x < -0.5, a constraint plane (normal x, friction
-    0.1) on the top layer, a direction (0.2, 0, 1) with friction 0.2 on
-    every seventh mass; "all_drag" adds drag 0.3.  Marshalled on the card;
-    returns (shape, state)."""
-    import numpy as np
+def small_lattice(titan, integrator):
+    """A 30 x 20 x 20 lattice (12,000 masses, z in [0.2, 2.2], k 1000)
+    sliding at (0.3, 0.1, -0.2) onto a 0.4 / 0.6 friction plane, dt 1e-4,
+    on the card, not marshalled yet."""
     sim = titan.Simulation(titan.SimConfig(
         integrator=titan.Integrator[integrator.upper()]))
     sim.createLattice(titan.Vec(0, 0, 1.2), titan.Vec(3, 2, 2), 30, 20, 20)
@@ -2787,9 +2859,23 @@ def local_small_scene(titan, slots, integrator):
     sim.setTimeStep(1e-4)
     sim.setGlobalAcceleration(titan.Vec(0, 0, -9.8))
     sim.createPlane(titan.Vec(0, 0, 1), 0, 0.4, 0.6)
+    sim._store.vel[:sim._store.n_masses] = (0.3, 0.1, -0.2)
+    return sim
+
+
+def local_small_scene(titan, slots, integrator, sim=None):
+    """small_lattice (or `sim`) with the slots that `slots` names: a
+    contact plane at offset 0.7 on every third mass ("cp"; with friction
+    0.4 / 0.6 for "cp_friction"; "all" has both, on the first and second
+    third), a ball of radius 0.8 around (-1.5, 0, 1.2) on the masses at
+    x < -0.5, a constraint plane (normal x, friction 0.1) on the top
+    layer, a direction (0.2, 0, 1) with friction 0.2 on every seventh
+    mass; "all_drag" adds drag 0.3.  Marshalled on the card; returns
+    (shape, state)."""
+    import numpy as np
+    sim = sim or small_lattice(titan, integrator)
     st = sim._store
     n = st.n_masses
-    st.vel[:n] = (0.3, 0.1, -0.2)
     pos = st.pos[:n]
     idx = np.arange(n)
     every = slots.startswith("all")
@@ -3018,21 +3104,32 @@ def local_bench_path(titan, kernels):
 
 
 def drive_local_stress(titan, name):
-    """Phase w: the 100^3 local scene through the public API from t = 0,
-    start -> wait -> getAll -> resume -> wait -> getAll -> stop at
-    LOCAL_STRESS_WAITS (2,000 Euler steps), every count set to 0 just
-    before and read just after: the tiled route, with exactly the
-    resident-grid and per-step launches the chunk lengths give, no fused
-    launch and no eager step.  Returns (counts, (shape, state) at the
-    end)."""
+    """Phase w: the 100^3 local scene through drive_from_rest, with its
+    four slot types."""
+    t0 = time.perf_counter()
+    sim = local_scene(titan, STRESS_NX)
+
+    def check_shape(shape):
+        caps = (shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)
+        check(caps == (1, 1, 1, 1), f"{name}: caps {caps}")
+        return f"caps {caps}"
+    return drive_from_rest(sim, name, time.perf_counter() - t0, check_shape)
+
+
+def drive_from_rest(sim, name, t_build, check_shape):
+    """A 100^3 scene through the public API from t = 0, start -> wait ->
+    getAll -> resume -> wait -> getAll -> stop at LOCAL_STRESS_WAITS (2,000
+    Euler steps), every count set to 0 just before and read just after:
+    the tiled route, with exactly the resident-grid and per-step launches
+    the chunk lengths give (per-step launches only where the scene takes
+    no resident grid), no fused launch and no eager step.  `check_shape`
+    checks the marshalled shape and returns what to print of it.  Returns
+    (counts, (shape, state) at the end)."""
     import numpy as np
     import torch
     from titan_tpu_torch.ops import tiled_step
     from titan_tpu_torch.ops.step import chunk_route, resident_bytes
     from titan_tpu_torch.runtime import simulation as rsim
-    t0 = time.perf_counter()
-    sim = local_scene(titan, STRESS_NX)
-    t_build = time.perf_counter() - t0
     n = sim._store.n_masses
     lengths, recorded = [], []
     built = rsim.build_chunk_fn
@@ -3053,12 +3150,11 @@ def drive_local_stress(titan, name):
         sim.start()
         t_marshal = time.perf_counter() - t0
         shape = sim._shape
-        caps = (shape.cap_cp, shape.cap_ball, shape.cap_pl, shape.cap_dir)
-        print(f"main path {name}: built with its slots in {t_build:.2f} s, "
-              f"marshalled in {t_marshal:.2f} s (host); {n} masses, caps "
-              f"{caps}, route {chunk_route(shape)[0]} (resident_bytes "
+        what = check_shape(shape)
+        print(f"main path {name}: built in {t_build:.2f} s, marshalled in "
+              f"{t_marshal:.2f} s (host); {n} masses, {what}, route "
+              f"{chunk_route(shape)[0]} (resident_bytes "
               f"{resident_bytes(shape) / 1e6:.1f} MB)")
-        check(caps == (1, 1, 1, 1), f"{name}: caps {caps}")
         check(chunk_route(shape) == ("tiled", None),
               f"{name}: route {chunk_route(shape)}")
         for k, t in enumerate(LOCAL_STRESS_WAITS):
@@ -3078,9 +3174,9 @@ def drive_local_stress(titan, name):
             rsim._CHUNK_CACHE.pop(key, None)
     counts = read_tiled_counts()
     wall = time.perf_counter() - t0
-    seg = tiled_step.MEGA_SEG
-    want = dict(mega=sum(k // seg for k in lengths),
-                step=sum(k % seg for k in lengths))
+    seg = tiled_step.mega_seg(end[0])
+    want = dict(mega=sum(k // seg for k in lengths) if seg else 0,
+                step=sum(k % seg for k in lengths) if seg else sum(lengths))
     print(f"main path {name}: {len(lengths)} chunks {lengths}, "
           f"{sum(lengths)} steps to t={t_end:.4f} in {wall:.2f} s wall; "
           f"tiled resident-grid launches {counts['mega']} (chunk lengths "
@@ -3088,7 +3184,7 @@ def drive_local_stress(titan, name):
           f"(give {want['step']}), fused_step launches {counts['fused']}, "
           f"eager steps {counts['eager']}")
     check(sum(lengths) >= 2000, f"{name}: {sum(lengths)} steps")
-    check(counts["mega"] > 0 and counts["step"] > 0,
+    check((counts["mega"] > 0) == bool(seg) and counts["step"] > 0,
           f"{name}: resident-grid and per-step launches {counts}")
     check(counts["mega"] == want["mega"] and counts["step"] == want["step"],
           f"{name}: launches {counts} against the chunk lengths' {want}")
@@ -3179,7 +3275,8 @@ def local_stress_path(titan, kernels):
                 ("trace_mega", ("tiled_megark2_kernel<true>" if rk2 else
                                 "tiled_mega_kernel<MODE, true>")
                  + " (trace replay", "titan_tpu/ops/pallas_tiled.py:1305"),
-                ("trace_step", "tiled_step_kernel<MODE, true> (trace replay",
+                ("trace_step",
+                 "tiled_step_kernel<MODE, REM, true> (trace replay",
                  "titan_tpu/ops/pallas_tiled.py:1305"),
                 ("bwd_step", "bwd_force_kernel + bwd_spring_kernel"
                  + (" + bwd_mid_kernel" if rk2 else "")
@@ -3208,6 +3305,384 @@ def local_phases(titan, kernels):
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     local_bench_path(titan, kernels)
     local_stress_path(titan, kernels)
+
+
+# ---------------------------------------------------------------------------
+# Remainder springs (phases z1-z5): every kernel's remainder branch against
+# its plain version on small scenes, the route rule, bench 43^3 + 1,024
+# links and stress 100^3 + 512 links through Simulation, their gradient
+# paths with per-spring gradients, timing
+# ---------------------------------------------------------------------------
+
+# phase z1's scenes on small_lattice, each with REM_SMALL_LINKS cross links
+# of one kind (add_links): (kind, integrator)
+REM_SCENES = (("plain", "euler"), ("damped", "euler"),
+              ("breathing", "euler"), ("expand_contract", "euler"),
+              ("fixed", "euler"), ("deleted", "euler"), ("hub", "euler"),
+              ("damped", "verlet"), ("expand_contract", "rk2"),
+              ("damped", "rk2"), ("local", "euler"), ("local", "rk2"))
+REM_SMALL_LINKS = 96
+# the main paths' links: scripts/tpu_mega_glue_breakdown.py's
+# build(nx=43 or 100, cross=...) pattern
+REM_BENCH_LINKS, REM_STRESS_LINKS = 1024, 512
+# the spring leaves of the remainder gradient paths
+REM_GRAD_NAMES = ("pos", "vel", "k", "springs.k", "springs.rest")
+
+
+def add_links(sim, count, k=500.0):
+    """`count` cross links as scripts/tpu_mega_glue_breakdown.py's
+    build(cross=count) makes them: RandomState(0), one endpoint drawn in
+    each half of the masses, k 500, rest the current distance.  Returns
+    the links' spring indices (first, end)."""
+    import numpy as np
+    st = sim._store
+    n = st.n_masses
+    rng = np.random.RandomState(0)
+    a = rng.randint(0, n // 2, count)
+    b = n // 2 + rng.randint(0, n // 2, count)
+    s0 = st.n_springs
+    for ai, bi in zip(a, b):
+        sp = sim.createSpring(sim.getMassByIndex(int(ai)),
+                              sim.getMassByIndex(int(bi)))
+        sp._k = k
+    return s0, st.n_springs
+
+
+def rem_small_scene(titan, kind, integrator):
+    """small_lattice with REM_SMALL_LINKS links (add_links) of `kind`:
+    "plain"; "damped" (damping 0.5); "breathing" (ACTIVE_CONTRACT_THEN_
+    EXPAND, omega 7); "expand_contract" (scripts/
+    tpu_adjoint_tiled_glue_check.py:66-75: half ACTUATED_EXPAND to 1.001
+    rest at rate 0.6, half ACTUATED_CONTRACT to 0.5 rest at 0.8); a
+    "fixed" or "deleted" endpoint of the first links; a "hub" (mass 0 with
+    12 more links); "local" (local_small_scene's four slot types, "all").
+    Marshalled on the card; returns (shape, state)."""
+    import numpy as np
+    sim = small_lattice(titan, integrator)
+    st = sim._store
+    s0, s1 = add_links(sim, REM_SMALL_LINKS)
+    if kind == "damped":
+        st.damping[s0:s1] = 0.5
+    elif kind == "breathing":
+        st.s_type[s0:s1] = titan.ACTIVE_CONTRACT_THEN_EXPAND
+        st.omega[s0:s1] = 7.0
+    elif kind == "expand_contract":
+        mid = (s0 + s1) // 2
+        st.s_type[s0:mid] = titan.ACTUATED_EXPAND
+        st.l_max[s0:mid] = st.rest[s0:mid] * 1.001
+        st.rate[s0:mid] = 0.6
+        st.s_type[mid:s1] = titan.ACTUATED_CONTRACT
+        st.l_min[mid:s1] = st.rest[mid:s1] * 0.5
+        st.rate[mid:s1] = 0.8
+    elif kind == "fixed":
+        st.fixed[st.left[s0:s0 + 4]] = True
+    elif kind == "deleted":
+        st.valid[st.right[s0:s0 + 4]] = False
+    elif kind == "hub":
+        rng = np.random.RandomState(1)
+        for j in rng.choice(np.arange(1, st.n_masses), 12, replace=False):
+            sp = sim.createSpring(sim.getMassByIndex(0),
+                                  sim.getMassByIndex(int(j)))
+            sp._k = 500.0
+    if kind == "local":
+        return local_small_scene(titan, "all", integrator, sim=sim)
+    sim._T = 0.0
+    sim._marshal()
+    return sim._shape, sim._state
+
+
+def rem_magnet_scene(titan, integrator):
+    """link_sim's RobotLinks (64) with 32 cross links between them
+    (add_links): the fused step's per-pass magnet entry with remainder
+    springs.  Marshalled; returns (shape, state)."""
+    sim = link_sim(titan, 64, integrator=titan.Integrator[integrator.upper()])
+    add_links(sim, 32)
+    sim._T = 0.0
+    sim._marshal()
+    return sim._shape, sim._state
+
+
+def rem_small_scenes(titan):
+    """Phase z1: on the REM_SCENES, the fused step (100 steps), the fused
+    trace (20) and its backward, the tiled step (per-step launches,
+    TRACE_STEPS), the tiled replay and B7, each against its plain version
+    (fused_local_vs_plain, tiled_vs_plain, tiled_adjoint_vs_plain: bitwise,
+    RK2 backwards per element); and the fused step's per-pass magnet entry
+    fed the plain field against its plain version fed the same field on
+    RobotLinks with links, Euler, Verlet and RK2.  Returns the worst max
+    |d| per kernel family."""
+    from titan_tpu_torch.ops import fused_step, tiled_step
+    bad = []
+    worst = dict(step=0.0, trace=0.0, bwd=0.0, tiled=0.0, tiled_trace=0.0,
+                 tiled_bwd=0.0, magnet_pass=0.0)
+    for kind, integ in REM_SCENES:
+        shape, state = rem_small_scene(titan, kind, integ)
+        label = f"links {kind}, {integ}"
+        check(shape.has_remainder and shape.max_degree >= (
+            12 if kind == "hub" else 1)
+              and fused_step.fused_reject_reason(shape) is None
+              and tiled_step.tiled_reject_reason(shape) is None
+              and tiled_step.mega_seg(shape) == 0,
+              f"{label}: remainder {shape.has_remainder}, degree "
+              f"{shape.max_degree}, fused "
+              f"{fused_step.fused_reject_reason(shape)}, tiled "
+              f"{tiled_step.tiled_reject_reason(shape)}")
+        e_step, e_tr, e_bw = fused_local_vs_plain(shape, state, label, bad)
+        e_tiled, _ = tiled_vs_plain(shape, state, TRACE_STEPS, label, bad)
+        t_tr, t_bw, _, _ = tiled_adjoint_vs_plain(shape, state, label, bad)
+        for k, v in (("step", e_step), ("trace", e_tr), ("bwd", e_bw),
+                     ("tiled", e_tiled), ("tiled_trace", t_tr),
+                     ("tiled_bwd", t_bw)):
+            worst[k] = max(worst[k], v)
+    check(not bad, "; ".join(bad))
+    for integ in ("euler", "verlet", "rk2"):
+        shape, state = rem_magnet_scene(titan, integ)
+        check(shape.has_remainder and shape.has_magnets,
+              f"RobotLinks with links: remainder {shape.has_remainder}, "
+              f"magnets {shape.has_magnets}")
+        worst["magnet_pass"] = max(worst["magnet_pass"], fused_vs_fed_plain(
+            shape, state, 100, f"RobotLinks + 32 links, {integ}"))
+    return worst
+
+
+def rem_routes(shape, label):
+    """Phase z2 on a marshalled 43^3 + links shape: chunk_route and
+    grad_route either side of the selector budget (S 2,048 and 2,176 at
+    43^3: the fused step and adjoint, then the tiled ones), as the
+    reference routes them."""
+    import dataclasses
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import step as tstep
+    for s, want in ((2048, ("fused", "adjoint")),
+                    (2176, ("tiled", "tiled_adjoint"))):
+        sh = dataclasses.replace(shape, n_springs=s)
+        got = (tstep.chunk_route(sh)[0], diff.grad_route(sh)[0])
+        print(f"{label} route with S = {s}: selectors "
+              f"{tstep.remainder_selector_bytes(sh) / 2 ** 20:.2f} MiB of "
+              f"{tstep.REM_SEL_BUDGET / 2 ** 20:.0f}, resident_bytes "
+              f"{tstep.resident_bytes(sh) / 1e6:.2f} MB: {got}")
+        check(got == want, f"{label}, S = {s}: routes {got}, want {want}")
+
+
+def rem_grad_leaves(state):
+    """(leaves pos, vel, stencil k, springs k and rest requiring grad, the
+    state built on them)."""
+    import dataclasses
+    leaves = [t.clone().requires_grad_() for t in (
+        state.masses.pos, state.masses.vel, state.stencil.k, state.springs.k,
+        state.springs.rest)]
+    pos, vel, k, sk, srest = leaves
+    st = dataclasses.replace(
+        state, masses=dataclasses.replace(state.masses, pos=pos, vel=vel),
+        stencil=dataclasses.replace(state.stencil, k=k),
+        springs=dataclasses.replace(state.springs, k=sk, rest=srest))
+    return leaves, st
+
+
+def rem_grad_path(name, shape, state, segment, route):
+    """diff.grad_rollout over GRAD_STEPS steps in segments of `segment` and
+    torch.autograd.grad of seeded weights . (final pos, vel) over pos,
+    vel, stencil k and the remainder springs' k and rest, every count set
+    to 0 just before and read just after: the route must be `route`, the
+    launches exactly what the segments give (the tiled route: per-step
+    launches only, expected_grad_counts), no eager step, every gradient
+    finite, the links' k gradients not all 0 and every link's rest
+    gradient nonzero.  Returns the counts."""
+    import torch
+    from titan_tpu_torch import diff
+    check(diff.grad_route(shape) == (route, None),
+          f"{name}: gradient route {diff.grad_route(shape)}")
+    rk2 = shape.config.integrator.name == "RK2"
+    passes = 2 if rk2 else 1
+    if route == "adjoint":
+        want = dict.fromkeys(adjoint_counters(), 0)
+        want.update(fused=GRAD_STEPS * passes,
+                    adjoint_trace=GRAD_STEPS * passes,
+                    adjoint_bwd=GRAD_STEPS * (5 if rk2 else 2))
+    else:
+        seg, want = expected_grad_counts(shape, GRAD_STEPS)
+        check(seg == segment, f"{name}: default segment {seg}")
+    leaves, st = rem_grad_leaves(state)
+    w = grad_loss_weights(state)
+    zero_adjoint_counts()
+    t0 = time.perf_counter()
+    out = diff.grad_rollout(shape, st, GRAD_STEPS, segment=segment)
+    loss = torch.sum(out.masses.pos * w[0]) + torch.sum(out.masses.vel * w[1])
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_adjoint_counts()
+    print(f"gradient path {name}: {GRAD_STEPS} steps in segments of "
+          f"{segment}: " + ", ".join(f"{k} {v}" for k, v in got.items())
+          + f"; {wall:.3f} s wall (first call)")
+    check(got == want, f"{name}: counts {got}, the segments give {want}")
+    for nm, g in zip(REM_GRAD_NAMES, grads):
+        check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
+              "not finite")
+    # a link at exactly its rest length (a lattice falling as one body)
+    # has d loss / d k = 0; its rest still moves the loss
+    live = state.springs.valid
+    check(float(grads[3].abs().max()) > 0.0
+          and float(grads[4][live].abs().min()) > 0.0,
+          f"{name}: the links' k gradients are all 0, or a link's rest "
+          "gradient is 0")
+    print(f"gradient path {name}: loss {float(loss.detach()):.6e}; |grad|max "
+          + ", ".join(f"{nm} {float(g.abs().max()):.3e}"
+                      for nm, g in zip(REM_GRAD_NAMES, grads)))
+    return got
+
+
+def rem_bench_path(titan, kernels):
+    """Phases z2-z3 at 43^3: bench.py's scene with REM_BENCH_LINKS links
+    through Simulation until it lands (drive: exactly one fused launch per
+    step, 0 tiled launches, 0 eager steps), the route rule (rem_routes),
+    the fused step (200 steps), trace and backward against their plain
+    versions from the landed state under Euler, Verlet and RK2, the
+    gradient path under each (the fused adjoint, segments of SEG), and
+    timing; appends its entries to ``kernels``."""
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.config import Integrator
+    from titan_tpu_torch.ops.adjoint import adjoint_resident_bytes
+    from titan_tpu_torch.ops.step import (
+        chunk_route, remainder_selector_bytes, resident_bytes)
+    name = f"bench 43^3 + {REM_BENCH_LINKS:,} links"
+    sim = bench_scene(titan, 43)
+    add_links(sim, REM_BENCH_LINKS)
+    launches, (shape, state) = drive(sim, name, 3.5)
+    steps = round(3.51 / float(state.dt))
+    print(f"{name}: {shape.n_springs} remainder springs (degree "
+          f"{shape.max_degree}), route {chunk_route(shape)[0]} (selectors "
+          f"{remainder_selector_bytes(shape) / 1e6:.2f} MB, resident_bytes "
+          f"{resident_bytes(shape) / 1e6:.2f} MB), gradient route "
+          f"{diff.grad_route(shape)[0]} (adjoint_resident_bytes "
+          f"{adjoint_resident_bytes(shape) / 2 ** 20:.2f} MiB); "
+          f"{launches} fused launches for {steps} steps")
+    check(shape.has_remainder and shape.n_springs == REM_BENCH_LINKS,
+          f"{name}: {shape.n_springs} remainder springs")
+    check(launches == steps, f"{name}: {launches} fused launches for "
+          f"{steps} steps")
+    check(chunk_route(shape) == ("fused", None)
+          and diff.grad_route(shape) == ("adjoint", None),
+          f"{name}: routes {chunk_route(shape)}, {diff.grad_route(shape)}")
+    rem_routes(shape, name)
+    bad, errs, grad_counts = [], [], {}
+    for integ in (Integrator.EULER, Integrator.VERLET, Integrator.RK2):
+        sh = integrator_shape(shape, integ)
+        label = f"{name} landed, {integ.name}"
+        errs.append(fused_local_vs_plain(sh, state, label, bad, steps=200))
+        check(not bad, "; ".join(bad))
+        grad_counts[integ] = rem_grad_path(label, sh, state, SEG, "adjoint")
+    err = [max(e[i] for e in errs) for i in range(3)]
+    with uncounted():
+        t = time_path(name, shape, state)
+    kernels.append(dict(
+        name=f"fused_step ({name})", route="cuda",
+        source="titan_tpu_torch/csrc/fused_step.cu",
+        replaces="titan_tpu/ops/pallas_step.py:185", launches=launches,
+        max_abs_err=err[0], **t, library_ms=None))
+    tr_t, bwd_t = time_adjoint(name, shape, state)
+    c = grad_counts[Integrator.EULER]
+    for kname, line, n_launch, tm, e in (
+            ("adjoint_trace", 1283, c["adjoint_trace"], tr_t, err[1]),
+            ("adjoint_bwd", 1384, c["adjoint_bwd"], bwd_t, err[2])):
+        kernels.append(dict(
+            name=f"{kname} ({name} gradient path, EULER, {GRAD_STEPS} "
+            "steps)", route="cuda", source="titan_tpu_torch/csrc/adjoint.cu",
+            replaces=f"titan_tpu/ops/adjoint.py:{line}", launches=n_launch,
+            max_abs_err=e, **tm, library_ms=None))
+    return shape, state
+
+
+def rem_stress_path(titan, kernels):
+    """Phase z4 at 100^3: bench.py's 100^3 scene with REM_STRESS_LINKS
+    links through Simulation for 2,000 Euler steps from t = 0
+    (drive_from_rest: the tiled route, per-step launches only, 0 fused
+    launches, 0 eager steps); from its end state under Euler, Verlet and
+    RK2 the tiled step (TRACE_STEPS), replay and B7 against their plain
+    versions (tiled_vs_plain, tiled_adjoint_vs_plain), the launches of
+    CROSS_STEPS steps, the gradient path (the tiled adjoint with B7 only,
+    default segments of 50), and timing; appends the entries to
+    ``kernels``."""
+    import torch
+    from titan_tpu_torch.config import Integrator
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    from titan_tpu_torch.ops import tiled_step
+    from titan_tpu_torch.ops.step import remainder_selector_bytes
+    name = f"stress 100^3 + {REM_STRESS_LINKS} links"
+    t0 = time.perf_counter()
+    sim = bench_scene(titan, STRESS_NX)
+    add_links(sim, REM_STRESS_LINKS)
+
+    def check_shape(shape):
+        check(shape.has_remainder and shape.n_springs == REM_STRESS_LINKS
+              and tiled_step.mega_seg(shape) == 0
+              and not at.mega_adjoint_ok(shape),
+              f"{name}: {shape.n_springs} remainder springs, mega_seg "
+              f"{tiled_step.mega_seg(shape)}")
+        return (f"{shape.n_springs} remainder springs (degree "
+                f"{shape.max_degree}, selectors "
+                f"{remainder_selector_bytes(shape) / 1e6:.1f} MB)")
+    counts, (shape, state) = drive_from_rest(
+        sim, name, time.perf_counter() - t0, check_shape)
+    runs, bad = {}, []
+    for integ in (Integrator.EULER, Integrator.VERLET, Integrator.RK2):
+        sh = integrator_shape(shape, integ)
+        label = f"{name}, {integ.name}"
+        with uncounted():
+            e, _ = tiled_vs_plain(sh, state, TRACE_STEPS, label, bad)
+            ta = tiled_adjoint_vs_plain(sh, state, label, bad)
+        if integ is Integrator.EULER:
+            c = counts
+        else:
+            zero_tiled_counts()
+            tiled_step.tiled_chunk(sh, state, CROSS_STEPS)
+            torch.cuda.synchronize()
+            c = read_tiled_counts()
+            per = 2 if integ is Integrator.RK2 else 1
+            check(c == dict(mega=0, step=per * CROSS_STEPS, fused=0,
+                            eager=0), f"{label}: launches {c}")
+        gc = rem_grad_path(f"{label} gradient path", sh, state, 50,
+                           "tiled_adjoint")
+        runs[integ] = (sh, c, e, ta, gc)
+    check(not bad, "; ".join(bad))
+    src_step = "titan_tpu_torch/csrc/tiled_step.cu"
+    src_adj = "titan_tpu_torch/csrc/tiled_adjoint.cu"
+    for integ, (sh, c, e, ta, gc) in runs.items():
+        rk2 = integ is Integrator.RK2
+        path = name if integ is Integrator.EULER else \
+            f"{name}, {integ.name.lower()}, {CROSS_STEPS} steps"
+        t = time_tiled(f"{name} {integ.name.lower()}", sh, state)
+        kernels.append(dict(
+            name=f"tiled_step_kernel ({path}"
+            + (", rk2a + rk2b)" if rk2 else ")"), route="cuda",
+            source=src_step, replaces="titan_tpu/ops/pallas_tiled.py:1051",
+            launches=c["step"], max_abs_err=e, **t["tiled_step_kernel"],
+            library_ms=None))
+        ta_t = time_tiled_adjoint(f"{name} {integ.name}", sh, state)
+        gpath = f"{name} gradient path, {integ.name}, {GRAD_STEPS} steps"
+        for g, kname, replaces in (
+                ("trace_step",
+                 "tiled_step_kernel<MODE, REM, true> (trace replay",
+                 "titan_tpu/ops/pallas_tiled.py:1305"),
+                ("bwd_step", "bwd_force_kernel + bwd_spring_kernel"
+                 + (" + bwd_mid_kernel" if rk2 else "")
+                 + "<TiledBwdArgs> (per-step backward",
+                 "titan_tpu/ops/adjoint_tiled.py:671")):
+            kernels.append(dict(
+                name=f"{kname}, {gpath})", route="cuda", source=src_adj,
+                replaces=replaces, launches=gc[g],
+                max_abs_err=ta[0] if g.startswith("trace") else ta[1],
+                **({} if g.startswith("trace") else dict(max_rel_err=ta[2])),
+                **ta_t[g], library_ms=None))
+
+
+def remainder_phases(titan, kernels):
+    """Phases z1-z5: the remainder branch of every kernel."""
+    worst = rem_small_scenes(titan)
+    print("remainder small scenes: worst max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    rem_bench_path(titan, kernels)
+    rem_stress_path(titan, kernels)
 
 
 def main() -> int:
@@ -3310,6 +3785,11 @@ def main() -> int:
     # u-y. local constraints: every kernel's branch on small scenes, the
     # 43^3 and 100^3 scenes with slots, their gradient paths, timing
     local_phases(titan, kernels)
+
+    # z1-z5. remainder springs: every kernel's branch on small scenes, the
+    # route rule, 43^3 + 1,024 links and 100^3 + 512 links, their gradient
+    # paths with per-spring gradients, timing
+    remainder_phases(titan, kernels)
 
     # 5. result lines
     smi = subprocess.run(

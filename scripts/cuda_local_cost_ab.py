@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""What the local-constraint branch costs, in checkouts timed in turns:
-the fused and tiled step and backward kernels on scenes without local
-constraints, and the backward kernels on the scenes with them.
+"""What the local-constraint and remainder-spring branches cost, in
+checkouts timed in turns: the fused and tiled step and backward kernels on
+scenes without either, and the kernels on the scenes with them.
 
-    python3 scripts/cuda_local_cost_ab.py ROOT_A ROOT_B [ROOT_C ...]
+    python3 scripts/cuda_local_cost_ab.py [--no-local] ROOT_A ROOT_B ...
 
 Needs one NVIDIA GPU.  Runs the roots in order and then in reverse (A, B,
 B, A for two), each in a process of its own that imports titan_tpu_torch
@@ -17,8 +17,12 @@ over a 16-step trace, per-step launches (B7) and one resident-grid launch
 (B8).  Where the checkout's chip_smoke.py has ``local_scene``, also the
 fused backward on its 43^3 local scene (200 steps from rest, then a
 20-step trace) and B7 and B8 on its 100^3 local scene (a 16-step trace
-from t = 0).  Each run ends with one JSON line.  It checks nothing and
-exits 0 whatever the times are.
+from t = 0; not with --no-local).  Where it has ``add_links``, also its
+43^3 scene with 1,024 links (the fused step over 5,000 steps after 2,000
+from rest, the fused backward over a 20-step trace) and its 100^3 scene
+with 512 links (per-step launches over 200 steps, B7 over a 16-step
+trace).  Each run ends with one JSON line.  It checks nothing and exits 0
+whatever the times are.
 """
 
 import json
@@ -28,7 +32,7 @@ import sys
 REPS = 5
 
 
-def one(root: str) -> None:
+def one(root: str, local: bool) -> None:
     import torch
     sys.path.insert(0, root)
     import chip_smoke as cs
@@ -73,7 +77,35 @@ def one(root: str) -> None:
             lambda k: adjoint_tiled._tiled_bwd_cuda(
                 shape, state, trace, *cts, inv, mega), 16)
     del sim, shape, state, inv, trace, cts
-    if hasattr(cs, "local_scene"):
+    if hasattr(cs, "add_links"):
+        sim = cs.bench_scene(titan)
+        cs.add_links(sim, cs.REM_BENCH_LINKS)
+        sim._T = 0.0
+        sim._marshal()
+        shape = sim._shape
+        state = fused_step.fused_chunk(shape, sim._state, 2000)
+        out["links_fused_43_us_per_step"] = 1e3 * median_ms(
+            lambda k: fused_step.fused_chunk(shape, state, k), 5000)
+        trace = adjoint.trace_run(shape, state, 20)
+        cts = cs.seeded_cotangents(shape.n_masses, trace.device)
+        out["links_fused_bwd_43_us_per_step"] = 1e3 * median_ms(
+            lambda k: adjoint.bwd_run(shape, state, trace, *cts), 20)
+        del sim, shape, state, trace, cts
+        sim = cs.bench_scene(titan, cs.STRESS_NX)
+        cs.add_links(sim, cs.REM_STRESS_LINKS)
+        sim._T = 0.0
+        sim._marshal()
+        shape, state = sim._shape, sim._state
+        out["links_tiled_100_step_us_per_launch"] = 1e3 * median_ms(
+            lambda k: tiled_step._tiled_chunk_cuda(shape, state, k, 0), 200)
+        inv = tiled_step.prep_tiled_inputs(shape, state)
+        trace = adjoint_tiled.tiled_trace_run(shape, state, 16, inv)
+        cts = cs.seeded_cotangents(shape.n_masses, trace.device)
+        out["links_tiled_bwd_100_b7_us_per_step"] = 1e3 * median_ms(
+            lambda k: adjoint_tiled._tiled_bwd_cuda(
+                shape, state, trace, *cts, inv, False), 16)
+        del sim, shape, state, inv, trace, cts
+    if local and hasattr(cs, "local_scene"):
         sim = cs.local_scene(titan, 43)
         sim._T = 0.0
         sim._marshal()
@@ -100,12 +132,15 @@ def one(root: str) -> None:
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--one"]:
-        one(sys.argv[2])
+    args = sys.argv[1:]
+    local = "--no-local" not in args
+    args = [a for a in args if a != "--no-local"]
+    if args[:1] == ["--one"]:
+        one(args[1], local)
         return 0
-    roots = sys.argv[1:]
-    for root in roots + roots[::-1]:
-        out = subprocess.run([sys.executable, __file__, "--one", root],
+    for root in args + args[::-1]:
+        out = subprocess.run([sys.executable, __file__, "--one", root]
+                             + ([] if local else ["--no-local"]),
                              capture_output=True, text=True, timeout=600)
         print(out.stdout[-1500:] + out.stderr[-1500:], flush=True)
     return 0

@@ -5,7 +5,9 @@ JAX package's, and the gradient-safe eager step.
   ``jnp_rolls``, on the inputs tests/test_adjoint.py makes
   (``np.random.RandomState(7)``, sqrt + divide form), for every variant of
   that file inside the port's envelope: f64 at 1e-9 (x64 on) and f32 at
-  that file's 2e-4;
+  that file's 2e-4.  Its remainder springs, staged there as one-hot
+  selectors, cross into the port's staging (``forces.stage_remainder``:
+  an incidence table and per-spring rows) through ``_port_remainder``;
 - ``backward_step`` against ``torch.func.vjp`` of the port's own
   ``forward_step`` in f64;
 - ``trace_run_plain`` replays ``fused_chunk_plain`` bitwise;
@@ -35,12 +37,15 @@ from titan_tpu_torch.ops import fused_step
 
 from test_adjoint import N, ROWS, VARIANTS, _mkP
 from test_torch_step import build_scene, carry_over, jax_grad_ref
+from titan_tpu_torch.builders import build_incidence
 
 # the variants of test_adjoint.py inside the port's envelope: local
-# constraints run in it; remainder springs and magnets do not yet
-PORT_VARIANTS = sorted(
-    v for v, kw in VARIANTS.items()
-    if not any(kw.get(k) for k in ("remainder", "magnets")))
+# constraints and remainder springs run in it; magnets do not yet
+PORT_VARIANTS = sorted(v for v, kw in VARIANTS.items()
+                       if not kw.get("magnets"))
+
+# the per-spring gradient keys of the two packages' backward_step
+REM_BARS = ("k_e", "rest_e", "damp_e", "omega_e", "aratedt_e")
 
 
 @pytest.fixture
@@ -69,13 +74,41 @@ def _inputs(variant, dtype):
     for key, v in P.items():
         if isinstance(v, jax.Array) and v.ndim >= 2:
             Pj[key] = jnp.asarray(cast(v))
-            Pt[key] = torch.from_numpy(cast(v).reshape(v.shape[:-2] + (N,)))
+            if key not in ("rowsel", "lanesel", "remp", "aratedt_e",
+                           "sstop_e"):     # the remainder: _port_remainder
+                Pt[key] = torch.from_numpy(
+                    cast(v).reshape(v.shape[:-2] + (N,)))
     for key in ("planes", "balls"):
         Pj[key] = [tuple(jnp.asarray(cast(c)) for c in pp) for pp in P[key]]
         Pt[key] = [tuple(float(cast(c)) for c in pp) for pp in P[key]]
     Pj["dt"] = jnp.asarray(cast(P["dt"]))
     Pt["dt"] = float(cast(P["dt"]))
+    Pt["rem"] = _port_remainder(P, cast) if P["has_remainder"] else None
     return Pj, Pt, arrays
+
+
+def _port_remainder(P, cast):
+    """test_adjoint.py's remainder springs (one-hot endpoint selectors
+    rowsel / lanesel, rows remp [k, rest, damping, bsign, bomega] and the
+    closed-form aratedt_e / sstop_e) as ``forces.stage_remainder`` stages
+    them: ends, the incidence table, the rows ``REM_ROWS``, rest."""
+    s = P["n_rem"]
+    lr = (np.argmax(np.asarray(P["rowsel"]), axis=1) * 128
+          + np.argmax(np.asarray(P["lanesel"]), axis=1))
+    left, right = lr[:s], lr[s:]
+    inc, sign = build_incidence(left, right, N, s)
+    remp = cast(P["remp"])[:, :, 0]
+    zero = np.zeros(s, remp.dtype)
+    act = P["aratedt_e"] is not None
+    rows = [remp[0], remp[2], remp[3], remp[4], zero, zero,
+            cast(P["aratedt_e"])[:, 0] if act else zero,
+            cast(P["sstop_e"])[:, 0] if act else zero]
+    return dict(inc=torch.from_numpy(inc), sign=torch.from_numpy(
+                    sign.astype(remp.dtype)),
+                ends=torch.from_numpy(np.stack([left, right]).astype(
+                    np.int32)),
+                p=torch.from_numpy(np.stack(rows)),
+                rest=torch.from_numpy(remp[1].copy()))
 
 
 def _flat(a):
@@ -87,6 +120,10 @@ def _bar_names(Pt):
     names += ["damping"] * Pt["has_damping"] + ["drag"] * Pt["has_drag"]
     names += ["omega"] * Pt["has_breathing"]
     names += ["aratedt"] * Pt["has_actuated"]
+    if Pt["rem"] is not None:
+        names += ["k_e", "rest_e"] + ["damp_e"] * Pt["has_damping"]
+        names += ["omega_e"] * Pt["has_breathing"]
+        names += ["aratedt_e"] * Pt["has_actuated"]
     return names
 
 
@@ -118,15 +155,23 @@ def test_backward_step_matches_jax(variant, dtype, x64):
                              Pt, rg, rs, torch.tensor(t_now), s_idx=s_idx)
     tol = (dict(rtol=1e-9, atol=1e-9) if dtype == "float64"
            else dict(rtol=2e-4, atol=2e-4))
+    if dtype == "float64" and Pt["rem"] is not None:
+        # the JAX package's remainder gather and scatter are one-hot
+        # matrix products with preferred_element_type float32
+        # (titan_tpu/ops/pallas_step.py::remainder_gather), so in f64 its
+        # remainder terms carry f32 roundings (measured up to 7.3e-7
+        # relative); the port's own f64 VJP check holds them at 1e-9
+        tol = dict(rtol=1e-5, atol=1e-5)
     for name, a, b in zip(("gpos", "gvel", "gacc_prev"), got[:3], want[:3]):
         np.testing.assert_allclose(a.numpy(), _flat(b).numpy(), err_msg=name,
                                    **tol)
     wb = {k: (jnp.stack(v) if isinstance(v, list) else v)
           for k, v in want[3].items()}
     for name in _bar_names(Pt):
-        np.testing.assert_allclose(_stacked(got[3], name).numpy(),
-                                   _flat(wb[name]).numpy(), err_msg=name,
-                                   **tol)
+        w = (np.asarray(wb[name])[:, 0] if name in REM_BARS
+             else _flat(wb[name]).numpy())
+        np.testing.assert_allclose(_stacked(got[3], name).numpy(), w,
+                                   err_msg=name, **tol)
 
 
 @pytest.mark.parametrize("variant", PORT_VARIANTS)
@@ -143,9 +188,21 @@ def test_backward_step_is_vjp_of_forward_step(variant):
     diffable += ["bomega"] * P["has_breathing"]
     diffable += ["aratedt"] * P["has_actuated"]
 
+    rem = P["rem"]
+    if rem is not None:
+        # the remainder springs' rows and rest: k, damping, bomega,
+        # aratedt (REM_ROWS 0, 1, 3, 6) against k_e, damp_e, omega_e,
+        # aratedt_e
+        diffable += ["rem_p", "rem_rest"]
+        P = {**P, "rem_p": rem["p"], "rem_rest": rem["rest"]}
+
     def fwd(pos, vel, acc, params):
-        return tadj.forward_step(pos, vel, acc, {**P, **params}, rg, rs,
-                                 t_now, s_idx=3.0)
+        Pv = {**P, **params}
+        if rem is not None:
+            Pv["rem"] = {**rem, "p": params["rem_p"],
+                         "rest": params["rem_rest"]}
+        return tadj.forward_step(pos, vel, acc, Pv, rg, rs, t_now,
+                                 s_idx=3.0)
 
     params = {k: P[k] for k in diffable}
     _, vjp = torch.func.vjp(fwd, pos, vel, acc, params)
@@ -157,7 +214,16 @@ def test_backward_step_is_vjp_of_forward_step(variant):
                        ("gacc_prev", gacc, gacc_v)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **tol)
     for name in diffable:
-        bar = {"bomega": "omega"}.get(name, name)
+        if name == "rem_p":
+            rows = [("k_e", 0)] + [("damp_e", 1)] * P["has_damping"]
+            rows += [("omega_e", 3)] * P["has_breathing"]
+            rows += [("aratedt_e", 6)] * P["has_actuated"]
+            for bar, row in rows:
+                np.testing.assert_allclose(
+                    bars[bar].numpy(), gpar_v[name][row].numpy(),
+                    err_msg=bar, **tol)
+            continue
+        bar = {"bomega": "omega", "rem_rest": "rest_e"}.get(name, name)
         np.testing.assert_allclose(_stacked(bars, bar).numpy(),
                                    gpar_v[name].numpy(), err_msg=name, **tol)
 

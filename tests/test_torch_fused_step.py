@@ -32,7 +32,7 @@ from test_torch_step import build_scene, carry_over
 # actuation are each covered.
 FUSED_VARIANTS = ["plain", "friction", "ball", "damping", "breathing",
                   "actuated", "deleted", "drag", "verlet", "rk2",
-                  "clamp_off"]
+                  "clamp_off", "remainder"]
 
 
 @pytest.fixture
@@ -92,8 +92,10 @@ def test_fused_chunk_plain_is_chunk_invariant():
 
 
 @pytest.mark.parametrize("variant,reason", [
-    # magnets enter the fused step through its constant force
-    ("remainder", "remainder"), ("magnets", None),
+    # magnets enter the fused step through its constant force, remainder
+    # springs through the incidence table
+    pytest.param("remainder", None, id="remainder-remainder"),
+    ("magnets", None),
     # the per-mass local-constraint slots run inside the step kernel
     ("local", None), ("float64", "f32-only"),
     ("strict_extern", "persistent_extern_force"),

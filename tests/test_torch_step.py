@@ -198,17 +198,19 @@ def test_eager_step_matches_numpy_oracle(x64):
                                atol=1e-9)
 
 
-def test_chunk_dispatch(caplog):
-    """Lattice scenes take the fused chunk; a scene outside its envelope
-    takes the eager loop, with a warning naming the reason."""
-    shape, state = carry_over(build_scene(titan_tpu, "plain"))
+def test_chunk_dispatch(caplog, x64):
+    """Lattice scenes, remainder springs among them, take the fused chunk;
+    a scene outside both kernels' envelopes (f64) takes the eager loop,
+    with a warning naming the reason."""
     before = tstep.run_eager.steps
-    tstep.build_chunk_fn(shape)(state, 3)
-    assert tstep.run_eager.steps == before
+    for variant in ("plain", "remainder"):
+        shape, state = carry_over(build_scene(titan_tpu, variant))
+        tstep.build_chunk_fn(shape)(state, 3)
+        assert tstep.run_eager.steps == before
 
-    shape, state = carry_over(build_scene(titan_tpu, "remainder"))
+    shape, state = carry_over(build_scene(titan_tpu, "remainder", "float64"))
     with caplog.at_level("WARNING", logger="titan_tpu_torch"):
         out = tstep.build_chunk_fn(shape)(state, 3)
     assert tstep.run_eager.steps == before + 3
-    assert "remainder" in caplog.text
+    assert "f32-only" in caplog.text
     assert float(out.t) == pytest.approx(3e-4)

@@ -226,14 +226,16 @@ def test_chunk_route_on_shapes(caplog):
     local = _lattice_shape(100, cap_cp=1)
     assert tstep.chunk_route(local) == ("tiled", None)
     assert tstep.chunk_route(_lattice_shape(43, cap_cp=1)) == ("fused", None)
-    # a scene neither kernel takes falls back to the eager loop, with a
-    # warning naming both reasons
-    rem = _lattice_shape(100, has_remainder=True)
-    route, reason = tstep.chunk_route(rem)
+    # a scene neither kernel takes (f64) falls back to the eager loop, with
+    # a warning naming both reasons
+    f64 = _lattice_shape(100, has_remainder=True,
+                         config=titan_tpu_torch.SimConfig(device="cpu",
+                                                          dtype="float64"))
+    route, reason = tstep.chunk_route(f64)
     assert route == "eager"
-    assert "remainder" in reason and "B2" in reason
+    assert "f32-only" in reason and "tiled step" in reason
     with caplog.at_level("WARNING", logger="titan_tpu_torch"):
-        tstep.build_chunk_fn(rem)
+        tstep.build_chunk_fn(f64)
     assert "eager" in caplog.text and "tiled step" in caplog.text
 
 

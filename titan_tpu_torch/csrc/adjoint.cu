@@ -107,7 +107,9 @@ struct BwdChunkArgs {
   float* gvc;
   float* pos_h;
   float* vel_h;
+  float* grem;              // [5, S] per-spring gradients (remainder)
   titan::LocalSlots local;  // per-mass local-constraint slots
+  titan::Remainder rem;     // remainder springs (rest_src: the segment's)
 
   // per-slot parameter reads of csrc/adjoint_body.cuh: dense [F, N] planes
   __device__ float k_at(int, int, size_t s) const { return k[s]; }
@@ -118,9 +120,10 @@ struct BwdChunkArgs {
 
 namespace {
 
+template <bool REM>
 __global__ void adjoint_trace_kernel(titan::StepArgs a, int mode,
                                      float* trace) {
-  titan::step_body(a, mode, trace);
+  titan::step_body<REM>(a, mode, trace);
 }
 
 }  // namespace
@@ -134,8 +137,14 @@ extern "C" int titan_adjoint_trace(const ChunkArgs* c, float* trace,
       c, stream,
       [=](int blocks, int threads, cudaStream_t st, const titan::StepArgs& a,
           int mode, int s, bool first) -> cudaError_t {
-        adjoint_trace_kernel<<<blocks, threads, 0, st>>>(
-            a, mode, first ? trace + s * slot : nullptr);
+        float* entry = first ? trace + s * slot : nullptr;
+        if (a.rem.inc != nullptr) {
+          adjoint_trace_kernel<true><<<blocks, threads, 0, st>>>(a, mode,
+                                                                 entry);
+        } else {
+          adjoint_trace_kernel<false><<<blocks, threads, 0, st>>>(a, mode,
+                                                                  entry);
+        }
         return cudaGetLastError();
       });
 }

@@ -12,7 +12,18 @@
 // answers the per-slot parameter reads through four accessors:
 // k_at, rest_at, bsign_at and bomega_at (family fi, left mass l, slot
 // s = fi N + l).  damping, aratedt and sstop are [F, N] planes in both, and
-// both carry the per-mass local-constraint slots as `local`.
+// both carry the per-mass local-constraint slots as `local`, the remainder
+// springs as `rem` and their per-spring gradient accumulator as `grem`.
+//
+// Remainder springs.  The JAX kernel's transpose reuses its one-hot
+// gather and scatter (gather^T = scatter).  Here the force phase recomputes
+// the remainder sum with the closed-form ACTUATED rest, and the spring
+// phase, which reads gf at every mass, walks each mass's incidence row
+// again: a spring's force cotangent is gf at its right end less gf at its
+// left, each endpoint's thread adds its own share of the position and
+// velocity cotangents, and the left endpoint's thread alone adds the
+// spring's gradients to grem, [5, S] (k, rest, damping, omega, rate * dt),
+// summed over the segment's steps: no atomics, a fixed order.
 //
 // Local constraints.  The JAX kernel stashes each slot's inputs (the force
 // entering a contact plane; the force and velocity entering a constraint
@@ -96,8 +107,10 @@ __device__ __forceinline__ Slot slot_eval(const A& a, int fi, int l,
   return q;
 }
 
-// cf + the spring families' force on mass i at (pos, vel).
-template <class A>
+// cf + the spring families' (and with REM the remainder springs') force on
+// mass i at (pos, vel).  REM, here and below, compiles the remainder calls
+// in, for a scene with remainder springs (as step_body's).
+template <class A, bool REM>
 __device__ float3 spring_sum(const A& a, int i, const float* pos,
                              const float* vel, float3 p, float3 v, float t,
                              float cidx) {
@@ -119,6 +132,10 @@ __device__ float3 spring_sum(const A& a, int i, const float* pos,
                                cidx);
       f = add3(f, mul3(q.diff, q.cm * q.inv));
     }
+  }
+  if (REM) {
+    f = add3(f, titan::remainder_forces(a.rem, i, n, pos, vel, t, a.scal[0],
+                                        cidx));
   }
   return f;
 }
@@ -379,7 +396,7 @@ __device__ float3 stages_transpose(const A& a, int i, float3 f0, float3 p,
 }
 
 // RK2: the midpoint (pos_h, vel_h) of mass i at step t from trace[t].
-template <class A>
+template <class A, bool REM>
 __device__ __forceinline__ void bwd_mid_mass(const A& a, const float* pos,
                                              const float* vel, int t, int i) {
   const int n = a.n;
@@ -388,7 +405,8 @@ __device__ __forceinline__ void bwd_mid_mass(const A& a, const float* pos,
   const float3 p = ld3(pos, i, n), v = ld3(vel, i, n);
   float3 v1 = v;    // pass 1's mutated velocity
   const float3 f1 =
-      stages_fwd(a, i, spring_sum(a, i, pos, vel, p, v, tn, cidx), p, v1);
+      stages_fwd(a, i, spring_sum<A, REM>(a, i, pos, vel, p, v, tn, cidx), p,
+                 v1);
   float3 ph, vh;
   titan::rk2_midpoint(p, v1, mul3(f1, a.minv[i]), a.scal[0],
                       a.fixed[i] != 0.f, ph, vh);
@@ -402,7 +420,7 @@ __device__ __forceinline__ void bwd_mid_mass(const A& a, const float* pos,
 // spring sum to gf[3, N] and the partial carry to gpc / gvc, accumulates
 // the cf, minv and drag gradients of mass i, and (pass != 2) writes the
 // carry's non-spring part.
-template <class A>
+template <class A, bool REM>
 __device__ __forceinline__ void bwd_force_mass(const A& a, const float* pos,
                                                const float* vel, int t,
                                                int pass, int i, float* gf_out) {
@@ -411,7 +429,7 @@ __device__ __forceinline__ void bwd_force_mass(const A& a, const float* pos,
   const float tn = eval_time(a, t, call);
   const float cidx = eval_cidx(a, t, call);
   const float3 p = ld3(pos, i, n), v = ld3(vel, i, n);
-  const float3 f0 = spring_sum(a, i, pos, vel, p, v, tn, cidx);
+  const float3 f0 = spring_sum<A, REM>(a, i, pos, vel, p, v, tn, cidx);
   float3 vf = v;    // the velocity the integrator consumed
   const float3 ff = stages_fwd(a, i, f0, p, vf);
   const float dt = a.scal[0];
@@ -478,6 +496,49 @@ __device__ __forceinline__ void bwd_force_mass(const A& a, const float* pos,
   }
 }
 
+// The transpose of one spring (Hooke + axial damping, at the intermediates
+// q and effective rest `rest`, stiffness k, damping dmp, its ends'
+// velocities vl, vr) for the force
+// cotangent fbar on its right endpoint: dbar (the right endpoint's gpos
+// part; the left gets its negative), adiff = abar * diff (the left
+// endpoint's gvel part; the right gets its negative) and the cotangents
+// of k (gk), of the effective rest (grest) and of the damping (gdamp).
+struct SpringBar {
+  float3 dbar, adiff;
+  float gk, grest, gdamp;
+};
+
+__device__ __forceinline__ SpringBar spring_bar(const titan::Spring& q,
+                                                float rest, float k,
+                                                int has_damping, float dmp,
+                                                float3 fbar, float3 vl,
+                                                float3 vr) {
+  SpringBar b;
+  const float cbar = dot3(fbar, q.diff);
+  b.dbar = mul3(fbar, q.cm * q.inv);
+  const float magbar = cbar * q.inv;
+  float invbar = cbar * q.cm;
+  b.gk = magbar * (rest - q.ln);
+  b.grest = magbar * k;
+  float lnbar = -magbar * k;
+  b.adiff = make_float3(0.f, 0.f, 0.f);
+  b.gdamp = 0.f;
+  if (has_damping) {
+    const float axialbar = magbar * dmp;
+    const float abar = axialbar * q.inv;
+    invbar = invbar + axialbar * q.ax;
+    b.gdamp = magbar * (q.ax * q.inv);
+    b.dbar = add3(b.dbar, mul3(sub3(vl, vr), abar));
+    b.adiff = mul3(q.diff, abar);
+  }
+  lnbar = lnbar - (q.ln > 0.f ? invbar * q.inv * q.inv : 0.f);
+  const float d2bar = q.inv > 0.f ? 0.5f * lnbar * q.inv : 0.f;
+  b.dbar = add3(b.dbar, make_float3(2.f * q.diff.x * d2bar,
+                                    2.f * q.diff.y * d2bar,
+                                    2.f * q.diff.z * d2bar));
+  return b;
+}
+
 // The transpose of slot (fi, l) (left endpoint l, right r) for the force
 // cotangent fbar on its right endpoint: returns dbar (the right
 // endpoint's gpos part; the left gets its negative) and abar * diff (the
@@ -490,47 +551,82 @@ __device__ __forceinline__ void slot_transpose(const A& a, int fi, int l,
                                                bool own, float3& dbar,
                                                float3& adiff) {
   const size_t s = slot_of(fi, l, a.n);
-  const float k = a.k_at(fi, l, s);
-  const float cbar = dot3(fbar, q.diff);
-  dbar = mul3(fbar, q.cm * q.inv);
-  const float magbar = cbar * q.inv;
-  float invbar = cbar * q.cm;
-  const float gk = magbar * (q.rest - q.ln);
-  const float resteffbar = magbar * k;
-  float lnbar = -magbar * k;
-  adiff = make_float3(0.f, 0.f, 0.f);
-  float gdamp = 0.f;
-  if (a.has_damping) {
-    const float axialbar = magbar * a.damping[s];
-    const float abar = axialbar * q.inv;
-    invbar = invbar + axialbar * q.ax;
-    gdamp = magbar * (q.ax * q.inv);
-    dbar = add3(dbar, mul3(sub3(vl, vr), abar));
-    adiff = mul3(q.diff, abar);
-  }
-  lnbar = lnbar - (q.ln > 0.f ? invbar * q.inv * q.inv : 0.f);
-  const float d2bar = q.inv > 0.f ? 0.5f * lnbar * q.inv : 0.f;
-  dbar = add3(dbar, make_float3(2.f * q.diff.x * d2bar, 2.f * q.diff.y * d2bar,
-                                2.f * q.diff.z * d2bar));
+  const SpringBar b = spring_bar(q, q.rest, a.k_at(fi, l, s), a.has_damping,
+                                 a.has_damping ? a.damping[s] : 0.f, fbar,
+                                 vl, vr);
+  dbar = b.dbar;
+  adiff = b.adiff;
   if (own) {
-    float restbbar = resteffbar;
+    float restbbar = b.grest;
     if (a.has_breathing) {  // rest_eff = rest_b * scale
-      restbbar = resteffbar * q.scale;
-      const float scalebar = resteffbar * q.rest_b;
+      restbbar = b.grest * q.scale;
+      const float scalebar = b.grest * q.rest_b;
       a.gomega[s] += scalebar * a.bsign_at(fi, l, s)
                      * cosf(a.bomega_at(fi, l, s) * t) * t;
     }
-    a.gk[s] += gk;
+    a.gk[s] += b.gk;
     a.grest[s] += restbbar;
-    if (a.has_damping) a.gdamp[s] += gdamp;
+    if (a.has_damping) a.gdamp[s] += b.gdamp;
     if (a.has_actuated) a.garate[s] += restbbar * q.advc;
   }
+}
+
+// What remainder_transpose adds to mass i's position and velocity
+// cotangents.
+struct RemBar {
+  float3 gp, gv;
+};
+
+// Transpose of the remainder springs' sum on mass i at (pos, vel), time t,
+// closed-form rest after cidx calls, for the force cotangent gf [3, N] of
+// every mass: each incident spring's cotangent is gf at its right end less
+// gf at its left; mass i takes sign x its position part and -sign x its
+// velocity part, in row order from zero, and, as the spring's left
+// endpoint, adds its gradients to grem [5, S] (k, rest, damping, omega,
+// rate * dt).  Inlined, as remainder_forces: only the REM instantiation
+// of the backward kernels calls it.
+__device__ __forceinline__ RemBar remainder_transpose(
+    const titan::Remainder& r, int i, int n, const float* pos,
+    const float* vel, const float* gf, float t, float cidx, float* grem) {
+  const size_t ns = static_cast<size_t>(r.s);
+  RemBar out;
+  out.gp = make_float3(0.f, 0.f, 0.f);
+  out.gv = out.gp;
+  for (int q = 0; q < r.d; ++q) {
+    const size_t at = static_cast<size_t>(i) * r.d + q;
+    const int e = r.inc[at];
+    if (e >= r.s) continue;
+    const float sg = r.sign[at];
+    const titan::RemSpring x =
+        titan::rem_spring(r, e, n, pos, vel, t, 0.f, cidx, false);
+    const SpringBar b = spring_bar(
+        x, x.rest, titan::rem_row(r, titan::kRemK, e), r.has_damping,
+        r.has_damping ? titan::rem_row(r, titan::kRemDamping, e) : 0.f,
+        sub3(ld3(gf, x.r, n), ld3(gf, x.l, n)), x.vl, x.vr);
+    out.gp = add3(out.gp, mul3(b.dbar, sg));
+    out.gv = add3(out.gv, mul3(b.adiff, -sg));
+    if (sg < 0.f) {
+      float restbbar = b.grest;
+      if (r.has_breathing) {
+        restbbar = b.grest * x.scale;
+        grem[3 * ns + e] += b.grest * x.rest_b
+                            * titan::rem_row(r, titan::kRemBsign, e)
+                            * cosf(titan::rem_row(r, titan::kRemBomega, e) * t)
+                            * t;
+      }
+      grem[e] += b.gk;
+      grem[ns + e] += restbbar;
+      if (r.has_damping) grem[2 * ns + e] += b.gdamp;
+      if (r.has_actuated) grem[4 * ns + e] += restbbar * x.advc;
+    }
+  }
+  return out;
 }
 
 // Phase B of mass i at (pos, vel): the spring families' transpose, with
 // both incident springs of each family gathered and gf read from the
 // phase-A output `gf_in`, then the carry.
-template <class A>
+template <class A, bool REM>
 __device__ __forceinline__ void bwd_spring_mass(const A& a, const float* pos,
                                                 const float* vel, int t,
                                                 int pass, int i,
@@ -566,6 +662,12 @@ __device__ __forceinline__ void bwd_spring_mass(const A& a, const float* pos,
       gp = add3(gp, dbar);
     }
   }
+  if (REM) {
+    const RemBar rb = remainder_transpose(a.rem, i, n, pos, vel, gf_in, tn,
+                                          cidx, a.grem);
+    gp = add3(gp, rb.gp);
+    gv = add3(gv, rb.gv);
+  }
   if (pass == 2) {
     st3(a.gpc, i, n, gp);
     st3(a.gvc, i, n, gv);
@@ -576,23 +678,23 @@ __device__ __forceinline__ void bwd_spring_mass(const A& a, const float* pos,
 }
 
 // One launch of a phase, one thread per mass.
-template <class A>
+template <class A, bool REM>
 __global__ void bwd_mid_kernel(A a, const float* pos, const float* vel,
                                int t) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n) bwd_mid_mass(a, pos, vel, t, i);
+  if (i < a.n) bwd_mid_mass<A, REM>(a, pos, vel, t, i);
 }
-template <class A>
+template <class A, bool REM>
 __global__ void bwd_force_kernel(A a, const float* pos, const float* vel,
                                  int t, int pass) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n) bwd_force_mass(a, pos, vel, t, pass, i, a.gf);
+  if (i < a.n) bwd_force_mass<A, REM>(a, pos, vel, t, pass, i, a.gf);
 }
-template <class A>
+template <class A, bool REM>
 __global__ void bwd_spring_kernel(A a, const float* pos, const float* vel,
                                   int t, int pass) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n) bwd_spring_mass(a, pos, vel, t, pass, i, a.gf);
+  if (i < a.n) bwd_spring_mass<A, REM>(a, pos, vel, t, pass, i, a.gf);
 }
 
 // Set the carry to the incoming cotangents and zero every gradient
@@ -621,6 +723,45 @@ int bwd_prologue(const A* c, cudaStream_t st) {
       (err = cudaMemsetAsync(c->gdrag, 0, n * sizeof(float), st))) {
     return (int)err;
   }
+  if (c->grem != nullptr &&
+      (err = cudaMemsetAsync(c->grem, 0,
+                             5 * static_cast<size_t>(c->rem.s) * sizeof(float),
+                             st))) {
+    return (int)err;
+  }
+  return 0;
+}
+
+// The reverse sweep's launches on `st`, two per step (five for RK2), with
+// or without the remainder calls.  Returns 0 or the first CUDA error.
+template <class A, bool REM>
+int enqueue_sweep(const A* c, cudaStream_t st) {
+  const size_t n = static_cast<size_t>(c->n);
+  const A a = *c;
+  const int threads = 256;
+  const int blocks = (c->n + threads - 1) / threads;
+  for (int t = c->seg - 1; t >= 0; --t) {
+    const float* pos = c->trace + static_cast<size_t>(t) * 6 * n;
+    const float* vel = pos + 3 * n;
+    if (c->integrator == 2) {
+      bwd_mid_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t);
+      bwd_force_kernel<A, REM><<<blocks, threads, 0, st>>>(a, c->pos_h,
+                                                           c->vel_h, t, 2);
+      bwd_spring_kernel<A, REM><<<blocks, threads, 0, st>>>(a, c->pos_h,
+                                                            c->vel_h, t, 2);
+      bwd_force_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t,
+                                                           1);
+      bwd_spring_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t,
+                                                            1);
+    } else {
+      bwd_force_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t,
+                                                           0);
+      bwd_spring_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t,
+                                                            0);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   return 0;
 }
 
@@ -633,28 +774,8 @@ int enqueue_bwd(const A* c, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc = bwd_prologue(c, st);
   if (rc != 0) return rc;
-  const size_t n = static_cast<size_t>(c->n);
-  const A a = *c;
-  const int threads = 256;
-  const int blocks = (c->n + threads - 1) / threads;
-  for (int t = c->seg - 1; t >= 0; --t) {
-    const float* pos = c->trace + static_cast<size_t>(t) * 6 * n;
-    const float* vel = pos + 3 * n;
-    if (c->integrator == 2) {
-      bwd_mid_kernel<A><<<blocks, threads, 0, st>>>(a, pos, vel, t);
-      bwd_force_kernel<A><<<blocks, threads, 0, st>>>(a, c->pos_h, c->vel_h,
-                                                      t, 2);
-      bwd_spring_kernel<A><<<blocks, threads, 0, st>>>(a, c->pos_h, c->vel_h,
-                                                       t, 2);
-      bwd_force_kernel<A><<<blocks, threads, 0, st>>>(a, pos, vel, t, 1);
-      bwd_spring_kernel<A><<<blocks, threads, 0, st>>>(a, pos, vel, t, 1);
-    } else {
-      bwd_force_kernel<A><<<blocks, threads, 0, st>>>(a, pos, vel, t, 0);
-      bwd_spring_kernel<A><<<blocks, threads, 0, st>>>(a, pos, vel, t, 0);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return 0;
+  return c->rem.inc != nullptr ? enqueue_sweep<A, true>(c, st)
+                               : enqueue_sweep<A, false>(c, st);
 }
 
 }  // namespace titan_adj

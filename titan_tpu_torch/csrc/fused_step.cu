@@ -3,15 +3,15 @@
 // Replaces the TPU kernel titan_tpu/ops/pallas_step.py::_build_kernel
 // (launched by build_pallas_chunk): n whole steps of stencil-family springs
 // (Hooke + axial damping, breathing, ACTUATED_* rest), the constant force
-// (gravity + persistent external force), global contact planes with static
-// and kinetic friction, balls, the per-mass local constraints (contact
-// planes, balls, constraint planes, directions; pallas_step.py:494-571),
-// quadratic drag and the Euler (clamp on/off), Verlet or RK2 update, with
-// fixed and invalid masses frozen.  The plain PyTorch version of the same
-// function, which the card's results are held against, is
-// titan_tpu_torch/ops/fused_step.py::fused_chunk_plain.  Remainder springs
-// are not in this kernel yet (fused_reject_reason sends such scenes to the
-// eager step).  Magnets enter
+// (gravity + persistent external force), the remainder springs (springs in
+// no stencil family, pallas_step.py:348-404), global contact planes with
+// static and kinetic friction, balls, the per-mass local constraints
+// (contact planes, balls, constraint planes, directions;
+// pallas_step.py:494-571), quadratic drag and the Euler (clamp on/off),
+// Verlet or RK2 update, with fixed and invalid masses frozen.  The plain
+// PyTorch version of the same function, which the card's results are held
+// against, is titan_tpu_torch/ops/fused_step.py::fused_chunk_plain.
+// Magnets enter
 // through the constant force: for a magnet scene the caller computes the
 // field of each force pass (csrc/magnets.cu or csrc/magnets_grid.cu) and
 // launches that pass alone through titan_fused_pass with cforce =
@@ -21,7 +21,14 @@
 // thread evaluates, per family, its left spring (slot (f, i), partner i + d)
 // and its right spring (slot (f, i - d)), so every spring is evaluated by
 // both endpoints: no atomics, and the sum order is fixed (const force, then
-// per family "- left + right", as the TPU kernel's f_acc - f + roll(f, d)).
+// per family "- left + right", as the TPU kernel's f_acc - f + roll(f, d),
+// then the remainder sum).  Remainder springs work the same way through
+// the incidence table: a thread walks its mass's row and evaluates each of
+// its springs (step_body.cuh::remainder_forces, compiled into the kernel's
+// REM instantiation only), where the TPU gathers and scatters through
+// one-hot selectors on its matrix unit; they cost each thread D more
+// gathers of 2 endpoints (a hub of high degree pads every row of the table
+// to its degree).
 // An index outside [0, N) is a masked slot (the TPU roll's wrap-around lanes
 // carry k = 0); d may be negative.  One launch per step (two for RK2: the
 // corrector reads the neighbours' half-step state), all issued on the
@@ -29,7 +36,8 @@
 // output and scratch buffers so that the last step lands in the outputs and
 // the inputs are never written; actuated rest ping-pongs too, because the
 // right-endpoint thread must read the pre-step rest of a slot whose left
-// thread writes the new one.
+// thread writes the new one.  So does the remainder rest, in two [S]
+// buffers that start equal (a padding spring has no owner thread).
 //
 // Bound.  As one launch per step this design reads, each step, pos, vel,
 // const_f (3 floats each), minv, fixed (1 each) and k, rest (13 each at
@@ -69,8 +77,21 @@
 
 namespace {
 
+template <bool REM>
 __global__ void fused_step_kernel(titan::StepArgs a, int mode) {
-  titan::step_body(a, mode, nullptr);
+  titan::step_body<REM>(a, mode, nullptr);
+}
+
+// One launch, the REM instantiation where the scene has remainder
+// springs; returns cudaGetLastError().
+cudaError_t launch(int blocks, int threads, cudaStream_t st,
+                   const titan::StepArgs& a, int mode) {
+  if (a.rem.inc != nullptr) {
+    fused_step_kernel<true><<<blocks, threads, 0, st>>>(a, mode);
+  } else {
+    fused_step_kernel<false><<<blocks, threads, 0, st>>>(a, mode);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -82,8 +103,7 @@ extern "C" int titan_fused_chunk(const ChunkArgs* c, void* stream) {
       c, stream,
       [](int blocks, int threads, cudaStream_t st, const titan::StepArgs& a,
          int mode, int, bool) -> cudaError_t {
-        fused_step_kernel<<<blocks, threads, 0, st>>>(a, mode);
-        return cudaGetLastError();
+        return launch(blocks, threads, st, a, mode);
       });
 }
 
@@ -104,6 +124,8 @@ struct PassArgs {
   float* acc_dst;   // null for the RK2 predictor
   float* rest_dst;  // [F, N] (actuated only)
   float* vel_v1;    // RK2 with local constraints: pass 1's mutated velocity
+  const float* rem_src;  // [S] remainder rest this pass reads
+  float* rem_dst;        // [S] and writes (actuated only)
 };
 
 // Enqueue one launch of the step kernel: pass `p` of a chunk whose
@@ -125,6 +147,8 @@ extern "C" int titan_fused_pass(const ChunkArgs* c, const PassArgs* p,
   a.acc0 = p->acc0;
   a.rest_src = p->rest_src;
   a.rest_dst = c->has_actuated ? p->rest_dst : nullptr;
+  a.rem.rest_src = p->rem_src;
+  a.rem.rest_dst = c->has_actuated ? p->rem_dst : nullptr;
   a.pos_dst = p->pos_dst;
   a.vel_dst = p->vel_dst;
   a.acc_dst = p->acc_dst;
@@ -132,7 +156,6 @@ extern "C" int titan_fused_pass(const ChunkArgs* c, const PassArgs* p,
   a.v1_src = p->mode == titan::kRk2Full ? p->vel_v1 : nullptr;
   const int threads = 256;
   const int blocks = (c->n + threads - 1) / threads;
-  fused_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, p->mode);
-  return (int)cudaGetLastError();
+  return (int)launch(blocks, threads, static_cast<cudaStream_t>(stream), a,
+                     p->mode);
 }

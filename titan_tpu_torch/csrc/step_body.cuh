@@ -32,6 +32,33 @@ struct LocalSlots {
   const float* lc;  // [L, N], null when every capacity is 0
 };
 
+// The remainder springs (springs in no stencil family), as
+// titan_tpu_torch/ops/forces.py::stage_remainder stages them: the incidence
+// table (mass i's entries inc[i D + q], spring S = none, sign +1 at the
+// right endpoint and -1 at the left), each spring's ends and its rows p
+// [8, S] (REM_ROWS: k, damping, breathing sign and frequency, signed
+// actuation rate and bound, rate * dt and the stop count of the closed
+// form).  ACTUATED rest: the fused step advances it once per force pass
+// from rest_src and writes it to rest_dst; with `closed` (the tiled step
+// and the adjoints) it is rest_src + min(c, stop) rate dt after c force
+// calls and nothing is written.  inc is null in a scene without them.
+struct Remainder {
+  int d, s;  // entries per mass (D), padded spring count (S)
+  int has_damping, has_breathing, has_actuated, closed;
+  const int* inc;     // [N, D]
+  const float* sign;  // [N, D]
+  const int* ends;    // [2, S] left, right
+  const float* p;     // [8, S]
+  const float* rest_src;  // [S]
+  float* rest_dst;        // [S]
+};
+enum RemRow { kRemK, kRemDamping, kRemBsign, kRemBomega, kRemArate,
+              kRemAbound, kRemAratedt, kRemSstop };
+
+__device__ __forceinline__ float rem_row(const Remainder& r, int row, int e) {
+  return r.p[static_cast<size_t>(row) * static_cast<size_t>(r.s) + e];
+}
+
 // One launch = one force evaluation + one update of every mass.
 struct StepArgs {
   int n, nf, n_planes, n_balls;
@@ -54,6 +81,7 @@ struct StepArgs {
   const float* abound;   // [F, N] l_max / l_min
   const float* drag;     // [N]
   LocalSlots local;
+  Remainder rem;          // remainder springs (rest buffers set per pass)
   const float* rest_src;  // [F, N]
   float* rest_dst;        // [F, N] (actuated only)
   const float* fpos;  // [3, N] state the forces are evaluated at
@@ -328,9 +356,85 @@ __device__ __forceinline__ float3 spring_force(const StepArgs& a, int s,
   return mul3(q.diff, q.cm * q.inv);
 }
 
+// Remainder spring e at (pos, vel), time t: its ends, their velocities
+// and the forward's intermediates (its force on the right end is
+// diff * (cm * inv)).  ACTUATED rest in the closed form after cidx force
+// calls, or advanced once from rest_src, and then, where `own`, written to
+// rest_dst.
+struct RemSpring : Spring {
+  int l, r;
+  float3 vl, vr;
+  float rest, rest_b, scale, advc;
+};
+
+__device__ __forceinline__ RemSpring rem_spring(const Remainder& r, int e,
+                                                int n, const float* pos,
+                                                const float* vel, float t,
+                                                float dt, float cidx,
+                                                bool own) {
+  const float3 zero = make_float3(0.f, 0.f, 0.f);
+  RemSpring q;
+  q.l = r.ends[e];
+  q.r = r.ends[r.s + e];
+  q.vl = r.has_damping ? ld3(vel, q.l, n) : zero;
+  q.vr = r.has_damping ? ld3(vel, q.r, n) : zero;
+  q.rest_b = r.rest_src[e];
+  q.advc = 0.f;
+  if (r.has_actuated && r.closed) {
+    q.advc = fminf(cidx, rem_row(r, kRemSstop, e));
+    q.rest_b = q.rest_b + q.advc * rem_row(r, kRemAratedt, e);
+  } else if (r.has_actuated) {
+    const float ar = rem_row(r, kRemArate, e), ab = rem_row(r, kRemAbound, e);
+    const bool adv =
+        (ar > 0.f && q.rest_b < ab) || (ar < 0.f && q.rest_b > ab);
+    q.rest_b = adv ? q.rest_b + ar * dt : q.rest_b;
+    if (own) r.rest_dst[e] = q.rest_b;
+  }
+  q.scale = 1.f;
+  q.rest = q.rest_b;
+  if (r.has_breathing) {
+    q.scale = breath_scale(rem_row(r, kRemBsign, e), rem_row(r, kRemBomega, e),
+                           t);
+    q.rest = q.rest_b * q.scale;
+  }
+  static_cast<Spring&>(q) = spring_eval(
+      rem_row(r, kRemK, e), q.rest, r.has_damping,
+      r.has_damping ? rem_row(r, kRemDamping, e) : 0.f, ld3(pos, q.l, n),
+      q.vl, ld3(pos, q.r, n), q.vr);
+  return q;
+}
+
+// The remainder springs' force on mass i at (pos, vel), time t: mass i
+// walks its row of the incidence table and evaluates each of its springs
+// itself, from the spring's left and right ends in that order (so that
+// both endpoints compute the same force), adding sign x force in row order
+// from zero.  The thread of a spring's left endpoint writes its advanced
+// rest.  Inlined: only the kernels' REM instantiation calls it, so scenes
+// without remainder springs carry none of its code.  Plain version:
+// titan_tpu_torch/ops/forces.py::remainder_sum.
+__device__ __forceinline__ float3 remainder_forces(const Remainder& r, int i,
+                                                   int n, const float* pos,
+                                                   const float* vel, float t,
+                                                   float dt, float cidx) {
+  float3 acc = make_float3(0.f, 0.f, 0.f);
+  for (int q = 0; q < r.d; ++q) {
+    const size_t at = static_cast<size_t>(i) * r.d + q;
+    const int e = r.inc[at];
+    if (e >= r.s) continue;
+    const float sg = r.sign[at];
+    const RemSpring x = rem_spring(r, e, n, pos, vel, t, dt, cidx, sg < 0.f);
+    acc = add3(acc, mul3(mul3(x.diff, x.cm * x.inv), sg));
+  }
+  return acc;
+}
+
 // One force evaluation and update of mass i.  With a non-null `trace`
 // (the adjoint's replay), the state the forces are evaluated at is also
-// written there as [pos (3 N); vel (3 N)].
+// written there as [pos (3 N); vel (3 N)].  REM compiles the remainder
+// call in, for a scene with remainder springs: out of line behind a null
+// check, its call site alone cost the other scenes' steps 2.4% (PERF.md
+// section 6).
+template <bool REM>
 __device__ __forceinline__ void step_body(const StepArgs& a, int mode,
                                           float* trace) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -376,6 +480,9 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int mode,
                                      v, t);
       f = make_float3(f.x + fs.x, f.y + fs.y, f.z + fs.z);
     }
+  }
+  if (REM) {
+    f = add3(f, remainder_forces(a.rem, i, n, a.fpos, a.fvel, t, dt, 0.f));
   }
 
   // from here on v is the velocity the local constraints leave
@@ -467,7 +574,10 @@ struct ChunkArgs {
   float* vel_v1;  // RK2 with local constraints: pass 1's mutated velocity
   float* rest_out;
   float* rest_tmp;
+  float* rem_out;  // remainder rest (actuated): where the last pass lands
+  float* rem_tmp;
   titan::LocalSlots local;
+  titan::Remainder rem;  // rem.rest_src: the chunk's input remainder rest
 };
 
 namespace titan {
@@ -502,6 +612,7 @@ inline StepArgs step_args(const ChunkArgs* c) {
   a.abound = c->abound;
   a.drag = c->drag;
   a.local = c->local;
+  a.rem = c->rem;
   return a;
 }
 
@@ -526,18 +637,24 @@ int enqueue_chunk(const ChunkArgs* c, void* stream, Launch launch) {
   const float* vel = c->vel_in;
   const float* acc = c->acc_in;
   const float* rest = c->rest_in;
+  const float* rem = c->rem.rest_src;
   int e = 0;  // force evaluations so far (rest advances once per evaluation)
-  // evaluation e writes rest into the buffer that makes the last one land
-  // in rest_out
-  auto rest_dst = [&](int ev) -> float* {
-    if (!c->has_actuated) return nullptr;
-    return ((evals - 1 - ev) % 2 == 0) ? c->rest_out : c->rest_tmp;
-  };
+  // evaluation e writes rest (and the remainder rest) into the buffer that
+  // makes the last one land in rest_out (rem_out)
+  auto to_out = [&](int ev) { return (evals - 1 - ev) % 2 == 0; };
   auto eval = [&](int mode, int s, bool first) -> cudaError_t {
+    const bool out = to_out(e++);
     a.rest_src = rest;
-    a.rest_dst = rest_dst(e++);
+    a.rest_dst = !c->has_actuated ? nullptr
+                                  : (out ? c->rest_out : c->rest_tmp);
+    a.rem.rest_src = rem;
+    a.rem.rest_dst = !c->has_actuated ? nullptr
+                                      : (out ? c->rem_out : c->rem_tmp);
     const cudaError_t r = launch(blocks, threads, st, a, mode, s, first);
-    if (c->has_actuated) rest = a.rest_dst;
+    if (c->has_actuated) {
+      rest = a.rest_dst;
+      rem = a.rem.rest_dst;
+    }
     return r;
   };
 

@@ -131,7 +131,9 @@ struct TiledBwdArgs {
   float* gvc;
   float* pos_h;
   float* vel_h;
+  float* grem;              // [5, S] per-spring gradients (remainder)
   titan::LocalSlots local;  // per-mass local-constraint slots
+  titan::Remainder rem;     // remainder springs (rest_src: the segment's)
 
   // per-slot parameter reads of csrc/adjoint_body.cuh, as
   // csrc/tiled_body.cuh::tiled_spring reads them
@@ -164,11 +166,13 @@ __global__ void tiled_megabwd_kernel(TiledBwdArgs a, float* gf0,
     const float* vel = pos + 3 * n;
     float* gf = (t & 1) ? gf1 : gf0;
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
-      titan_adj::bwd_force_mass(a, pos, vel, t, 0, i, gf);
+      titan_adj::bwd_force_mass<TiledBwdArgs, false>(a, pos, vel, t, 0, i,
+                                                     gf);
     }
     grid.sync();
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
-      titan_adj::bwd_spring_mass(a, pos, vel, t, 0, i, gf);
+      titan_adj::bwd_spring_mass<TiledBwdArgs, false>(a, pos, vel, t, 0, i,
+                                                      gf);
     }
   }
 }

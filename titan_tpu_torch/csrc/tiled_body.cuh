@@ -58,6 +58,8 @@ struct TiledArgs {
   const float* fixed;    // [N] 1 = frozen (fixed or invalid), else 0
   const float* drag;     // [N] (has_drag only)
   titan::LocalSlots local;  // per-mass local-constraint slots
+  titan::Remainder rem;     // remainder springs (closed-form rest; read
+                            // by the per-step kernels' REM instantiation)
 };
 
 // The state one force evaluation reads and its update writes.
@@ -121,11 +123,21 @@ __device__ __forceinline__ float3 tiled_spring(const TiledArgs& a, int fi,
 
 // The force on mass i at state (pos, vel): per family "- left + right"
 // from zero (the TPU's fw - f + roll_scatter(f, d)), then the constant
-// force (f_acc = fw + const_f, pallas_tiled.py:740), then the global
-// planes, balls, the per-mass local constraints and drag (mass_tail :748).
+// force (f_acc = fw + const_f, pallas_tiled.py:740) with the remainder
+// springs' sum added to it (const_f + remainder: the TPU feeds them in as
+// per-step glue through its constant-force input, pallas_tiled.py:1609-
+// 1640; here they run in the kernel, step_body.cuh::remainder_forces, with
+// the closed-form ACTUATED rest of the families),
+// then the global planes, balls, the per-mass local constraints and drag
+// (mass_tail :748).  The TPU glue zeroes the remainder on fixed masses;
+// a frozen mass's force reaches no output here, so it is left as it is.
 // `vm` receives the velocity the local constraints leave.  A slot whose
 // partner lies outside [0, N) is skipped: the TPU evaluates it with k = 0
-// and adds a zero.
+// and adds a zero.  REM compiles the remainder call in (the per-step
+// kernels of a scene with remainder springs): out of line behind a null
+// check, its call site cost the resident grids and the other scenes'
+// launches 13-15% (PERF.md section 6).
+template <bool REM>
 __device__ __forceinline__ float3 tiled_force(const TiledArgs& a, int i,
                                               const float* pos,
                                               const float* vel, float t,
@@ -150,7 +162,12 @@ __device__ __forceinline__ float3 tiled_force(const TiledArgs& a, int i,
                                  adv_base));
     }
   }
-  const float3 f = add3(fw, ld3(a.cforce, i, n));
+  float3 cf = ld3(a.cforce, i, n);
+  if (REM) {
+    cf = add3(cf, titan::remainder_forces(a.rem, i, n, pos, vel, t,
+                                          a.scal[0], adv_base + 1.f));
+  }
+  const float3 f = add3(fw, cf);
   vm = v;
   return titan::contact_and_drag(a.n_planes, a.planes, a.n_balls, a.balls,
                                  a.local, a.normal_coeff, a.has_drag, a.drag,
@@ -169,7 +186,7 @@ __device__ __forceinline__ float3 blend3(float3 x, float keep, float3 y,
 // + 1 under RK2, whose rest advances once per force pass).  The update
 // reads the velocity the local constraints leave (vm); frozen masses keep
 // the pass's input velocity, except at the RK2 midpoint, which keeps vm.
-template <int MODE>
+template <int MODE, bool REM = false>
 __device__ __forceinline__ void tiled_mass(const TiledArgs& a,
                                            const StepIO& io, int i) {
   const int n = a.n;
@@ -184,7 +201,7 @@ __device__ __forceinline__ void tiled_mass(const TiledArgs& a,
     adv_base = MODE == kRk2a ? __fmul_rn(2.f, fstep) : fstep;
   }
   float3 vm;
-  const float3 f = tiled_force(a, i, io.pos, io.vel, t, adv_base, vm);
+  const float3 f = tiled_force<REM>(a, i, io.pos, io.vel, t, adv_base, vm);
   const float3 p = ld3(io.pos, i, n);
   const float3 v = ld3(io.vel, i, n);
   const float frozen = a.fixed[i];

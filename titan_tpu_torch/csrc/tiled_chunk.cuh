@@ -43,13 +43,29 @@ __device__ __forceinline__ void trace_store(float* entry, const float* pos,
 }
 
 // One launch per step (two for RK2).  With TRACE, the step's first launch
-// (single or rk2a) writes its input to `entry`.
-template <int MODE, bool TRACE>
+// (single or rk2a) writes its input to `entry`.  REM: with the remainder
+// springs (a scene with them takes these launches only).
+template <int MODE, bool REM, bool TRACE>
 __global__ void tiled_step_kernel(TiledArgs a, StepIO io, float* entry) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   if (TRACE && MODE != kRk2b) trace_store(entry, io.pos, io.vel, i, a.n);
-  tiled_mass<MODE>(a, io, i);
+  tiled_mass<MODE, REM>(a, io, i);
+}
+
+// Launch one per-step kernel, the REM instantiation where the scene has
+// remainder springs; returns cudaGetLastError().
+template <int MODE, bool TRACE>
+cudaError_t launch_step(int blocks, cudaStream_t st, const TiledArgs& a,
+                        const StepIO& io, float* entry) {
+  if (a.rem.inc != nullptr) {
+    tiled_step_kernel<MODE, true, TRACE><<<blocks, kThreads, 0, st>>>(
+        a, io, entry);
+  } else {
+    tiled_step_kernel<MODE, false, TRACE><<<blocks, kThreads, 0, st>>>(
+        a, io, entry);
+  }
+  return cudaGetLastError();
 }
 
 // k_seg Euler or Verlet steps, steps step0 .. step0 + k_seg - 1 of the
@@ -241,8 +257,8 @@ int enqueue_tiled_chunk(const TiledChunk* c, float* trace, void* stream) {
       io.pos_dst = c->pos_half;
       io.vel_dst = c->vel_half;
       io.v1_dst = c->vel_v1;
-      tiled_step_kernel<kRk2a, TRACE><<<blocks, kThreads, 0, st>>>(a, io, tr);
-      if ((err = cudaGetLastError()) != cudaSuccess) {
+      if ((err = launch_step<kRk2a, TRACE>(blocks, st, a, io, tr)) !=
+          cudaSuccess) {
         return static_cast<int>(err);
       }
       io.pos = c->pos_half;
@@ -256,14 +272,13 @@ int enqueue_tiled_chunk(const TiledChunk* c, float* trace, void* stream) {
     io.vel_dst = dst.vel;
     io.acc_dst = dst.acc;
     if (rk2) {
-      tiled_step_kernel<kRk2b, TRACE><<<blocks, kThreads, 0, st>>>(a, io, tr);
+      err = launch_step<kRk2b, TRACE>(blocks, st, a, io, tr);
     } else if (c->integrator == 1) {
-      tiled_step_kernel<kVerlet, TRACE><<<blocks, kThreads, 0, st>>>(a, io,
-                                                                     tr);
+      err = launch_step<kVerlet, TRACE>(blocks, st, a, io, tr);
     } else {
-      tiled_step_kernel<kEuler, TRACE><<<blocks, kThreads, 0, st>>>(a, io, tr);
+      err = launch_step<kEuler, TRACE>(blocks, st, a, io, tr);
     }
-    if ((err = cudaGetLastError()) != cudaSuccess) {
+    if (err != cudaSuccess) {
       return static_cast<int>(err);
     }
     cur = dst;

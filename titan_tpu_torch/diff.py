@@ -10,8 +10,8 @@ through the simulator.
     grads = torch.autograd.grad(loss, [state.stencil.k])
 
 Set ``requires_grad`` on the state's tensors to differentiate with respect
-to them (``ops.adjoint.LEAVES`` lists what the fused adjoint
-differentiates).  Routes:
+to them (``ops.adjoint.LEAVES`` lists what the adjoints differentiate: the
+masses', the stencil families' and the remainder springs' parameters).  Routes:
 
 - ``rollout``: autograd through the eager step, every input
   differentiable; ``checkpoint_every`` recomputes blocks of steps in the
@@ -51,8 +51,7 @@ from .ops.adjoint import (LEAVES, adjoint_reject_reason,  # noqa: F401
                           state_from_outputs, with_leaves)
 from .ops.adjoint_tiled import (tiled_adjoint_reject_reason,
                                 tiled_adjoint_rollout)
-from .ops.step import (RESIDENT_BUDGET, build_chunk_fn, build_step_fn,
-                       run_eager)
+from .ops.step import build_chunk_fn, build_step_fn, fits_fused, run_eager
 from .runtime.logging import get_logger
 from .state import SceneShape, SimState, xla_only_shape
 
@@ -90,20 +89,20 @@ class _FastSegment(torch.autograd.Function):
         ctx.shape, ctx.seg, ctx.state = shape, seg, state
         ctx.save_for_backward(*leaves)
         outs = segment_outputs(shape, out)
-        ctx.mark_non_differentiable(outs[4], outs[5])
+        ctx.mark_non_differentiable(*outs[-2:])
         return outs
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, gpos, gvel, gacc, grest, _gT, _gt):
+    def backward(ctx, gpos, gvel, gacc, grest, grem, _gT, _gt):
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
             out = run_eager(build_step_fn(xla_only_shape(ctx.shape)),
                             with_leaves(ctx.state, leaves), ctx.seg)
             grads = torch.autograd.grad(
                 [out.masses.pos, out.masses.vel, out.masses.acc,
-                 out.stencil.rest], leaves, [gpos, gvel, gacc, grest],
-                allow_unused=True)
+                 out.stencil.rest, out.springs.rest], leaves,
+                [gpos, gvel, gacc, grest, grem], allow_unused=True)
         return (None, None, None, None) + tuple(grads)
 
 
@@ -137,13 +136,14 @@ def grad_route(shape: SceneShape):
     ``"adjoint"``, ``"tiled_adjoint"`` or ``"fast"``, and for ``"fast"``
     both adjoints' reasons (else None).  As the JAX package routes
     (``titan_tpu/diff.py:154-160``): the fused adjoint where it accepts the
-    scene and the scene fits the reference's residency rule
-    (``adjoint_resident_bytes`` under ``RESIDENT_BUDGET``), else the tiled
-    adjoint where it accepts the scene, else the fused adjoint where it
-    accepts it (its card kernels have no size cap, as ``chunk_route``
-    keeps the fused step for large scenes), else ``fast_rollout``."""
+    scene and the scene fits the reference's rule (``step.fits_fused``:
+    its remainder selectors, and ``adjoint_resident_bytes`` under
+    ``RESIDENT_BUDGET``), else the tiled adjoint where it accepts the
+    scene, else the fused adjoint where it accepts it (its card kernels
+    have no size cap, as ``chunk_route`` keeps the fused step for large
+    scenes), else ``fast_rollout``."""
     r_adj = adjoint_reject_reason(shape)
-    if r_adj is None and adjoint_resident_bytes(shape) < RESIDENT_BUDGET:
+    if r_adj is None and fits_fused(shape, adjoint_resident_bytes(shape)):
         return "adjoint", None
     r_tiled = tiled_adjoint_reject_reason(shape)
     if r_tiled is None:

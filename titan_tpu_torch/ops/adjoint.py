@@ -24,9 +24,17 @@ inverse; ``torch_rolls``), in the sqrt + divide form that the CPU and
 forward from the traced (pos, vel) and transposes it: integrator, drag,
 the per-mass local constraints (directions, constraint planes, balls,
 contact planes), balls, planes (static and kinetic friction), then the
-spring families.  Constraint planes and directions mutate the velocity the
-integrator reads, so each force pass's velocity cotangent threads back
-through them to the pass's input velocity.
+spring families and the remainder springs.  Constraint planes and
+directions mutate the velocity the integrator reads, so each force pass's
+velocity cotangent threads back through them to the pass's input velocity.
+
+Remainder springs (``titan_tpu/ops/adjoint.py:236-280``, transpose
+:1121-1182) ride as ``forces.stage_remainder`` stages them; where the JAX
+kernel's transpose reuses its one-hot gather and scatter, each mass here
+walks its incidence row again: the spring's cotangent is gf at its right
+end less gf at its left, each endpoint takes its own share of the position
+and velocity cotangents, and the per-spring gradients are summed over the
+segment's steps into [S] arrays.
 
 ACTUATED rest is evaluated in closed form in the transpose (after c force
 calls, rest_c = rest0 + min(c, s_stop) arate dt), as the JAX package does,
@@ -34,15 +42,14 @@ while the forward and the replay advance it step by step; the two differ
 by about 1e-7 relative.
 
 Differentiable inputs: masses.pos, vel, acc, extern_force, m, drag,
-stencil.k, rest, damping, omega, rate, and g.  dt, plane and ball
-geometry, the local-constraint slots, t and the actuation bounds get no
-gradient.
+stencil.k, rest, damping, omega, rate, springs.k, rest, damping, omega,
+rate, and g.  dt, plane and ball geometry, the local-constraint slots, t
+and the actuation bounds get no gradient.
 
 Envelope (``adjoint_reject_reason``): the fused step's, without magnets
-and without spring-less scenes.  A trace that does not fit on the card
-raises out-of-memory in the backward; a shorter ``segment`` makes it
-smaller.  Remainder springs wait for the fused step's envelope to grow, the
-magnet branches for a later slice.
+and without scenes that have no stencil family.  A trace that does not fit
+on the card raises out-of-memory in the backward; a shorter ``segment``
+makes it smaller.  The magnet branches wait for a later slice.
 """
 
 from __future__ import annotations
@@ -57,9 +64,10 @@ from torch.autograd.function import once_differentiable
 from ..config import ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator
 from ..state import SceneShape, SimState
 from . import forces as F
-from .fused_step import (_ChunkArgs, _LocalSlots, _chunk_args, _checked,
-                         deltas_on, fused_chunk, fused_reject_reason,
-                         local_struct, prep_invariants)
+from .fused_step import (_ChunkArgs, _LocalSlots, _Remainder, _checked,
+                         _chunk_args, deltas_on, fused_chunk,
+                         fused_reject_reason, local_struct, prep_invariants,
+                         remainder_struct)
 from .step import local_caps
 
 
@@ -195,8 +203,14 @@ def _force(pos, vel, P, rg, rs, t_now=None, keep_stages=False, cidx=None):
             fam["cm"].append(cm)
             fam["ax"].append(axdot)
             fam["ln"].append(ln)
+    rem = None
+    if P.get("rem") is not None:
+        R = P["rem"]
+        rem = F.remainder_eval(R, pos, vel, t_now, P["dt"], R["rest"],
+                               _rem_flags(P), cidx)
+        f = f + F.incidence_sum(R, (rem["cm"] * rem["inv"]) * rem["diff"])
     stages = ({"plane_in": [], "lcp_in": [], "lpl_in": [], "ldir_in": [],
-               "fam": fam} if keep_stages else None)
+               "fam": fam, "rem": rem} if keep_stages else None)
     for p, pp in enumerate(P["planes"]):
         if keep_stages:
             stages["plane_in"].append(f)
@@ -214,6 +228,10 @@ def _force(pos, vel, P, rg, rs, t_now=None, keep_stages=False, cidx=None):
     if keep_stages:
         stages["v_final"] = v
     return f, v, stages
+
+
+def _rem_flags(P):
+    return P["has_damping"], P["has_breathing"], P["has_actuated"]
 
 
 def _nvec(nx, ny, nz, like):
@@ -534,6 +552,9 @@ def _force_transpose(pos, vel, gf, gvel_mut, P, rg, rs, t_now, st,
             garate[fi] = restbbar * advc
         dbar = dbar + 2.0 * diff * d2bar
         gpos = gpos - dbar + rs(dbar, d)
+    if P.get("rem") is not None:
+        gpos, gvel = _remainder_transpose(vel, gf, gpos, gvel, P, t_now,
+                                          st["rem"], bars)
     bars["cf"] = gf
     bars["k"] = gk
     bars["rest"] = grest
@@ -544,6 +565,49 @@ def _force_transpose(pos, vel, gf, gvel_mut, P, rg, rs, t_now, st,
     if P["has_actuated"]:
         bars["aratedt"] = garate
     return gpos, gvel, bars
+
+
+def _remainder_transpose(vel, gf, gpos, gvel, P, t_now, e, bars):
+    """Transpose of the remainder springs' sum in ``_force`` (the families'
+    transpose on per-spring arrays; titan_tpu/ops/adjoint.py:1121-1182) at
+    its intermediates ``e`` (``forces.remainder_eval``): each spring's
+    force cotangent is gf at its right end less gf at its left, and its
+    position and velocity cotangents go to both ends through the incidence
+    rows, in row order (``forces.incidence_sum``), as the backward kernels
+    add them.  Adds the per-spring bars k_e, rest_e (, damp_e, omega_e,
+    aratedt_e) [S] to ``bars``; returns (gpos, gvel)."""
+    R = P["rem"]
+    p = R["p"]
+    left, right = R["ends"][0].long(), R["ends"][1].long()
+    diff, inv, ln, cm = e["diff"], e["inv"], e["ln"], e["cm"]
+    fbar = gf[:, right] - gf[:, left]
+    cbar = _vdot3(fbar, diff)
+    dbar = (cm * inv) * fbar
+    magbar = cbar * inv
+    invbar = cbar * cm
+    bars["k_e"] = magbar * (e["rest"] - ln)
+    resteffbar = magbar * p[0]
+    lnbar = -magbar * p[0]
+    if P["has_damping"]:
+        ax = e["ax"]
+        axialbar = magbar * p[1]
+        abar = axialbar * inv
+        invbar = invbar + axialbar * ax
+        bars["damp_e"] = magbar * (ax * inv)
+        dbar = dbar + abar * (vel[:, left] - vel[:, right])
+        gvel = gvel + F.incidence_sum(R, abar * diff, -1.0)
+    lnbar = lnbar - torch.where(ln > 0, invbar * inv * inv, 0.0)
+    d2bar = torch.where(inv > 0, 0.5 * lnbar * inv, 0.0)
+    dbar = dbar + 2.0 * diff * d2bar
+    restbbar = resteffbar
+    if P["has_breathing"]:
+        restbbar = resteffbar * e["scale"]
+        bars["omega_e"] = (resteffbar * e["rest_b"] * p[2]
+                           * torch.cos(p[3] * t_now) * t_now)
+    bars["rest_e"] = restbbar
+    if P["has_actuated"]:
+        bars["aratedt_e"] = restbbar * e["advc"]
+    return gpos + F.incidence_sum(R, dbar), gvel
 
 
 def _local_transpose(pos, vel, gf, gv, gpos, P, st):
@@ -748,6 +812,7 @@ def _prep(shape: SceneShape, state: SimState, inv: dict = None) -> dict:
         "bomega": inv["bomega"] if shape.has_breathing else None,
         "aratedt": None, "sstop": None, "pair_ok": inv["pair_ok"],
         "lc": inv.get("lc"), "caps": local_caps(shape),
+        "rem": inv.get("rem"),
     }
     if shape.has_actuated:
         P["aratedt"], P["sstop"] = _actuation_inputs(state, inv["pair_ok"])
@@ -775,6 +840,17 @@ def _bar_keys(shape: SceneShape) -> list:
             + ["aratedt"] * shape.has_actuated)
 
 
+def rem_bar_keys(shape: SceneShape) -> list:
+    """The per-spring gradient keys of ``bwd_run`` for a scene, in the
+    rows of the backward kernels' [5, S] accumulator: k_e, rest_e, damp_e,
+    omega_e, aratedt_e (the last three where the scene has the feature)."""
+    if not shape.has_remainder:
+        return []
+    return (["k_e", "rest_e"] + ["damp_e"] * shape.has_damping
+            + ["omega_e"] * shape.has_breathing
+            + ["aratedt_e"] * shape.has_actuated)
+
+
 def bwd_run_plain(shape: SceneShape, state: SimState, trace, gpos, gvel,
                   gacc, inv: dict = None) -> dict:
     """Plain version of the backward kernel (``build_bwd_run`` :1716):
@@ -782,8 +858,10 @@ def bwd_run_plain(shape: SceneShape, state: SimState, trace, gpos, gvel,
     cotangents (gpos, gvel, gacc) of the segment's output.  Returns the
     cotangents of its input (pos, vel, acc) and the parameter gradients:
     k, rest (, damping, omega, aratedt) [F, N], cf [3, N], minv (, drag)
-    [N], plus ``pair_ok``.  ``inv`` is ``prep_invariants(shape, state)``
-    where the caller has it already."""
+    [N], the remainder springs' k_e, rest_e (, damp_e, omega_e, aratedt_e)
+    [S] (``rem_bar_keys``), plus ``pair_ok`` (and ``rem_ok``).  ``inv``
+    is ``prep_invariants(shape, state)`` where the caller has it
+    already."""
     return sweep_plain(shape, _prep(shape, state, inv), trace, gpos, gvel,
                        gacc)
 
@@ -804,9 +882,12 @@ def sweep_plain(shape: SceneShape, P: dict, trace, gpos, gvel,
         for key in _bar_keys(shape):
             b = torch.stack(bars[key])
             acc[key] = acc[key] + b if key in acc else b
-        for key in ["cf", "minv"] + ["drag"] * shape.has_drag:
+        for key in (["cf", "minv"] + ["drag"] * shape.has_drag
+                    + rem_bar_keys(shape)):
             acc[key] = acc[key] + bars[key] if key in acc else bars[key]
     g = {"pos": gpos, "vel": gvel, "acc": gacc, "pair_ok": P["pair_ok"]}
+    if shape.has_remainder:
+        g["rem_ok"] = P["rem"]["ok"]
     g.update({k: v for k, v in acc.items() if k not in ("minv", "drag")})
     g["minv"] = acc["minv"][0]
     if shape.has_drag:
@@ -881,8 +962,20 @@ class _BwdArgs(ctypes.Structure):
             "drag", "trace", "gpos_in", "gvel_in", "gacc_in", "gpos",
             "gvel", "gacc", "gk", "grest", "gdamp", "gomega", "garate",
             "gcf", "gminv", "gdrag", "gf", "gpc", "gvc", "pos_h",
-            "vel_h")]
-        + [("local", _LocalSlots)])
+            "vel_h", "grem")]
+        + [("local", _LocalSlots), ("rem", _Remainder)])
+
+
+def rem_bars(shape: SceneShape, empty) -> tuple:
+    """(the backward kernels' [5, S] per-spring accumulator, {key: its
+    row}) for ``rem_bar_keys(shape)``; (None, {}) without remainder
+    springs.  Rows k_e, rest_e, damp_e, omega_e, aratedt_e: the kernels
+    write a row only where the scene has its feature."""
+    if not shape.has_remainder:
+        return None, {}
+    grem = empty((5, shape.n_springs))
+    rows = dict(k_e=0, rest_e=1, damp_e=2, omega_e=3, aratedt_e=4)
+    return grem, {k: grem[rows[k]] for k in rem_bar_keys(shape)}
 
 
 def _bwd_run_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
@@ -951,6 +1044,11 @@ def _bwd_run_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
     a.gcf, a.gminv = g["cf"].data_ptr(), g["minv"].data_ptr()
     a.gf, a.gpc, a.gvc, a.pos_h, a.vel_h = (t.data_ptr() for t in scratch)
     a.local = local_struct(shape, inv)
+    a.rem = remainder_struct(shape, inv, closed=True)
+    grem, rem_g = rem_bars(shape, empty)
+    if grem is not None:
+        a.grem = grem.data_ptr()
+        g.update(rem_g, rem_ok=inv["rem"]["ok"])
 
     rc = lib.titan_adjoint_bwd(ctypes.byref(a),
                                torch.cuda.current_stream(dev).cuda_stream)
@@ -985,62 +1083,89 @@ bwd_run.launches = 0
 # The autograd segment and the public rollout
 # ---------------------------------------------------------------------------
 
-#: the differentiable leaves of a state, in the order a segment takes them
+#: the differentiable leaves of a state, in the order a segment takes them:
+#: masses, stencil families, remainder springs (``springs.<name>``), g
 MASS_LEAVES = ("pos", "vel", "acc", "extern_force", "m", "drag")
 STENCIL_LEAVES = ("k", "rest", "damping", "omega", "rate")
-LEAVES = MASS_LEAVES + STENCIL_LEAVES + ("g",)
+SPRING_LEAVES = ("k", "rest", "damping", "omega", "rate")
+LEAVES = (MASS_LEAVES + STENCIL_LEAVES
+          + tuple(f"springs.{k}" for k in SPRING_LEAVES) + ("g",))
 
 
 def leaves_of(state: SimState) -> list:
     """The differentiable tensors of ``state`` in ``LEAVES`` order."""
     return ([getattr(state.masses, k) for k in MASS_LEAVES]
             + [getattr(state.stencil, k) for k in STENCIL_LEAVES]
+            + [getattr(state.springs, k) for k in SPRING_LEAVES]
             + [state.g])
 
 
 def with_leaves(state: SimState, leaves) -> SimState:
     """``state`` with its differentiable tensors replaced by ``leaves``
     (``LEAVES`` order)."""
-    nm, ns = len(MASS_LEAVES), len(STENCIL_LEAVES)
+    nm, ns, nr = len(MASS_LEAVES), len(STENCIL_LEAVES), len(SPRING_LEAVES)
     return dataclasses.replace(
         state,
         masses=dataclasses.replace(
             state.masses, **dict(zip(MASS_LEAVES, leaves[:nm]))),
         stencil=dataclasses.replace(
             state.stencil, **dict(zip(STENCIL_LEAVES, leaves[nm:nm + ns]))),
-        g=leaves[nm + ns])
+        springs=dataclasses.replace(
+            state.springs,
+            **dict(zip(SPRING_LEAVES, leaves[nm + ns:nm + ns + nr]))),
+        g=leaves[nm + ns + nr])
 
 
 def segment_outputs(shape: SceneShape, out: SimState) -> tuple:
-    """What a segment ``Function`` returns: pos, vel, acc, stencil rest
-    (differentiable), then T and t (not).  A rest the chunk passed through
-    is copied, so that no input is returned as an output."""
-    rest = out.stencil.rest if shape.has_actuated else out.stencil.rest.clone()
-    return (out.masses.pos, out.masses.vel, out.masses.acc, rest,
-            out.masses.T, out.t)
+    """What a segment ``Function`` returns: pos, vel, acc, the stencil and
+    the remainder rest (differentiable), then T and t (not).  A rest the
+    chunk passed through is copied, so that no input is returned as an
+    output."""
+    def rest(r):
+        return r if shape.has_actuated else r.clone()
+    return (out.masses.pos, out.masses.vel, out.masses.acc,
+            rest(out.stencil.rest), rest(out.springs.rest), out.masses.T,
+            out.t)
 
 
 def state_from_outputs(state: SimState, outs) -> SimState:
     """The state after a segment from its ``Function``'s outputs."""
-    pos, vel, acc, rest, T, t = outs
+    pos, vel, acc, rest, rem_rest, T, t = outs
     return dataclasses.replace(
         state,
         masses=dataclasses.replace(state.masses, pos=pos, vel=vel, acc=acc,
                                    T=T),
-        stencil=dataclasses.replace(state.stencil, rest=rest), t=t)
+        stencil=dataclasses.replace(state.stencil, rest=rest),
+        springs=dataclasses.replace(state.springs, rest=rem_rest), t=t)
+
+
+def _rate_ct(g_aratedt, sstop, ct_rest, seg, shape, styp, dt, ok):
+    """d loss / d rate of ACTUATED springs: rate acts through aratedt =
+    sign rate dt, in the backward's accumulated ``g_aratedt`` and in the
+    closed-form rest the segment outputs, whose cotangent ``ct_rest``
+    reaches aratedt times min(calls, sstop)."""
+    calls = (2.0 * seg if shape.config.integrator is Integrator.RK2
+             else float(seg))
+    g = g_aratedt + torch.clamp(sstop, max=calls) * ct_rest
+    sign = torch.where(styp == ACTUATED_EXPAND, 1.0,
+                       torch.where(styp == ACTUATED_CONTRACT, -1.0, 0.0))
+    return torch.where(ok, sign * dt * g, 0.0)
 
 
 def assemble_ct(shape: SceneShape, seg: int, s0: SimState, ct_rest,
-                g: dict) -> dict:
+                ct_rem_rest, g: dict) -> dict:
     """Map the backward's gradient dict ``g`` onto the segment's
-    differentiable inputs (titan_tpu/ops/adjoint.py:1835-1900, stencil
-    part), given ``ct_rest``, the cotangent of the segment's output rest.
-    ``m`` gets gradients through minv = 1/m and through cf = extern + m g;
-    ``g`` through cf; ``rate`` through aratedt = sign rate dt and through
-    the closed-form rest the segment outputs.  Leaves with no gradient
-    map to None."""
+    differentiable inputs (titan_tpu/ops/adjoint.py:1835-1962), given
+    ``ct_rest`` and ``ct_rem_rest``, the cotangents of the segment's output
+    stencil and remainder rest.  ``m`` gets gradients through minv = 1/m
+    and through cf = extern + m g; ``g`` through cf; ``rate`` through
+    aratedt = sign rate dt and through the closed-form rest the segment
+    outputs.  The k, damping and rate of a missing or invalid spring get
+    0, as in the JAX package (``pair_ok``, ``rem_ok``).  Leaves with no
+    gradient map to None."""
     m0 = s0.masses
     ok = g["pair_ok"]
+    dt = s0.dt.float()
     out = dict.fromkeys(LEAVES)
     out["pos"], out["vel"], out["acc"] = g["pos"], g["vel"], g["acc"]
     out["extern_force"] = g["cf"]
@@ -1056,13 +1181,22 @@ def assemble_ct(shape: SceneShape, seg: int, s0: SimState, ct_rest,
         out["omega"] = g["omega"]
     if shape.has_actuated:
         _, sstop = _actuation_inputs(s0, ok)
-        calls = (2.0 * seg if shape.config.integrator is Integrator.RK2
-                 else float(seg))
-        g_aratedt = g["aratedt"] + torch.clamp(sstop, max=calls) * ct_rest
-        styp = s0.stencil.type
-        sign = torch.where(styp == ACTUATED_EXPAND, 1.0,
-                           torch.where(styp == ACTUATED_CONTRACT, -1.0, 0.0))
-        out["rate"] = torch.where(ok, sign * s0.dt.float() * g_aratedt, 0.0)
+        out["rate"] = _rate_ct(g["aratedt"], sstop, ct_rest, seg, shape,
+                               s0.stencil.type, dt, ok)
+    out["springs.rest"] = ct_rem_rest
+    if shape.has_remainder:
+        rok = g["rem_ok"]
+        out["springs.k"] = torch.where(rok, g["k_e"], 0.0)
+        out["springs.rest"] = ct_rem_rest + g["rest_e"]
+        if shape.has_damping:
+            out["springs.damping"] = torch.where(rok, g["damp_e"], 0.0)
+        if shape.has_breathing:
+            out["springs.omega"] = g["omega_e"]
+        if shape.has_actuated:
+            sstop_e = F.stage_remainder(shape, s0)["p"][7]
+            out["springs.rate"] = _rate_ct(g["aratedt_e"], sstop_e,
+                                           ct_rem_rest, seg, shape,
+                                           s0.springs.type, dt, rok)
     out["g"] = torch.sum(m0.m[None, :] * g["cf"], dim=1)
     return out
 
@@ -1077,12 +1211,12 @@ class _AdjointSegment(torch.autograd.Function):
         ctx.shape, ctx.seg, ctx.state = shape, seg, state
         ctx.save_for_backward(*leaves)
         outs = segment_outputs(shape, out)
-        ctx.mark_non_differentiable(outs[4], outs[5])
+        ctx.mark_non_differentiable(*outs[-2:])
         return outs
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, gpos, gvel, gacc, grest, _gT, _gt):
+    def backward(ctx, gpos, gvel, gacc, grest, grem, _gT, _gt):
         shape, seg = ctx.shape, ctx.seg
         s0 = with_leaves(ctx.state, ctx.saved_tensors)
         inv = prep_invariants(shape, s0)     # read by both passes
@@ -1090,7 +1224,7 @@ class _AdjointSegment(torch.autograd.Function):
         g = bwd_run(shape, s0, trace, gpos.contiguous(), gvel.contiguous(),
                     gacc.contiguous(), inv)
         del trace        # the segment's trace is freed before the next one
-        ct = assemble_ct(shape, seg, s0, grest, g)
+        ct = assemble_ct(shape, seg, s0, grest, grem, g)
         return (None, None, None) + tuple(ct[k] for k in LEAVES)
 
 

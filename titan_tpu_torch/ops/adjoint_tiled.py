@@ -39,11 +39,16 @@ each family, so the transpose needs no halo), the VMEM sizing of the
 backward tile (``_bwd_vmem_est``, ``_shrink_bwd_tile``, ``_geom``) and the
 A/B hooks (``TITAN_MEGA_ADJ``, ``TITAN_MEGA_COMPACT``, ``CARRY_MODE``).
 
+Remainder springs run inside the per-step replay and B7 (the fused
+adjoint's remainder transpose, ``csrc/adjoint_body.cuh``), where the TPU
+feeds them in as glue and splits its RK2 backward around the glue's vjp
+(``_build_bwd_tile_kernel``'s rk2a / rk2b modes, a trace of 9 rows per
+step): the tiled step's closed-form rest makes that unnecessary.  Their
+scenes take no resident grid, forward or backward, as in the reference.
+
 Envelope (``tiled_adjoint_reject_reason``): the tiled step's, local
-constraints included.  Its glue modes (magnets and remainder springs
-through the constant force, with the split RK2 backward of
-``_build_bwd_tile_kernel``'s rk2a / rk2b modes) are outside it, as they
-are outside the tiled step's.
+constraints and remainder springs included.  The magnet glue is outside
+it, as it is outside the tiled step's.
 """
 
 from __future__ import annotations
@@ -56,9 +61,11 @@ from torch.autograd.function import once_differentiable
 
 from ..config import Integrator
 from ..state import SceneShape, SimState
-from .adjoint import (LEAVES, assemble_ct, leaves_of, segment_outputs,
-                      state_from_outputs, sweep_plain, with_leaves)
-from .fused_step import _LocalSlots, _checked, local_struct
+from .adjoint import (LEAVES, assemble_ct, leaves_of, rem_bars,
+                      segment_outputs, state_from_outputs, sweep_plain,
+                      with_leaves)
+from .fused_step import (_LocalSlots, _Remainder, _checked, local_struct,
+                         remainder_struct)
 from .step import local_caps
 from .tiled_step import (_INTEGRATOR_CODE, _MAX_FAMILIES, _TiledChunk,
                          chunk_struct, launch_counts, mega_seg,
@@ -171,6 +178,7 @@ def _plain_inputs(shape: SceneShape, inv: dict) -> dict:
         "aratedt": inv.get("aratedt"), "sstop": inv.get("sstop"),
         "pair_ok": inv["pair_ok"],
         "lc": inv.get("lc"), "caps": local_caps(shape),
+        "rem": inv.get("rem"),
     }
 
 
@@ -216,8 +224,8 @@ class _TiledBwdArgs(ctypes.Structure):
             "minv", "fixed", "drag", "trace", "gpos_in", "gvel_in",
             "gacc_in", "gpos", "gvel", "gacc", "gk", "grest", "gdamp",
             "gomega", "garate", "gcf", "gminv", "gdrag", "gf", "gpc", "gvc",
-            "pos_h", "vel_h")]
-        + [("local", _LocalSlots)])
+            "pos_h", "vel_h", "grem")]
+        + [("local", _LocalSlots), ("rem", _Remainder)])
 
 
 def _lib():
@@ -368,6 +376,11 @@ def _tiled_bwd_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
     a.gf, a.gpc, a.gvc, a.pos_h, a.vel_h = (t.data_ptr()
                                             for t in scratch[:5])
     a.local = local_struct(shape, inv, kern)
+    a.rem = remainder_struct(shape, inv, kern, closed=True)
+    grem, rem_g = rem_bars(shape, empty)
+    if grem is not None:
+        a.grem = grem.data_ptr()
+        g.update(rem_g, rem_ok=inv["rem"]["ok"])
     gf_odd = scratch[5].data_ptr() if mega else None
 
     rc = _lib().titan_tiled_bwd(ctypes.byref(a), int(mega), gf_odd,
@@ -424,12 +437,12 @@ class _TiledAdjointSegment(torch.autograd.Function):
         ctx.shape, ctx.seg, ctx.state = shape, seg, state
         ctx.save_for_backward(*leaves)
         outs = segment_outputs(shape, out)
-        ctx.mark_non_differentiable(outs[4], outs[5])
+        ctx.mark_non_differentiable(*outs[-2:])
         return outs
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, gpos, gvel, gacc, grest, _gT, _gt):
+    def backward(ctx, gpos, gvel, gacc, grest, grem, _gT, _gt):
         shape, seg = ctx.shape, ctx.seg
         s0 = with_leaves(ctx.state, ctx.saved_tensors)
         inv = prep_tiled_inputs(shape, s0)     # read by both passes
@@ -437,7 +450,7 @@ class _TiledAdjointSegment(torch.autograd.Function):
         g = tiled_bwd_run(shape, s0, trace, gpos.contiguous(),
                           gvel.contiguous(), gacc.contiguous(), inv)
         del trace        # the segment's trace is freed before the next one
-        ct = assemble_ct(shape, seg, s0, grest, g)
+        ct = assemble_ct(shape, seg, s0, grest, grem, g)
         return (None, None, None) + tuple(ct[k] for k in LEAVES)
 
 

@@ -5,8 +5,15 @@ path.  All functions are pure: they consume and produce ``[3, N]``
 component-major tensors and never write into their inputs.  Norms are
 sqrt + divide, as the JAX package computes them on the CPU
 (``titan_tpu/ops/forces.py::use_rsqrt``), and every norm goes through
-``_safe_norm`` so that autograd through the step stays finite.  SEGMENT
-scatter is a later slice of the port.
+``_safe_norm`` so that autograd through the step stays finite.
+
+Remainder springs (springs in no stencil family) have three forms here:
+the eager step's ``spring_forces`` + ``scatter_spring_forces`` (GATHER or
+SEGMENT), the O(S) ``compact_remainder_forces`` of the JAX package's tiled
+glue, and ``remainder_sum`` on the kernels' staging (``stage_remainder``),
+the plain version of ``csrc/step_body.cuh::remainder_forces``: each mass
+walks its row of the incidence table and adds its springs' forces in
+incidence order, which ``torch.sum`` over the row would not fix.
 """
 
 from __future__ import annotations
@@ -121,18 +128,226 @@ def stencil_spring_forces(masses: MassState, st, deltas: tuple, t: Tensor,
 
 def scatter_spring_forces(f_springs: Tensor, topo: Topology, fixed: Tensor,
                           mode: ScatterMode) -> Tensor:
-    """+f on right endpoints, -f on left, skipping fixed masses, as a
-    deterministic per-mass gather over the incidence lists (GATHER mode;
-    replaces the reference's atomicAdd scatter, sim.cu:1189-1196)."""
-    if mode is not ScatterMode.GATHER:
-        raise NotImplementedError(
-            f"scatter mode {mode.name} is not ported yet (GATHER only)")
+    """+f on right endpoints, -f on left, skipping fixed masses
+    (``titan_tpu/ops/forces.py::scatter_spring_forces``; replaces the
+    reference's atomicAdd scatter, sim.cu:1189-1196).  GATHER: a per-mass
+    gather over the incidence lists.  SEGMENT: the forces [f; -f] taken in
+    the endpoint-sorted order ``topo.seg_perm`` and summed per endpoint id
+    ``topo.seg_ids`` (``index_add_``: in order on the CPU, in no fixed
+    order on the card)."""
+    n = fixed.shape[0]
+    if mode is ScatterMode.SEGMENT:
+        both = torch.cat([f_springs, -f_springs], dim=1)        # [3, 2S]
+        sortd = both[:, topo.seg_perm.long()]
+        mf = torch.zeros((3, n), dtype=f_springs.dtype,
+                         device=f_springs.device).index_add_(
+            1, topo.seg_ids.long(), sortd)
+        return torch.where(fixed, 0.0, mf)
     zero = torch.zeros((3, 1), dtype=f_springs.dtype, device=f_springs.device)
     fpad = torch.cat([f_springs, zero], dim=1)                  # [3, S+1]
     idx = topo.inc_idx.long()
     mf = torch.stack([torch.sum(fpad[c][idx] * topo.inc_sign, dim=1)
                       for c in range(3)])
     return torch.where(fixed, 0.0, mf)
+
+
+def compact_remainder_forces(sp: SpringState, pos_all: Tensor, vel_all,
+                             rem_rest: Tensor, t_now, dt, my0: int, b: int,
+                             has_breathing: bool, has_damping: bool
+                             ) -> Tuple[Tensor, Tensor]:
+    """O(S) remainder-spring evaluation: per-spring endpoint takes and a
+    dropping scatter-add onto the rows [my0, my0 + b)
+    (``titan_tpu/ops/forces.py::compact_remainder_forces``, the JAX tiled
+    glue's form).  ``sp.valid`` must have endpoint validity folded in (it
+    gates the force and the actuated advance); fixed masses are the
+    caller's.  Returns (f [3, b], new rest [S])."""
+    left, right = sp.left.long(), sp.right.long()
+    diff = pos_all[:, right] - pos_all[:, left]
+    length = _safe_norm(torch.sum(diff * diff, dim=0))
+    inv = _inv_norm(length)
+    rest, scale = rem_rest, 1.0
+    if has_breathing:
+        scale, rest = _breathe_and_actuate(
+            rem_rest, sp.type, sp.omega, sp.l_max, sp.l_min, sp.rate,
+            sp.valid, t_now, dt)
+    mag = sp.k * (rest * scale - length)
+    if has_damping:
+        axial = torch.sum((vel_all[:, left] - vel_all[:, right])
+                          * (diff * inv), dim=0)
+        mag = mag + axial * sp.damping
+    f = torch.where(sp.valid, mag, 0.0) * (diff * inv)
+    li, ri = left - my0, right - my0
+    li = torch.where((li >= 0) & (li < b), li, b)             # b: dropped
+    ri = torch.where((ri >= 0) & (ri < b), ri, b)
+    buf = torch.zeros((3, b + 1), dtype=pos_all.dtype, device=pos_all.device)
+    buf = buf.index_add(1, li, -f).index_add(1, ri, f)
+    return buf[:, :b], rest
+
+
+def incidence(springs: SpringState, n_masses: int, degree: int
+              ) -> Tuple[Tensor, Tensor]:
+    """(inc_idx [N, D] int32, inc_sign [N, D]) of the valid remainder
+    springs, in ``builders.build_incidence``'s order (per mass, its entries
+    as the stable sort of [right ends; left ends] puts them), on the
+    springs' device: the incidence table of a scene marshalled for SEGMENT
+    scatter, which carries none."""
+    s = springs.left.shape[0]
+    dev = springs.left.device
+    ar = torch.arange(s, device=dev)
+    keep = torch.cat([springs.valid, springs.valid])
+    ids = torch.cat([springs.right, springs.left]).long()[keep]
+    sign = torch.cat([torch.ones(s, device=dev),
+                      -torch.ones(s, device=dev)])[keep]
+    spring_of = torch.cat([ar, ar])[keep]
+    order = torch.sort(ids, stable=True).indices
+    ids, sign, spring_of = ids[order], sign[order], spring_of[order]
+    counts = torch.bincount(ids, minlength=n_masses)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(ids.shape[0], device=dev) - starts[ids]
+    inc = torch.full((n_masses, degree), s, dtype=torch.int32, device=dev)
+    inc_sign = torch.zeros((n_masses, degree), device=dev)
+    inc[ids, slot] = spring_of.to(torch.int32)
+    inc_sign[ids, slot] = sign
+    return inc, inc_sign
+
+
+# rows of the staged per-spring array ``p`` of ``stage_remainder``; the
+# kernels read them by the same numbers (csrc/step_body.cuh::Remainder)
+REM_ROWS = ("k", "damping", "bsign", "bomega", "arate", "abound", "aratedt",
+            "sstop")
+
+
+def stage_remainder(shape, state, dtype=torch.float32) -> dict:
+    """The remainder springs as the kernels take them
+    (``titan_tpu/ops/pallas_step.py::stage_remainder`` without its one-hot
+    selectors): ``inc`` / ``sign`` the incidence table [N, D] (the
+    topology's, or built by ``incidence``), ``ends`` [2, S] int32 (left,
+    right), ``p`` [8, S] (``REM_ROWS``: k, damping, bsign, bomega, arate,
+    abound, and the adjoints' closed-form rest inputs aratedt = arate dt and
+    sstop, the call count at which the one-sided bound is crossed: rest0 +
+    min(c, sstop) aratedt after c force calls), ``rest`` [S] and ``ok``
+    (the valid springs between valid masses).  k, damping and arate are
+    zero where ``ok`` is not, so that such a spring exerts nothing and its
+    rest stays."""
+    m, sp = state.masses, state.springs
+    left, right = sp.left.long(), sp.right.long()
+    ok = sp.valid & m.valid[left] & m.valid[right]
+    styp = sp.type
+    arate = torch.where(styp == ACTUATED_EXPAND, sp.rate,
+                        torch.where(styp == ACTUATED_CONTRACT, -sp.rate, 0.0))
+    b = torch.full_like(sp.omega, 0.2, dtype=dtype)     # 0.2 in dtype
+    rows = [torch.where(ok, sp.k, 0.0), torch.where(ok, sp.damping, 0.0),
+            torch.where(styp == ACTIVE_CONTRACT_THEN_EXPAND, -b,
+                        torch.where(styp == ACTIVE_EXPAND_THEN_CONTRACT, b,
+                                    0.0)),
+            sp.omega, torch.where(ok, arate, 0.0),
+            torch.where(styp == ACTUATED_EXPAND, sp.l_max,
+                        torch.where(styp == ACTUATED_CONTRACT, sp.l_min,
+                                    0.0))]
+    rows = [r.to(dtype) for r in rows]
+    rest = sp.rest.to(dtype)
+    aratedt = rows[4] * state.dt.to(dtype)
+    nz = aratedt != 0
+    sstop = torch.where(nz, torch.ceil((rows[5] - rest) / torch.where(
+        nz, aratedt, 1.0)), 0.0)
+    rows += [aratedt, torch.clamp(sstop, min=0.0)]
+    topo = state.topo
+    if topo.inc_idx.shape[0] == shape.n_masses:
+        inc, sign = topo.inc_idx, topo.inc_sign
+    else:
+        inc, sign = incidence(sp, shape.n_masses, shape.max_degree)
+    return dict(inc=inc.to(torch.int32).contiguous(),
+                sign=sign.to(dtype).contiguous(),
+                ends=torch.stack([sp.left, sp.right]).to(torch.int32),
+                p=torch.stack(rows).contiguous(), rest=rest, ok=ok)
+
+
+def remainder_eval(R: dict, pos: Tensor, vel: Tensor, t, dt, rest: Tensor,
+                   flags: tuple, cidx=None):
+    """Every remainder spring at (pos, vel) in the kernels' arithmetic
+    (``csrc/step_body.cuh::spring_eval``).  ``flags`` is (has_damping,
+    has_breathing, has_actuated).  ACTUATED rest advances once from
+    ``rest`` (the forward's carried rest), or with ``cidx`` takes the
+    closed form after ``cidx`` force calls from the staged rest0 (the
+    adjoints).  Returns a dict of the per-spring intermediates: diff, ln,
+    inv, ax, cm, the effective rest and, before the breathing scale,
+    rest_b, scale and advc, and new_rest; the force on the right endpoint
+    is (cm inv) diff."""
+    has_damping, has_breathing, has_actuated = flags
+    p = R["p"]
+    left, right = R["ends"][0].long(), R["ends"][1].long()
+    diff = pos[:, right] - pos[:, left]
+    d2 = torch.sum(diff * diff, dim=0)
+    ln = _safe_norm(d2)
+    inv = _inv_norm(ln)
+    r, advc = rest, None
+    if has_actuated:
+        if cidx is None:
+            ar, ab = p[4], p[5]
+            adv = ((ar > 0) & (r < ab)) | ((ar < 0) & (r > ab))
+            r = r + torch.where(adv, ar * dt, 0.0)
+        else:
+            advc = torch.clamp(p[7], max=cidx)
+            r = r + advc * p[6]
+    out = dict(diff=diff, ln=ln, inv=inv, new_rest=r, rest_b=r, advc=advc,
+               scale=None, ax=None)
+    if has_breathing:
+        out["scale"] = 1.0 + p[2] * torch.sin(p[3] * t)
+        r = r * out["scale"]
+    cm = p[0] * (r - ln)
+    if has_damping:
+        ax = torch.sum((vel[:, left] - vel[:, right]) * diff, dim=0)
+        cm = cm + (ax * inv) * p[1]
+        out["ax"] = ax
+    out["rest"], out["cm"] = r, cm
+    return out
+
+
+def incidence_sum(R: dict, per_spring: Tensor, sign_of=1.0) -> Tensor:
+    """sum over each mass's incidence row, in row order from zero, of
+    sign x per_spring[:, spring] (``sign_of`` -1 takes -sign): the plain
+    version of the kernels' walk of the table."""
+    zero = torch.zeros((per_spring.shape[0], 1), dtype=per_spring.dtype,
+                       device=per_spring.device)
+    fpad = torch.cat([per_spring, zero], dim=1)
+    inc, sign = R["inc"].long(), R["sign"] * sign_of
+    acc = torch.zeros((per_spring.shape[0], inc.shape[0]),
+                      dtype=per_spring.dtype, device=per_spring.device)
+    for d in range(inc.shape[1]):
+        acc = acc + fpad[:, inc[:, d]] * sign[:, d]
+    return acc
+
+
+def remainder_sum(R: dict, pos: Tensor, vel: Tensor, t, dt, rest: Tensor,
+                  flags: tuple, cidx=None) -> Tuple[Tensor, Tensor]:
+    """The remainder springs' force on every mass [3, N] and the advanced
+    rest [S]: ``remainder_eval``, then each mass's row of the incidence
+    table summed in order (``incidence_sum``).  The plain version of
+    ``csrc/step_body.cuh::remainder_forces`` (and, with ``cidx``, of the
+    backward's recompute)."""
+    e = remainder_eval(R, pos, vel, t, dt, rest, flags, cidx)
+    return incidence_sum(R, (e["cm"] * e["inv"]) * e["diff"]), e["new_rest"]
+
+
+def remainder_forces_plain(masses: MassState, springs: SpringState,
+                           topo: Topology, t, dt, has_breathing: bool,
+                           has_damping: bool, max_degree: int = None
+                           ) -> Tuple[Tensor, Tensor]:
+    """The remainder springs' force on every mass [3, N] and their new
+    rest [S], as the kernels compute them (``remainder_sum`` on
+    ``stage_remainder``), in the state's dtype: the ordered twin of
+    ``spring_forces`` + ``scatter_spring_forces``, fixed masses included
+    (the kernels freeze them in the update).  ``max_degree`` sizes the
+    incidence table of a topology that has none (SEGMENT scatter)."""
+    from types import SimpleNamespace
+    st = SimpleNamespace(masses=masses, springs=springs, topo=topo, dt=dt)
+    shape = SimpleNamespace(n_masses=masses.pos.shape[1],
+                            max_degree=max_degree or topo.inc_idx.shape[1])
+    R = stage_remainder(shape, st, masses.pos.dtype)
+    # a breathing scale of 1 and a zero rate change nothing, so the
+    # breathing flag gates both mechanisms, as in spring_forces
+    return remainder_sum(R, masses.pos, masses.vel, t, dt, R["rest"],
+                         (has_damping, has_breathing, has_breathing))
 
 
 def _vdot(a: Tensor, n: Tensor) -> Tensor:

@@ -6,9 +6,9 @@ step, two for RK2); for state on the CPU it runs ``fused_chunk_plain``, a
 plain PyTorch transcription of the TPU kernel's body
 (``pallas_step.py::_build_kernel``) with ``torch.roll`` for its rolls and its
 accumulation order: the constant force first, then per family
-``f_acc - f + roll(f, d)``, then planes, balls, the per-mass local
-constraints, drag and the update.  There is no fallback between the two: a
-CUDA tensor goes to the kernel or raises.
+``f_acc - f + roll(f, d)``, then the remainder springs' sum, then planes,
+balls, the per-mass local constraints, drag and the update.  There is no
+fallback between the two: a CUDA tensor goes to the kernel or raises.
 
 Local constraints.  The per-mass slots ride as one stacked [L, N] array
 (``forces.stage_local``, built once per chunk): contact planes, balls,
@@ -16,6 +16,19 @@ constraint planes and directions in reference order.  Constraint planes and
 directions mutate the velocity that drag and the update read; under RK2 the
 corrector starts from pass 1's mutated velocity and advances the position
 with pass 2's, as ``titan_tpu/ops/step.py``'s RK2 branch does.
+
+Remainder springs (springs in no stencil family: cross-agent links, a
+``createSpring`` between any two masses) ride as ``forces.stage_remainder``
+stages them: the incidence table [N, D] of ``Topology`` and per-spring rows.
+Each mass walks its row and evaluates each of its springs itself (both
+endpoints of a spring compute the same force, from the spring's left and
+right ends in that order), adding sign x force in row order
+(``forces.remainder_sum``).  Where the TPU kernel gathers and scatters
+through one-hot selectors on its matrix unit (``pallas_step.py:348-404``),
+a thread here simply reads the endpoints.  ACTUATED remainder rest is
+carried per spring and advances on every force pass, ping-ponging between
+two [S] buffers that start equal (a spring no thread owns keeps its rest);
+the left endpoint's thread writes it.
 
 Magnets.  The step kernel has no magnet code.  For a magnet scene each force
 pass first computes the magnet field at that pass's positions, 0 on fixed
@@ -29,10 +42,10 @@ and the passes are launched one at a time from Python
 (``titan_fused_pass``); ``fused_chunk_plain`` takes the plain versions.
 Scenes without magnets keep one C call per chunk.
 
-Envelope (``fused_reject_reason``): f32, persistent external force, every
-spring in a stencil family (or no springs at all).  Unlike the TPU kernel
-there is no on-chip memory budget, so N has no cap, with magnets or
-without.
+Envelope (``fused_reject_reason``): f32, persistent external force.
+Unlike the TPU kernel there is no on-chip memory budget, so N and the
+remainder springs have no cap; ``step.chunk_route`` keeps the TPU's
+budgets as route rules.
 """
 
 from __future__ import annotations
@@ -66,9 +79,6 @@ def fused_reject_reason(shape: SceneShape):
     if not cfg.persistent_extern_force:
         return ("strict per-step extern_force mode "
                 "(persistent_extern_force=False)")
-    if shape.has_remainder:
-        return ("irregular (remainder) springs are not in the fused kernel "
-                "yet" + ("" if cfg.use_stencil else " (use_stencil is off)"))
     return None
 
 
@@ -79,9 +89,10 @@ def prep_invariants(shape: SceneShape, state: SimState) -> dict:
     mask (fixed or invalid), the constant force m g + extern, the
     [dt, t] scalars, the plane / ball tables, the stacked local-constraint
     slots ``lc`` [L, N] (``forces.stage_local``; only where the scene has
-    them), and ``pair_ok`` (where a spring exists between two valid
-    masses), which the adjoint masks its k / damping / rate gradients
-    with."""
+    them), the remainder springs ``rem`` (``forces.stage_remainder``;
+    only where the scene has them), and ``pair_ok`` (where a spring exists
+    between two valid masses), which the adjoint masks its k / damping /
+    rate gradients with."""
     m = state.masses
     dtype = m.pos.dtype
     pair_ok = state.stencil.mask
@@ -122,6 +133,8 @@ def prep_invariants(shape: SceneShape, state: SimState) -> dict:
     inv["planes"], inv["balls"] = planes, balls
     if any(local_caps(shape)):
         inv["lc"] = F.stage_local(state.lcon, local_caps(shape), dtype)
+    if shape.has_remainder:
+        inv["rem"] = F.stage_remainder(shape, state, dtype)
     if shape.has_actuated:
         # +rate / -rate / 0 and the matching bound; invalid pairs never
         # mutate rest (reference early-return, sim.cu:1163)
@@ -135,9 +148,10 @@ def prep_invariants(shape: SceneShape, state: SimState) -> dict:
     return inv
 
 
-def _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest):
-    """The chunk's output state: fresh pos/vel/acc (+ rest), advanced T
-    and t."""
+def _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest,
+                  rem_rest=None):
+    """The chunk's output state: fresh pos/vel/acc (+ the family and
+    remainder rest), advanced T and t."""
     m = state.masses
     dtn = n_steps * state.dt
     new = dataclasses.replace(
@@ -149,6 +163,9 @@ def _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest):
     if shape.has_actuated:
         new = dataclasses.replace(new, stencil=dataclasses.replace(
             state.stencil, rest=rest))
+        if shape.has_remainder:
+            new = dataclasses.replace(new, springs=dataclasses.replace(
+                state.springs, rest=rem_rest))
     return new
 
 
@@ -195,9 +212,11 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
     planes, balls = inv["planes"], inv["balls"]
     nc = cfg.normal_coeff
     caps = local_caps(shape)
+    rem_flags = (shape.has_damping, shape.has_breathing, shape.has_actuated)
 
-    def compute_forces(pos, vel, t_now, rest):
-        """(force, mutated velocity, rest) at (pos, vel)."""
+    def compute_forces(pos, vel, t_now, rest, rem_rest):
+        """(force, mutated velocity, rest, remainder rest) at (pos,
+        vel)."""
         f_acc = inv["const_f"]
         if shape.has_magnets:
             f_acc = f_acc + field(pos)
@@ -224,6 +243,10 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
                 mag = mag + axial * damp[fi]
             f = (mag * inv_ln) * diff
             f_acc = f_acc - f + torch.roll(f, d, dims=-1)
+        if shape.has_remainder:
+            f_rem, rem_rest = F.remainder_sum(inv["rem"], pos, vel, t_now,
+                                              dt, rem_rest, rem_flags)
+            f_acc = f_acc + f_rem
         for p in range(shape.n_planes):
             nvec = planes[p, :3][:, None]
             off, fk, fs = planes[p, 3], planes[p, 4], planes[p, 5]
@@ -262,11 +285,11 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
         if shape.has_drag:
             vn = torch.sqrt(torch.sum(vel * vel, dim=0))
             f_acc = f_acc - m.drag * vn * vel
-        return f_acc, vel, (torch.stack(new_rest) if shape.has_actuated
-                            else rest)
+        return f_acc, vel, (torch.stack(new_rest) if new_rest
+                            else rest), rem_rest
 
     pos, vel, acc = m.pos, m.vel, m.acc
-    rest = state.stencil.rest
+    rest, rem = state.stencil.rest, state.springs.rest
     for step in range(n_steps):
         if trace is not None:
             trace.append(torch.cat([pos, vel]))
@@ -275,17 +298,17 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
             # the predictor and the corrector start from pass 1's mutated
             # velocity vel1 (a frozen mass's midpoint velocity is vel1);
             # the position advances with pass 2's mutated velocity vel2
-            f1, vel1, rest = compute_forces(pos, vel, t_base, rest)
+            f1, vel1, rest, rem = compute_forces(pos, vel, t_base, rest, rem)
             acc1 = f1 * minv
             pos_h = torch.where(frozen, pos, pos + 0.5 * vel1 * dt)
             vel_h = torch.where(frozen, vel1, vel1 + 0.5 * acc1 * dt)
-            f2, vel2, rest = compute_forces(pos_h, vel_h, t_base + 0.5 * dt,
-                                            rest)
+            f2, vel2, rest, rem = compute_forces(pos_h, vel_h,
+                                                 t_base + 0.5 * dt, rest, rem)
             new_acc = f2 * minv
             v2 = vel1 + new_acc * dt
             p2 = pos + vel2 * dt
         else:
-            f, vel_m, rest = compute_forces(pos, vel, t_base, rest)
+            f, vel_m, rest, rem = compute_forces(pos, vel, t_base, rest, rem)
             new_acc = f * minv
             if cfg.integrator is Integrator.VERLET:
                 v2 = vel_m + 0.5 * (acc + new_acc) * dt
@@ -300,7 +323,8 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
         pos = torch.where(frozen, pos, p2)
         vel = torch.where(frozen, vel, v2)
         acc = torch.where(frozen, acc, new_acc)
-    return _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest)
+    return _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest,
+                         rem)
 
 
 class _LocalSlots(ctypes.Structure):
@@ -326,8 +350,47 @@ def local_struct(shape: SceneShape, inv: dict,
     return ls
 
 
+class _Remainder(ctypes.Structure):
+    """Mirror of ``struct Remainder`` in ``csrc/step_body.cuh``: the
+    remainder springs as ``forces.stage_remainder`` stages them (null
+    pointers without remainder springs); the caller sets the rest buffers
+    of each pass."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in (
+        "d", "s", "has_damping", "has_breathing", "has_actuated",
+        "closed")]
+        + [(f, ctypes.c_void_p) for f in (
+            "inc", "sign", "ends", "p", "rest_src", "rest_dst")])
+
+
+def remainder_struct(shape: SceneShape, inv: dict, kernel: str = "fused",
+                     closed: bool = False) -> _Remainder:
+    """The kernels' ``Remainder`` of a scene from its staging ``inv``
+    (whose ``rem`` is ``forces.stage_remainder``), checked as ``kernel``
+    takes it; its rest_src is the staged rest.  ``closed``: ACTUATED rest
+    in the closed form (the tiled step, the adjoints' backward), else
+    advanced per pass and carried (the fused step and its replay)."""
+    r = _Remainder()
+    if not shape.has_remainder:
+        return r
+    R = inv["rem"]
+    n, s = shape.n_masses, shape.n_springs
+    d = int(R["inc"].shape[1])
+    r.d, r.s = d, s
+    r.has_damping, r.has_breathing = (int(shape.has_damping),
+                                      int(shape.has_breathing))
+    r.has_actuated, r.closed = int(shape.has_actuated), int(closed)
+    r.inc = _checked("inc_idx", R["inc"], (n, d), torch.int32, kernel)
+    r.sign = _checked("inc_sign", R["sign"], (n, d), kernel=kernel)
+    r.ends = _checked("ends", R["ends"], (2, s), torch.int32, kernel)
+    r.p = _checked("remainder rows", R["p"], (len(F.REM_ROWS), s),
+                   kernel=kernel)
+    r.rest_src = _checked("remainder rest", R["rest"], (s,), kernel=kernel)
+    return r
+
+
 class _ChunkArgs(ctypes.Structure):
-    """Mirror of ``struct ChunkArgs`` in ``csrc/fused_step.cu``."""
+    """Mirror of ``struct ChunkArgs`` in ``csrc/step_body.cuh``."""
 
     _fields_ = ([(f, ctypes.c_int) for f in (
         "n", "nf", "n_planes", "n_balls", "n_steps", "integrator", "clamp",
@@ -339,8 +402,9 @@ class _ChunkArgs(ctypes.Structure):
             "acc_in", "cforce", "minv", "fixed", "k", "rest_in", "damping",
             "bsign", "bomega", "arate", "abound", "drag", "pos_out",
             "vel_out", "acc_out", "pos_tmp", "vel_tmp", "acc_tmp",
-            "pos_half", "vel_half", "vel_v1", "rest_out", "rest_tmp")]
-        + [("local", _LocalSlots)])
+            "pos_half", "vel_half", "vel_v1", "rest_out", "rest_tmp",
+            "rem_out", "rem_tmp")]
+        + [("local", _LocalSlots), ("rem", _Remainder)])
 
 
 def _checked(name, t, shape, dtype=torch.float32, kernel="fused"):
@@ -388,6 +452,12 @@ def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
     rest_in = state.stencil.rest
     rest_out = empty(fam) if shape.has_actuated else rest_in
     rest_tmp = empty(fam) if shape.has_actuated else rest_in
+    # the remainder rest's two buffers start equal: a spring no thread
+    # owns (padding) is never written and keeps its rest
+    rem_in = inv["rem"]["rest"] if shape.has_remainder else None
+    rem_out = rem_tmp = rem_in
+    if shape.has_remainder and shape.has_actuated:
+        rem_out, rem_tmp = rem_in.clone(), rem_in.clone()
 
     a = _ChunkArgs()
     a.n, a.nf, a.n_steps = n, nf, n_steps
@@ -401,6 +471,7 @@ def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
     a.deltas = _checked("deltas", deltas, (nf,), torch.int32)
     a.scal = _checked("scal", inv["scal"], (2,))
     a.local = local_struct(shape, inv)
+    a.rem = remainder_struct(shape, inv)
     a.planes = _checked("planes", inv["planes"], (max(shape.n_planes, 1), 6))
     a.balls = _checked("balls", inv["balls"], (max(shape.n_balls, 1), 4))
     a.pos_in = _checked("pos", m.pos, vec)
@@ -425,11 +496,13 @@ def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
     if rk2_local:
         a.vel_v1 = scratch[5].data_ptr()
     a.rest_out, a.rest_tmp = rest_out.data_ptr(), rest_tmp.data_ptr()
+    if rem_in is not None:
+        a.rem_out, a.rem_tmp = rem_out.data_ptr(), rem_tmp.data_ptr()
     # The temporaries are freed when the caller drops them, while the
     # kernels may still be running: safe, because the caching allocator
     # reuses memory freed on this stream only for later work on it.
-    return a, (inv, pos_out, vel_out, acc_out, rest_out, deltas, scratch,
-               rest_tmp)
+    return a, (inv, pos_out, vel_out, acc_out, rest_out, rem_out, deltas,
+               scratch, rest_tmp, rem_tmp)
 
 
 class _PassArgs(ctypes.Structure):
@@ -440,7 +513,7 @@ class _PassArgs(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in (
                     "fpos", "fvel", "pos0", "vel0", "acc0", "rest_src",
                     "cforce", "pos_dst", "vel_dst", "acc_dst", "rest_dst",
-                    "vel_v1")])
+                    "vel_v1", "rem_src", "rem_dst")])
 
 
 # the kernel's step modes (csrc/step_body.cuh enum Mode)
@@ -466,10 +539,10 @@ def _fused_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
     ``field`` (default ``magnet_field_fn(shape, state, plain=False)``)."""
     lib = _lib()
     a, keep = _chunk_args(shape, state, n_steps)
-    inv, pos_out, vel_out, acc_out, rest_out = keep[:5]
+    inv, pos_out, vel_out, acc_out, rest_out, rem_out = keep[:6]
     stream = torch.cuda.current_stream(pos_out.device).cuda_stream
     if shape.has_magnets:
-        pos_out, vel_out, acc_out, rest_out = _magnet_passes(
+        pos_out, vel_out, acc_out, rest_out, rem_out = _magnet_passes(
             lib, shape, state, n_steps, a, inv, stream,
             field or magnet_field_fn(shape, state, plain=False))
     else:
@@ -480,19 +553,22 @@ def _fused_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
         fused_chunk.launches += n_steps * (2 if shape.config.integrator
                                            is Integrator.RK2 else 1)
     return _finish_chunk(shape, state, inv, n_steps, pos_out, vel_out,
-                         acc_out, rest_out)
+                         acc_out, rest_out, rem_out)
 
 
 def _magnet_passes(lib, shape, state, n_steps, a, inv, stream, field):
     """``n_steps`` steps of a magnet scene, one force pass at a time: the
     field at the pass's positions, then one step-kernel launch with the
-    constant force ``const_f + field``.  Every pass writes fresh buffers.
-    Returns the final (pos, vel, acc, rest)."""
+    constant force ``const_f + field``.  Every pass writes fresh buffers
+    (the remainder rest's start as a copy of the last, see _chunk_args).
+    Returns the final (pos, vel, acc, rest, remainder rest)."""
     m = state.masses
     rk2 = shape.config.integrator is Integrator.RK2
     mode = {Integrator.EULER: _EULER, Integrator.VERLET: _VERLET,
             Integrator.RK2: _RK2_FULL}[shape.config.integrator]
     pos, vel, acc, rest = m.pos, m.vel, m.acc, state.stencil.rest
+    rem = inv["rem"]["rest"] if shape.has_remainder else None
+    rem_moves = shape.has_remainder and shape.has_actuated
     empty = torch.empty_like
     p = _PassArgs()
     # RK2 with local constraints: the predictor stores pass 1's mutated
@@ -501,9 +577,12 @@ def _magnet_passes(lib, shape, state, n_steps, a, inv, stream, field):
     p.vel_v1 = None if v1 is None else v1.data_ptr()
 
     def launch(step, mode, fpos, fvel, dst):
-        nonlocal rest
+        nonlocal rest, rem
         cf = inv["const_f"] + field(fpos)
         rest_dst = empty(rest) if shape.has_actuated else rest
+        rem_dst = rem.clone() if rem_moves else rem
+        if rem is not None:
+            p.rem_src, p.rem_dst = rem.data_ptr(), rem_dst.data_ptr()
         p.step, p.mode = step, mode
         p.fpos, p.fvel = fpos.data_ptr(), fvel.data_ptr()
         p.pos0, p.vel0, p.acc0 = pos.data_ptr(), vel.data_ptr(), acc.data_ptr()
@@ -516,7 +595,7 @@ def _magnet_passes(lib, shape, state, n_steps, a, inv, stream, field):
             raise RuntimeError(
                 f"fused_step kernel launch failed: CUDA error {rc}")
         fused_chunk.launches += 1
-        rest = rest_dst
+        rest, rem = rest_dst, rem_dst
 
     for s in range(n_steps):
         fpos, fvel = pos, vel
@@ -526,7 +605,7 @@ def _magnet_passes(lib, shape, state, n_steps, a, inv, stream, field):
         out = (empty(pos), empty(vel), empty(acc))
         launch(s, mode, fpos, fvel, out)
         pos, vel, acc = out
-    return pos, vel, acc, rest
+    return pos, vel, acc, rest, rem
 
 
 def fused_chunk(shape: SceneShape, state: SimState, n_steps) -> SimState:

@@ -232,6 +232,20 @@ run_eager.steps = 0
 # The TPU's on-chip budget (titan_tpu/ops/pallas_step.py:44): the route
 # keeps the reference's threshold between its two kernels.
 RESIDENT_BUDGET = 100 * 1024 * 1024
+# The TPU fused kernel's cap on its remainder-spring endpoint selectors
+# (titan_tpu/ops/pallas_step.py:56): a scene past it takes the tiled
+# kernel there, and so it does here.
+REM_SEL_BUDGET = 16 * 1024 * 1024
+
+
+def remainder_selector_bytes(shape: SceneShape) -> int:
+    """Bytes of the TPU fused kernel's remainder selectors ([2S, R] row
+    and [2S, 128] lane one-hots and two [2S, 128] temporaries, f32;
+    ``titan_tpu/ops/pallas_step.py:78-87``); 0 without remainder springs.
+    The card's kernels have no selectors: the count is a route rule."""
+    if not shape.has_remainder:
+        return 0
+    return 4 * 2 * shape.n_springs * (shape.n_masses // 128 + 3 * 128)
 
 
 def resident_bytes(shape: SceneShape) -> int:
@@ -243,14 +257,20 @@ def resident_bytes(shape: SceneShape) -> int:
     local-constraint slot rows), the body's temporaries and the remainder
     springs' endpoint selectors."""
     n, f = shape.n_masses, len(shape.stencil_deltas)
-    rem = 0
-    if shape.has_remainder:
-        rem = 4 * 2 * shape.n_springs * (n // 128 + 3 * 128)
+    rem = remainder_selector_bytes(shape)
     fam = 5 * f + (3 * f if shape.has_actuated else 0)
     sc = 2 + (1 if shape.has_drag else 0) + (5 if shape.has_magnets else 0)
     sc += F.local_slot_rows(local_caps(shape))
     tmp = 3 * 10 if shape.config.integrator is Integrator.RK2 else 3 * 6
     return 4 * n * (3 * 7 + fam + sc) + 4 * n * tmp + rem
+
+
+def fits_fused(shape: SceneShape, nbytes: int) -> bool:
+    """The reference's rule for its fused kernels: the remainder selectors
+    within ``REM_SEL_BUDGET`` and ``nbytes`` (the residency of the fused
+    step or adjoint) under ``RESIDENT_BUDGET``."""
+    return (remainder_selector_bytes(shape) <= REM_SEL_BUDGET
+            and nbytes < RESIDENT_BUDGET)
 
 
 def chunk_route(shape: SceneShape):
@@ -259,14 +279,15 @@ def chunk_route(shape: SceneShape):
     kernels refused it (else None).  A scene takes the counterpart of the
     kernel it takes on a TPU (``titan_tpu/ops/step.py:212-230``): the
     fused step where it accepts the scene and the scene fits the
-    reference's residency rule (``resident_bytes``), else the tiled step
-    where it accepts the scene, else the fused step where it accepts the
-    scene (its card kernel has no size cap, so a large magnet lattice stays
-    on a kernel), else the eager loop."""
+    reference's rule (``fits_fused``: its remainder selectors and
+    ``resident_bytes``), else the tiled step where it accepts the scene,
+    else the fused step where it accepts the scene (its card kernel has no
+    size cap, so a large magnet lattice, or a remainder scene without
+    stencil families, stays on a kernel), else the eager loop."""
     from .fused_step import fused_reject_reason
     from .tiled_step import tiled_reject_reason
     r_fused = fused_reject_reason(shape)
-    if r_fused is None and resident_bytes(shape) < RESIDENT_BUDGET:
+    if r_fused is None and fits_fused(shape, resident_bytes(shape)):
         return "fused", None
     r_tiled = tiled_reject_reason(shape)
     if r_tiled is None:

@@ -8,9 +8,10 @@ RK2: the TPU's single, rk2a and rk2b modes).  For state on the CPU it runs
 ``tiled_chunk_plain``, a plain PyTorch transcription of the TPU kernel's
 body (``pallas_tiled.py::_build_kernel`` on its non-rsqrt branch) with
 ``torch.roll`` for its rolls and its accumulation order: per family
-``fw - f + roll(f, d)`` from zero, then ``f_acc = fw + const_f``, then
-planes, balls, the per-mass local constraints (``forces.local_slots`` on the
-fused step's stacked slot array), drag and the update.  That is the opposite
+``fw - f + roll(f, d)`` from zero, then ``f_acc = fw + (const_f +
+remainder)``, then planes, balls, the per-mass local constraints
+(``forces.local_slots`` on the fused step's stacked slot array), drag and
+the update.  That is the opposite
 order of the fused step's, so the two agree to f32 rounding, not bitwise.  There is no fallback
 between the two: a CUDA tensor goes to the kernels or raises.
 
@@ -22,9 +23,17 @@ ACTUATED rest has the closed form ``rest0 + min(s + 1, s_stop) rate dt``
 from the chunk's start (``pallas_tiled.py:41-51``; two advances per dt under
 RK2), so no rest is carried through the chunk.
 
+Remainder springs (springs in no stencil family) run inside every per-step
+launch (``csrc/step_body.cuh::remainder_forces``, on the fused step's
+staging ``forces.stage_remainder``), where the TPU evaluates them between
+launches as glue fed through its constant-force input
+(``pallas_tiled.py:1609-1640``, ``forces.compact_remainder_forces``).  They
+take the families' closed-form ACTUATED rest, where the TPU's glue carries
+it step by step: the two agree to ~1e-7 relative.  As on the TPU, a scene
+with them takes no resident grid (``mega_seg``).
+
 Envelope (``tiled_reject_reason``): f32 Euler, Verlet or RK2, persistent
-external force, stencil families only.  Scenes with remainder springs or
-magnets are outside it.
+external force, stencil families.  Magnet scenes are outside it.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ from ..config import (ACTIVE_CONTRACT_THEN_EXPAND, ACTIVE_EXPAND_THEN_CONTRACT,
                       ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator)
 from ..state import SceneShape, SimState
 from . import forces as F
-from .fused_step import _LocalSlots, _checked, _finish_chunk, local_struct
+from .fused_step import (_LocalSlots, _Remainder, _checked, _finish_chunk,
+                         local_struct, remainder_struct)
 from .forces import _safe_norm
 from .step import local_caps
 
@@ -92,9 +102,6 @@ def tiled_reject_reason(shape: SceneShape):
         return "no stencil spring families"
     if not cfg.persistent_extern_force:
         return "strict per-step extern_force mode"
-    if shape.has_remainder:
-        return ("irregular (remainder) springs are not in the tiled kernel "
-                "yet (ROADMAP B2)")
     if shape.has_magnets:
         return ("magnet scenes run the fused step's per-pass field route "
                 "(the tiled magnet glue is not ported, ROADMAP B2)")
@@ -108,7 +115,8 @@ def mega_seg(shape: SceneShape) -> int:
     """Steps per resident-grid launch for this scene, 0 for one launch per
     step (``pallas_tiled.py::_mega_env_ok``): Euler, Verlet or RK2 with no
     per-step glue between steps.  Local constraints are no glue: they run
-    inside every step kernel."""
+    inside every step kernel.  Remainder springs run there too, but stay
+    off the resident grid by the reference's rule, where they are glue."""
     if shape.config.integrator not in _INTEGRATOR_CODE:
         return 0
     if shape.has_remainder or shape.has_magnets:
@@ -127,8 +135,9 @@ def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
     one-sided bound is crossed), and the per-mass inputs: constant force
     m g + extern, inverse mass, the frozen mask (fixed or invalid), drag,
     the [dt, t] scalars, the plane and ball tables, the stacked
-    local-constraint slots ``lc`` [L, N] (where the scene has them, as the
-    fused step stages them), and ``pair_ok``
+    local-constraint slots ``lc`` [L, N] and the remainder springs ``rem``
+    (where the scene has them, as the fused step stages them), and
+    ``pair_ok``
     (where a spring exists between two valid masses), which the tiled
     adjoint masks its per-spring gradients with."""
     m, st = state.masses, state.stencil
@@ -205,13 +214,16 @@ def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
     inv["planes"], inv["balls"] = planes, balls
     if any(local_caps(shape)):
         inv["lc"] = F.stage_local(state.lcon, local_caps(shape), f32)
+    if shape.has_remainder:
+        inv["rem"] = F.stage_remainder(shape, state, f32)
     return inv
 
 
 def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
     """(force, mutated velocity) of every mass at (pos, vel), in the TPU
     body's order: families (``family_forces``, pallas_tiled.py:673-738),
-    the constant force, then planes, balls, local constraints and drag
+    the constant force with the remainder springs' sum added to it (the
+    TPU's glue), then planes, balls, local constraints and drag
     (``mass_tail`` :748).  Its norms are gradient-safe at 0
     (``forces._safe_norm``, the same values), so that autograd through the
     plain chunk stays finite: the tiled adjoint's tests hold its transpose
@@ -243,7 +255,14 @@ def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
             mag = mag + axial * inv["damping"][fi]
         f = (mag * inv_ln) * diff
         fw = fw - f + torch.roll(f, d, dims=-1)
-    f_acc = fw + inv["const_f"]
+    cf = inv["const_f"]
+    if "rem" in inv:
+        R = inv["rem"]
+        cf = cf + F.remainder_sum(
+            R, pos, vel, t_now, inv["scal"][0], R["rest"],
+            (shape.has_damping, shape.has_breathing, shape.has_actuated),
+            cidx=adv_base + 1.0)[0]
+    f_acc = fw + cf
     planes, balls = inv["planes"], inv["balls"]
     for p in range(shape.n_planes):
         nvec = planes[p, :3][:, None]
@@ -331,16 +350,20 @@ def finish_tiled_chunk(shape: SceneShape, state: SimState, inv: dict,
                        n_steps: int, pos, vel, acc) -> SimState:
     """The chunk's output state (``pallas_tiled.py:1885-1903``): frozen
     masses get their old acc back, T advances for moving masses, and
-    ACTUATED rest takes the closed form at the chunk's end (two advances
-    per dt under RK2)."""
+    ACTUATED rest, the families' and the remainder springs', takes the
+    closed form at the chunk's end (two advances per dt under RK2)."""
     acc = torch.where(inv["move"], acc, state.masses.acc)
-    rest = state.stencil.rest
+    rest, rem_rest = state.stencil.rest, None
     if shape.has_actuated:
-        n_adv = n_steps * (2 if shape.config.integrator is Integrator.RK2
-                           else 1)
-        rest = rest + torch.clamp(inv["sstop"], max=float(n_adv)) \
-            * inv["aratedt"]
-    return _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest)
+        n_adv = float(n_steps * (2 if shape.config.integrator
+                                 is Integrator.RK2 else 1))
+        rest = rest + torch.clamp(inv["sstop"], max=n_adv) * inv["aratedt"]
+        if shape.has_remainder:
+            p = inv["rem"]["p"]
+            rem_rest = inv["rem"]["rest"] + torch.clamp(p[7], max=n_adv) \
+                * p[6]
+    return _finish_chunk(shape, state, inv, n_steps, pos, vel, acc, rest,
+                         rem_rest)
 
 
 def tiled_chunk_plain(shape: SceneShape, state: SimState,
@@ -373,7 +396,7 @@ class _TiledArgs(ctypes.Structure):
             "scal", "fparams", "planes", "balls", "bits", "k", "rest",
             "aratedt", "sstop", "damping", "bsign", "bomega", "cforce",
             "minv", "fixed", "drag")]
-        + [("local", _LocalSlots)])
+        + [("local", _LocalSlots), ("rem", _Remainder)])
 
 
 class _TiledChunk(ctypes.Structure):
@@ -422,6 +445,9 @@ def chunk_struct(shape: SceneShape, state: SimState, n_steps: int,
     reason = tiled_reject_reason(shape)
     if reason is not None:
         raise ValueError(f"tiled_chunk: scene outside the envelope: {reason}")
+    if k_seg and not mega_seg(shape):
+        raise ValueError("tiled_chunk: this scene takes per-step launches "
+                         "only (k_seg 0)")
     cfg = shape.config
     m = state.masses
     dev = m.pos.device
@@ -454,6 +480,7 @@ def chunk_struct(shape: SceneShape, state: SimState, n_steps: int,
     a.fixed = _checked("fixed", inv["fixed"], (n,), kernel=kern)
     a.drag = _checked("drag", inv["drag"], (n,), kernel=kern)
     a.local = local_struct(shape, inv, kern)
+    a.rem = remainder_struct(shape, inv, kern, closed=True)
 
     empty = lambda s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     out = [empty(vec) for _ in range(3)]

@@ -132,7 +132,7 @@ class Topology:
 
     inc_idx: torch.Tensor   # [N, D] int32 in [0, S]
     inc_sign: torch.Tensor  # [N, D]
-    seg_perm: torch.Tensor  # [2S] int32 (SEGMENT mode, not ported yet)
+    seg_perm: torch.Tensor  # [2S] int32 (SEGMENT mode)
     seg_ids: torch.Tensor   # [2S] int32
 
 
