@@ -82,9 +82,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      versions, and the host time of the grid setup per pass (grid_setup
      timed alone);
   l. gradient routing: diff.grad_rollout over 20 steps of a 16-link scene
-     runs fast_rollout (the adjoint refuses magnets); its backward must
-     launch no adjoint and no magnet kernel, run 20 eager steps and give
-     finite gradients;
+     takes the fused adjoint (the field kernel in the forward and the
+     replay, a magnet transpose per force pass, no eager step), and the
+     spring-less 2,000-particle swarm, which neither adjoint takes,
+     fast_rollout (20 eager steps in the backward, no adjoint or magnet
+     kernel); finite, nonzero position and mag_maxf gradients;
   m. build csrc/tiled_step.cu (the tiled step: per-step, resident-grid and
      resident-grid RK2 kernels) beside the others, all five nvcc started
      together, with the co-resident block limit of the cooperative grids;
@@ -197,6 +199,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain versions, the gradient path (the tiled adjoint, segments of 50,
      B7 only: 0 B8 launches) with z3's checks; timing;
   z5. every bound counts the run's own remainder topology (rem_work);
+  z6. the magnet gradients' new branches against their plain versions on
+     small scenes: the pairwise field's transpose (B5, csrc/
+     magnets_adjoint.cuh) alone on a magnet cloud (deleted and
+     zero-parameter masses, a tenth fixed) and on 64 RobotLinks, with the
+     pairwise field kernel against its plain version in the kernel's order
+     (pairwise_field_lanes), bitwise; the fused trace with magnets (B4: the
+     field kernel, then the replay kernel per pass, each pass's constant
+     force in the trace) bitwise trace_run_plain fed the kernel's field,
+     and the backward with its transposes against bwd_run_plain (Euler,
+     Verlet bitwise; RK2 per element) on 64 RobotLinks, with 32 links
+     under RK2; the tiled glue chunk (B2), replay (B6) and B7 on four
+     12,000-mass lattices with 4,000 magnets and 48 links (pairwise Euler
+     and RK2, binned Verlet and RK2: bitwise, RK2 and the binned vjp per
+     element);
+  z7. 1,024 RobotLinks (2,048 masses, in the air at t = 0) take the fused
+     step and adjoint; under Euler, Verlet and RK2 the trace and backward
+     at full width against their plain versions, and diff.grad_rollout
+     over 200 steps in segments of 100 with gradients over pos, vel and
+     the four magnet parameters, every count set to 0 just before and read
+     just after: exact launches (fused step, replay, backward, pairwise
+     field, transpose), 0 eager, finite gradients, nonzero where the term
+     acts (acting_params); timing;
+  z8. scripts/tpu_soak.py's flow 6 (64^3 = 262,144 masses, 10,000
+     magnets, 50 links, dt 1e-4) through Simulation for 500 steps on the
+     tiled route with the grid field, every count zeroed before and read
+     after (one per-step launch and one grid launch per step, nothing
+     else); from there under Euler, Verlet and RK2 the glue step, replay
+     and B7 against their plain versions at full width, and the gradient
+     path on the tiled adjoint over 100 steps in segments of 50 (exact
+     launches, the binned vjp once per force pass, 0 resident-grid, 0 B8,
+     0 eager; finite gradients, nonzero where the term acts), and once
+     more under Euler over 10 steps with the magnets' mag_rad 0.06, where
+     shells overlap and every magnet term must act (the soak's own shells
+     never overlap, so their mag_rad and mag_stiffness gradients are 0);
+     timing;
+  z9. every new kernel in the kernels line with its launches, error, time,
+     plain time and bound;
   5. print the kernels line (one entry per kernel and path), the card's
      name and power limit, and last the result line.
 
@@ -839,10 +878,14 @@ def adjoint_bound_ms(shape, state, seg):
     # the remainder springs' table and rows, read once per segment, and
     # their gradients, written once (5 per live spring at most)
     r_bytes, r_ops, r_ops_t = rem_work(shape, state)
+    # a magnet scene's trace holds each pass's constant force too (its
+    # rows written by the field's pass, read by the backward)
+    from titan_tpu_torch.ops.adjoint import trace_rows
+    rows = trace_rows(shape)
     trace_bytes = 4 * n * (seg * 6 + 9 + inv + lc) + r_bytes
     grads = 9 + 3 + 1 + shape.has_drag + f * (
         2 + shape.has_damping + shape.has_breathing + shape.has_actuated)
-    bwd_bytes = 4 * n * (seg * 6 + 9 + inv + grads + lc) + r_bytes \
+    bwd_bytes = 4 * n * (seg * rows + 9 + inv + grads + lc) + r_bytes \
         + 5 * r_ops_t / (2 * REM_OPS_T) * 4
     ops_fwd = rk2 * (OPS_PER_SPRING * n_springs
                      + (OPS_PER_MASS + l_ops) * n + r_ops)
@@ -1529,49 +1572,64 @@ def time_magnet_path(name, shape, state, field_kernel, n_steps):
 
 
 def magnet_grad_routing(titan):
-    """Phase l: diff.grad_rollout over 20 steps of a 16-link scene.  The
-    adjoint refuses magnets, so it runs fast_rollout: the forward is the
-    fused chunk (with the pairwise kernel), the backward recomputes the
-    steps eagerly and launches no adjoint and no magnet kernel."""
+    """Phase l: gradient routing of magnet scenes.  diff.grad_rollout over
+    20 steps of a 16-link RobotLink scene takes the fused adjoint (its
+    magnet branches): the forward is the fused step with the pairwise
+    field, the backward the replay (the field again per pass), the sweep
+    and one magnet transpose per force pass, no eager step.  The
+    spring-less swarm (swarm_sim at 2,000 particles), which neither
+    adjoint takes, runs fast_rollout: its backward recomputes the 20 steps
+    eagerly, launching no adjoint and no magnet kernel.  Both give finite
+    nonzero gradients."""
     import torch
     from titan_tpu_torch import diff
-    from titan_tpu_torch.ops.adjoint import adjoint_reject_reason
-    shape, state = marshalled(link_sim(titan, 16, magnetic_force=0.02,
-                                       spread=0.15, z=0.2, dt=1e-4))
-    check("magnets" in (adjoint_reject_reason(shape) or ""),
-          "the adjoint accepts a magnet scene")
-    fwd, tr, bwd, eager = counters()
-    leaves, st = grad_leaves(state)
-    wpos, wvel = grad_loss_weights(state)
-    zero_magnet_counts()
-    tr.launches = bwd.launches = 0
-    out = diff.grad_rollout(shape, st, 20)
-    torch.cuda.synchronize()
-    f_counts = read_magnet_counts()
-    f_adj = tr.launches + bwd.launches
-    zero_magnet_counts()
-    loss = torch.sum(out.masses.pos * wpos) + torch.sum(out.masses.vel * wvel)
-    grads = torch.autograd.grad(loss, leaves)
-    torch.cuda.synchronize()
-    b_counts = read_magnet_counts()
-    b_adj = tr.launches + bwd.launches
-    finite = all(bool(torch.isfinite(g).all()) for g in grads)
-    print(f"gradient routing (16-link RobotLink, grad_rollout 20 steps): "
-          f"adjoint refuses ({adjoint_reject_reason(shape)}); forward: "
-          f"fused_step {f_counts['fused']}, pairwise field "
-          f"{f_counts['pairwise']}, adjoint {f_adj}, eager steps "
-          f"{f_counts['eager']}; backward: pairwise field "
-          f"{b_counts['pairwise']}, grid field {b_counts['grid']}, adjoint "
-          f"{b_adj}, eager steps {b_counts['eager']}; gradients finite: "
-          f"{finite}; |d loss / d pos|max {float(grads[0].abs().max()):.3e}")
-    check(f_adj == 0 and b_adj == 0, "an adjoint kernel ran on a magnet "
-          "scene")
-    check(b_counts["pairwise"] == 0 and b_counts["grid"] == 0,
-          "a magnet kernel ran inside the backward")
-    check(b_counts["eager"] == 20, f"backward ran {b_counts['eager']} "
-          "eager steps, not 20")
-    check(finite and float(grads[0].abs().max()) > 0,
-          "magnet gradients are not finite or all zero")
+    for label, sim, route in (
+            ("16-link RobotLink", link_sim(titan, 16, magnetic_force=0.02,
+                                           spread=0.15, z=0.2, dt=1e-4),
+             "adjoint"),
+            ("2,000-particle swarm", swarm_sim(titan, 2000), "fast")):
+        shape, state = marshalled(sim)
+        got_route, reason = diff.grad_route(shape)
+        check(got_route == route, f"{label}: route {got_route} ({reason})")
+        leaves, st = mag_grad_leaves(state)
+        wpos, wvel = grad_loss_weights(state)
+        torch.cuda.synchronize()
+        zero_mag_counts()
+        out = diff.grad_rollout(shape, st, 20)
+        torch.cuda.synchronize()
+        f_counts = read_mag_counts()
+        zero_mag_counts()
+        loss = torch.sum(out.masses.pos * wpos) \
+            + torch.sum(out.masses.vel * wvel)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        b_counts = read_mag_counts()
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        print(f"gradient routing ({label}, grad_rollout 20 steps): route "
+              f"{got_route}" + (f" ({reason})" if reason else "")
+              + "; forward: " + ", ".join(f"{k} {v}" for k, v in
+                                          f_counts.items() if v)
+              + "; backward: " + ", ".join(f"{k} {v}" for k, v in
+                                           b_counts.items() if v)
+              + f"; gradients finite: {finite}; |d loss / d pos|max "
+              f"{float(grads[0].abs().max()):.3e}, |d loss / d "
+              f"mag_maxf|max {float(grads[4].abs().max()):.3e}")
+        adj = ("fused", "adjoint_trace", "adjoint_bwd", "transpose")
+        if route == "adjoint":
+            check(f_counts["fused"] == 20 and f_counts["pairwise"] == 20
+                  and f_counts["eager"] == 0,
+                  f"{label}: forward counts {f_counts}")
+            check(all(b_counts[k] > 0 for k in adj[1:])
+                  and b_counts["eager"] == 0,
+                  f"{label}: backward counts {b_counts}")
+        else:
+            check(b_counts["eager"] == 20
+                  and not any(b_counts[k] for k in adj + ("pairwise",
+                                                          "grid")),
+                  f"{label}: backward counts {b_counts}")
+        check(finite and float(grads[0].abs().max()) > 0
+              and float(grads[4].abs().max()) > 0,
+              f"{label}: gradients not finite or zero")
 
 
 def magnet_phases(titan, kernels):
@@ -2604,7 +2662,9 @@ def tiled_adjoint_bound_ms(shape, state, kind, steps):
             + (4 if "k" not in plan else 0) + 4 * shape.has_drag \
             + 4 * lrows
         _, nb = at.bar_plan(shape)
-        per_mass = 24 * steps + 36 * 2 + inv + 4 * nb * 2
+        # the trace entry: pos and vel, and a magnet scene's per-pass cf
+        per_mass = 4 * at.trace_rows(shape) * steps + 36 * 2 + inv \
+            + 4 * nb * 2
         # the per-spring gradients, written once
         r_bytes += 5 * 4 * r_ops_t / (2 * REM_OPS_T)
         ops = steps * passes * (
@@ -3685,6 +3745,766 @@ def remainder_phases(titan, kernels):
     rem_stress_path(titan, kernels)
 
 
+# ---------------------------------------------------------------------------
+# Magnet gradients and the tiled magnet glue (phases z6-z9): the pairwise
+# field's transpose (B5), the fused trace with magnets (B4), the tiled
+# step's glue (B2), its replay (B6) and split backward (B7) against their
+# plain versions on small scenes; the RobotLink gradient path and the 64^3
+# magnet lattice of scripts/tpu_soak.py's flow 6 through Simulation and
+# grad_rollout; timing
+# ---------------------------------------------------------------------------
+
+# ops of the transpose of one pair's field term, per role, on top of the
+# OPS_PAIR_FORCE of the term it recomputes (the warp of i transposes each
+# pair inside the cutoff twice: i receiving from j and j receiving from
+# i): gcoeff (5), the shell, safe, radius, stiffness, maxf and scale
+# cotangents (14), the |d|^2 chain (5) and gd's second term (8); and the
+# bytes per mass of one transpose: position, five parameters, fixed and
+# gf read (48 B), gpos and the four gradients read and written (56 B)
+OPS_PAIR_TRANSPOSE, TRANSPOSE_BYTES_PER_MASS = 32, 104
+# the tiled glue scene (scripts/tpu_soak.py:124-153): 64^3 lattice,
+# 10,000 magnets at linspace indices, 50 random links; its forward steps
+# and its gradient paths (steps, segment)
+GLUE_NX, GLUE_MAGNETS, GLUE_LINKS = 64, 10_000, 50
+GLUE_FWD_STEPS, GLUE_GRAD_STEPS, GLUE_SEG = 500, 100, 50
+# the soak magnets never overlap their shells (nearest magnets 0.106 m
+# apart, mag_rad 0.01), so their mag_rad and mag_stiffness gradients are
+# exact zeros; one more Euler gradient path from the same state with
+# mag_rad GLUE_SHELL_RAD on the magnets (shells overlap below 0.12 m)
+# runs the binned vjp's shell branch at full width, over GLUE_SHELL_STEPS
+GLUE_SHELL_RAD, GLUE_SHELL_STEPS = 0.06, 10
+# the RobotLink gradient path: link_sim's 1,024 links at t = 0
+LINK_GRAD_LINKS = 1024
+# the leaves of the magnet gradient paths
+MAG_GRAD_NAMES = ("pos", "vel", "mag_rad", "mag_stiffness", "mag_maxf",
+                  "mag_scale")
+
+
+def mag_counters():
+    """{name: (object, attribute)}: every count the magnet gradient paths
+    read (adjoint_counters and the field kernels, the binned pass and the
+    magnet transpose, counted by the sweeps that launch it)."""
+    from titan_tpu_torch.ops import adjoint, adjoint_tiled, magnets
+    from titan_tpu_torch.ops import magnets_grid
+    c = adjoint_counters()
+    c.update(pairwise=(magnets.pairwise_magnet_field, "launches"),
+             grid=(magnets_grid.grid_magnet_forces, "launches"),
+             binned=(magnets.binned_magnet_forces, "passes"),
+             transpose=(adjoint.bwd_run, "mag_launches"),
+             tiled_transpose=(adjoint_tiled.tiled_bwd_run, "mag_launches"))
+    return c
+
+
+def zero_mag_counts():
+    for obj, attr in mag_counters().values():
+        setattr(obj, attr, 0)
+
+
+def read_mag_counts():
+    return {k: getattr(obj, attr) for k, (obj, attr) in mag_counters().items()}
+
+
+def transpose_vs_plain(shape, state, label, bad, seed=6):
+    """B5 alone: the transpose kernel against magnet_transpose_plain at the
+    state's positions for a seeded cotangent, with a tenth of the masses
+    fixed, bitwise; and the pairwise field kernel against its plain
+    version in the kernel's order (pairwise_field_lanes), bitwise.
+    Returns max |d|."""
+    import numpy as np
+    import torch
+    from titan_tpu_torch.ops import magnets
+    m = state.masses
+    n, cut = shape.n_masses, shape.config.magnet_cutoff
+    prm = magnets.pairwise_params(m)
+    rng = np.random.RandomState(seed)
+    fixed = torch.from_numpy((rng.uniform(0, 1, n) < 0.1).astype(
+        np.float32)).to(m.pos.device)
+    gf = seeded_cotangents(n, m.pos.device, seed)[0]
+    got = magnets.magnet_transpose(m.pos, prm, fixed, gf, cut)
+    want = magnets.magnet_transpose_plain(m.pos, prm, fixed, gf, cut)
+    field = magnets.pairwise_magnet_field(m, cut, prm)
+    lanes = magnets.pairwise_field_lanes(m.pos, prm, cut)
+    torch.cuda.synchronize()
+    d = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    fsame = bool(torch.equal(field, lanes))
+    live = int((got[1] != 0).any(0).sum())
+    print(f"magnet transpose vs plain [{label}]: "
+          + ("bitwise" if same else f"DIFFERS ({d:.3e})")
+          + f", {live} masses with a parameter gradient; pairwise field "
+          "kernel vs its plain version in the kernel's order: "
+          + ("bitwise" if fsame else "DIFFERS"))
+    if not (same and fsame) or live == 0:
+        bad.append(f"{label}: magnet transpose or field differs from plain "
+                   f"(transpose {same}, field {fsame}, {live} live)")
+    return d
+
+
+def mag_fused_vs_plain(shape, state, label, bad):
+    """B4 and B5 in the sweep: the fused trace of a magnet scene (field
+    kernel, then the replay kernel, per pass) bitwise trace_run_plain fed
+    the field kernel's field and its last entry bitwise the forward
+    chunk's state; the backward (with one transpose per force pass) on
+    that trace against bwd_run_plain (bwd_diffs: Euler and Verlet bitwise,
+    RK2 per element).  Returns (trace, backward) max |d|."""
+    import torch
+    from titan_tpu_torch.ops import adjoint, fused_step
+    rk2 = shape.config.integrator.name == "RK2"
+    field = fused_step.magnet_field_fn(shape, state, plain=False)
+    trace = adjoint.trace_run(shape, state, BWD_STEPS)
+    want = adjoint.trace_run_plain(shape, state, BWD_STEPS, field=field)
+    last = fused_step.fused_chunk(shape, state, BWD_STEPS - 1)
+    torch.cuda.synchronize()
+    dtr = float((trace - want).abs().max())
+    tsame = bool(torch.equal(trace, want)) and bool(torch.equal(
+        trace[-1, :6], torch.cat([last.masses.pos, last.masses.vel])))
+    del want
+    cts = seeded_cotangents(shape.n_masses, trace.device)
+    g = adjoint.bwd_run(shape, state, trace, *cts)
+    ref = adjoint.bwd_run_plain(shape, state, trace, *cts)
+    torch.cuda.synchronize()
+    dbw, rel, bitwise, fails = bwd_diffs(g, ref, rk2)
+    live = int((ref["mag"] != 0).any(0).sum())
+    print(f"fused magnet adjoint vs plain [{label}]: trace ({BWD_STEPS} "
+          f"steps, {trace.shape[1]} rows) "
+          + ("bitwise" if tsame else f"DIFFERS ({dtr:.3e})")
+          + "; backward " + ("bitwise" if bitwise else "per element: "
+                             + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in rel.items()))
+          + f"; {live} masses with a magnet gradient"
+          + (f"  FAIL {fails}" if fails else ""))
+    if not tsame:
+        bad.append(f"{label}: trace differs from plain by {dtr:.3e}")
+    if fails or live == 0:
+        bad.append(f"{label}: backward differs from plain: {fails} ({live} "
+                   "live)")
+    return dtr, dbw
+
+
+def glue_lattice(titan, integrator, binned):
+    """small_lattice with soak-style magnets (mag_rad 0.01, stiffness 100,
+    maxf 1e-5, scale 1) on 4,000 masses at linspace indices and 48 links
+    (add_links), marshalled on the card: unbinned (the pairwise field
+    kernel) or binned (magnet_binned_threshold 500: the grid kernel and
+    the binned pass's vjp).  Returns (shape, state)."""
+    import dataclasses
+    import numpy as np
+    sim = small_lattice(titan, integrator)
+    sim.config = dataclasses.replace(
+        sim.config, magnet_binned_threshold=500 if binned else 10 ** 9)
+    st = sim._store
+    idx = np.linspace(0, st.n_masses - 1, 4000).astype(np.int64)
+    st.mag_rad[idx] = 0.01
+    st.mag_stiffness[idx] = 100.0
+    st.mag_maxf[idx] = 1e-5
+    st.mag_scale[idx] = 1.0
+    add_links(sim, 48)
+    sim._T = 0.0
+    sim._marshal()
+    return sim._shape, sim._state
+
+
+def glue_vs_plain(shape, state, label, bad):
+    """B2, B6 and B7 of a magnet scene: the tiled glue chunk (per-pass
+    launches fed the field kernel's field) over TRACE_STEPS steps bitwise
+    tiled_chunk_plain fed the same field; the replay bitwise
+    tiled_trace_run_plain fed that field, its last entry bitwise the
+    chunk's state; B7 on BWD_STEPS entries against tiled_bwd_run_plain
+    (unbinned: the transpose kernel in the sweep, Euler and Verlet
+    bitwise, RK2 per element; binned: the binned pass's vjp between the
+    parts, per element: its autograd accumulates with atomics).  Returns
+    (step, trace, backward) max |d|."""
+    import torch
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    from titan_tpu_torch.ops import fused_step, tiled_step
+    rk2 = shape.config.integrator.name == "RK2"
+    binned = bool(shape.magnet_binned)
+    field = fused_step.magnet_field_fn(shape, state, plain=False)
+    got = tiled_step.tiled_chunk(shape, state, TRACE_STEPS)
+    want = tiled_step.tiled_chunk_plain(shape, state, TRACE_STEPS,
+                                        field=field)
+    trace = at.tiled_trace_run(shape, state, TRACE_STEPS)
+    tw = at.tiled_trace_run_plain(shape, state, TRACE_STEPS, field=field)
+    last = tiled_step.tiled_chunk(shape, state, TRACE_STEPS - 1)
+    torch.cuda.synchronize()
+    d, same = state_diffs(got, want)
+    dtr = float((trace - tw).abs().max())
+    tsame = bool(torch.equal(trace, tw)) and bool(torch.equal(
+        trace[-1, :6], torch.cat([last.masses.pos, last.masses.vel])))
+    del tw
+    trace = trace[:BWD_STEPS]
+    inv = tiled_step.prep_tiled_inputs(shape, state)
+    cts = seeded_cotangents(shape.n_masses, trace.device)
+    g = at._tiled_bwd_cuda(shape, state, trace, *cts, inv, mega=False)
+    ref = at.tiled_bwd_run_plain(shape, state, trace, *cts, inv)
+    torch.cuda.synchronize()
+    dbw, rel, bitwise, fails = bwd_diffs(g, ref, rk2 or binned)
+    live = int((ref["mag"] != 0).any(0).sum())
+    print(f"tiled glue vs plain [{label}]: step ({TRACE_STEPS} steps) "
+          + ("bitwise" if same else f"DIFFERS {d}") + f"; trace ("
+          f"{trace.shape[1]} rows) " + ("bitwise" if tsame else
+                                        f"DIFFERS ({dtr:.3e})")
+          + "; backward " + ("bitwise" if bitwise else "per element: "
+                             + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in rel.items()))
+          + f"; {live} masses with a magnet gradient"
+          + (f"  FAIL {fails}" if fails else ""))
+    if not same:
+        bad.append(f"{label}: tiled glue chunk differs from plain: {d}")
+    if not tsame:
+        bad.append(f"{label}: glue trace differs from plain by {dtr:.3e}")
+    if fails or live == 0:
+        bad.append(f"{label}: B7 differs from plain: {fails} ({live} live)")
+    return max(d.values()), dtr, dbw
+
+
+def mag_small_scenes(titan):
+    """Phase z6: B5 alone on a magnet cloud (deleted and zero-parameter
+    masses) and on RobotLinks; B4 and B5 in the fused sweep on RobotLinks
+    (Euler, Verlet, RK2; RK2 with 32 links too); B2, B6 and B7 on four
+    12,000-mass glue lattices (unbinned Euler and RK2, binned Verlet and
+    RK2).  Returns the worst max |d| per kernel family."""
+    bad = []
+    worst = dict(transpose=0.0, trace=0.0, bwd=0.0, tiled=0.0,
+                 tiled_trace=0.0, tiled_bwd=0.0)
+    for label, (shape, state) in (
+            ("cloud", marshalled(cloud_sim(titan, 400,
+                                           edit="deleted_zero_param"))),
+            ("64 RobotLinks", marshalled(link_sim(titan, 64)))):
+        worst["transpose"] = max(worst["transpose"], transpose_vs_plain(
+            shape, state, label, bad))
+    for integ in ("euler", "verlet", "rk2"):
+        sim = link_sim(titan, 64, magnetic_force=0.5, spread=0.3, z=0.4,
+                       integrator=titan.Integrator[integ.upper()])
+        for label, (shape, state) in (
+                (f"64 RobotLinks, {integ}", marshalled(sim)),) + ((
+                (f"RobotLinks + 32 links, {integ}",
+                 rem_magnet_scene(titan, integ)),) if integ == "rk2"
+                else ()):
+            e = mag_fused_vs_plain(shape, state, label, bad)
+            worst["trace"] = max(worst["trace"], e[0])
+            worst["bwd"] = max(worst["bwd"], e[1])
+    for integ, binned in (("euler", False), ("rk2", False),
+                          ("verlet", True), ("rk2", True)):
+        shape, state = glue_lattice(titan, integ, binned)
+        label = f"glue lattice, {'binned' if binned else 'pairwise'}, {integ}"
+        check(shape.has_magnets and bool(shape.magnet_binned) == binned
+              and shape.has_remainder, f"{label}: {shape}")
+        e = glue_vs_plain(shape, state, label, bad)
+        for k, v in zip(("tiled", "tiled_trace", "tiled_bwd"), e):
+            worst[k] = max(worst[k], v)
+    check(not bad, "; ".join(bad))
+    print("magnet gradient small scenes: worst max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def transpose_bound_ms(state, cut):
+    """(ms, "bytes" or "operations") of one magnet transpose on this state:
+    every ordered pair of valid masses tested once (OPS_PAIR_TEST), each
+    one inside the cutoff transposed in both roles (2 x (OPS_PAIR_FORCE +
+    OPS_PAIR_TRANSPOSE)); TRANSPOSE_BYTES_PER_MASS per mass."""
+    m = state.masses
+    nv = int(m.valid.sum())
+    inside = pair_terms(m, cut)[2]
+    tb = TRANSPOSE_BYTES_PER_MASS * m.pos.shape[1] / HBM_BYTES_PER_S * 1e3
+    to = ((OPS_PAIR_TEST * nv * (nv - 1)
+           + 2 * (OPS_PAIR_FORCE + OPS_PAIR_TRANSPOSE) * inside)
+          / F32_FLOPS_PER_S * 1e3)
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def mag_grad_leaves(state, spring_k=False):
+    """(leaves pos, vel and the four magnet parameters, with the remainder
+    springs' k where ``spring_k``, requiring grad; the state built on
+    them)."""
+    import dataclasses
+    m = state.masses
+    leaves = [getattr(m, k).clone().requires_grad_() for k in MAG_GRAD_NAMES]
+    st = dataclasses.replace(state, masses=dataclasses.replace(
+        m, **dict(zip(MAG_GRAD_NAMES, leaves))))
+    if spring_k:
+        k = state.springs.k.clone().requires_grad_()
+        leaves.append(k)
+        st = dataclasses.replace(st, springs=dataclasses.replace(
+            st.springs, k=k))
+    return leaves, st
+
+
+def acting_params(shape, state):
+    """The magnet parameters with a term that acts on this state, over the
+    pairs the field visits (all pairs, or on a binned scene the first
+    ``cell_cap`` sources of each 3 x 3 neighbourhood): mag_rad where a
+    shell overlaps (inter < 0) on a receiver with stiffness, mag_stiffness
+    where a shell overlaps, mag_maxf where a receiver has a source with a
+    scale, mag_scale where a source has a receiver with a pull.  Returns
+    (names, {name: pairs})."""
+    import torch
+    from titan_tpu_torch.ops import magnets_grid
+    m, cut = state.masses, shape.config.magnet_cutoff
+    n = m.pos.shape[1]
+    counts = dict.fromkeys(MAG_GRAD_NAMES[2:], 0)
+
+    def add(ok, d2, rad_s, scale_s, idx):
+        dist = torch.sqrt(d2)
+        ok = ok & (dist < cut) & (d2 > 0)
+        shell = ok & (dist < m.mag_rad[idx] + rad_s)
+        counts["mag_rad"] += int((shell & (m.mag_stiffness[idx] != 0)).sum())
+        counts["mag_stiffness"] += int(shell.sum())
+        counts["mag_maxf"] += int((ok & (scale_s != 0)).sum())
+        counts["mag_scale"] += int((ok & (m.mag_maxf[idx] != 0)).sum())
+
+    if not shape.magnet_binned:
+        idx = torch.arange(n, device=m.pos.device)[:, None]
+        e = m.pos[:, :, None] - m.pos[:, None, :]
+        ok = m.valid[:, None] & m.valid[None, :] & (idx != idx.T)
+        add(ok, (e * e).sum(0), m.mag_rad[None, :], m.mag_scale[None, :],
+            idx[:, 0][:, None])
+    else:
+        G, cap = magnets_grid.GRID_DIM, shape.magnet_binned[1]
+        cell, starts, src = magnets_grid.grid_setup(m, cut)
+        starts, cell = starts.long(), cell.long()
+        idx = torch.arange(n, device=m.pos.device)
+        real = cell < G * G
+        cx, cy = cell // G, cell % G
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                x, y = cx + dx, cy + dy
+                ok = real & (x >= 0) & (x < G) & (y >= 0) & (y < G)
+                cc = torch.where(ok, x * G + y, 0)
+                s0 = starts[cc]
+                cnt = torch.where(ok, torch.clamp(starts[cc + 1] - s0,
+                                                  max=cap), 0)
+                for k in range(cap):
+                    j = torch.clamp(s0 + k, max=n - 1)
+                    e = m.pos - src[:3, j]
+                    add((k < cnt) & m.valid, (e * e).sum(0), src[3, j],
+                        src[4, j], idx)
+    return {k for k, v in counts.items() if v}, counts
+
+
+def mag_grad_counts(shape, n_steps, route):
+    """The counts a magnet gradient rollout of ``n_steps`` must give: the
+    fused adjoint (the field kernel once per force pass in the forward and
+    once in the replay, one transpose per force pass in the sweep) or the
+    tiled adjoint with per-step launches only (the grid field in the
+    forward and the replay, one binned-pass vjp per force pass between
+    B7's parts on a binned scene); nothing else."""
+    rk2 = shape.config.integrator.name == "RK2"
+    passes = 2 if rk2 else 1
+    field = "grid" if shape.magnet_binned else "pairwise"
+    want = dict.fromkeys(mag_counters(), 0)
+    want[field] = 2 * n_steps * passes
+    if route == "adjoint":
+        want.update(fused=n_steps * passes, adjoint_trace=n_steps * passes,
+                    adjoint_bwd=n_steps * (5 if rk2 else 2),
+                    transpose=n_steps * passes)
+    else:
+        want.update(fwd_step=n_steps * passes, trace_step=n_steps * passes,
+                    bwd_step=n_steps * (5 if rk2 else 2))
+        want["binned" if shape.magnet_binned else "tiled_transpose"] = \
+            n_steps * passes
+    return want
+
+
+def mag_grad_path(name, shape, state, n_steps, segment, route,
+                  spring_k=False, every_term=False):
+    """diff.grad_rollout over n_steps in segments of `segment` and
+    torch.autograd.grad of seeded weights . (final pos, vel) over pos, vel
+    and the four magnet parameters (and the links' k), every count set to
+    0 just before and read just after: the route must be `route`, the
+    counts exactly mag_grad_counts, every gradient finite and the gradient
+    of each magnet parameter whose term acts at the start (acting_params)
+    nonzero somewhere; with `every_term`, all four terms must act.
+    Returns (counts, host s)."""
+    import torch
+    from titan_tpu_torch import diff
+    check(diff.grad_route(shape) == (route, None),
+          f"{name}: gradient route {diff.grad_route(shape)}")
+    want = mag_grad_counts(shape, n_steps, route)
+    leaves, st = mag_grad_leaves(state, spring_k)
+    w = grad_loss_weights(state)
+    torch.cuda.synchronize()
+    zero_mag_counts()
+    t0 = time.perf_counter()
+    out = diff.grad_rollout(shape, st, n_steps, segment=segment)
+    loss = torch.sum(out.masses.pos * w[0]) + torch.sum(out.masses.vel * w[1])
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_mag_counts()
+    print(f"gradient path {name}: {n_steps} steps in segments of "
+          f"{segment}: " + ", ".join(f"{k} {v}" for k, v in got.items())
+          + f"; {wall:.3f} s wall (first call)")
+    check(got == want, f"{name}: counts {got}, the segments give {want}")
+    names = MAG_GRAD_NAMES + (("springs.k",) if spring_k else ())
+    for nm, g in zip(names, grads):
+        check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
+              "not finite")
+    acting, pairs = acting_params(shape, state)
+    for nm, g in zip(names[2:6], grads[2:6]):
+        check(nm not in acting or float(g.abs().max()) > 0.0,
+              f"{name}: d loss / d {nm} is 0 though its term acts on "
+              f"{pairs[nm]} pairs")
+    check(acting, f"{name}: no magnet term acts ({pairs})")
+    check(not every_term or acting == set(MAG_GRAD_NAMES[2:]),
+          f"{name}: not every magnet term acts ({pairs})")
+    print(f"gradient path {name}: loss {float(loss.detach()):.6e}; |grad|max "
+          + ", ".join(f"{nm} {float(g.abs().max()):.3e}"
+                      for nm, g in zip(names, grads))
+          + "; pairs on which each magnet parameter's term acts at the "
+          "start: " + ", ".join(f"{k} {v}" for k, v in pairs.items()))
+    return got, wall
+
+
+def time_mag_adjoint(name, shape, state):
+    """The fused magnet adjoint's kernels from `state`: the replay kernel's
+    and the backward kernels' device time per step and the transpose's per
+    launch (torch.profiler over SEG steps), their plain versions and
+    bounds."""
+    import torch
+    from titan_tpu_torch.ops import adjoint, magnets
+    cut = shape.config.magnet_cutoff
+    rk2 = shape.config.integrator.name == "RK2"
+    passes = 2 if rk2 else 1
+    trace = adjoint.trace_run(shape, state, SEG)
+    cts = seeded_cotangents(shape.n_masses, trace.device)
+    bwd_names = ("bwd_mid_kernel", "bwd_force_kernel", "bwd_spring_kernel")
+    reps = 2
+    dev = profile_device_us(lambda: [(
+        adjoint.trace_run(shape, state, SEG),
+        adjoint.bwd_run(shape, state, trace, *cts)) for _ in range(reps)],
+        ("adjoint_trace_kernel", "magnet_transpose_kernel",
+         "pairwise_magnet_kernel") + bwd_names)
+    m = state.masses
+    prm = magnets.pairwise_params(m)
+    gf = cts[0]
+    fixed = torch.zeros_like(m.pos[0])
+    tp_wrap = event_ms(lambda k: [magnets.magnet_transpose(
+        m.pos, prm, fixed, gf, cut) for _ in range(k)], 20)
+    tp_plain = event_ms(lambda k: [magnets.magnet_transpose_plain(
+        m.pos, prm, fixed, gf, cut) for _ in range(k)], 2, reps=1)
+    tr_plain = event_ms(lambda k: adjoint.trace_run_plain(shape, state, k),
+                        5, reps=1)
+    ptr = adjoint.trace_run_plain(shape, state, 5)
+    bw_plain = event_ms(lambda k: adjoint.bwd_run_plain(
+        shape, state, ptr, *cts), 5, reps=1)
+    check(all(k in dev for k in ("adjoint_trace_kernel", "bwd_force_kernel",
+                                 "magnet_transpose_kernel")),
+          f"{name}: the profiler recorded no device time for a kernel")
+    tr_ms = dev["adjoint_trace_kernel"][0] / (reps * SEG) / 1e3
+    bw_ms = sum(dev[k][0] for k in bwd_names if k in dev) / (reps * SEG) \
+        / 1e3
+    tp_t, tp_c = dev["magnet_transpose_kernel"]
+    tp_ms = tp_t / tp_c / 1e3
+    (tb, tby), (bb, bby) = adjoint_bound_ms(shape, state, SEG)
+    tpb, tpby = transpose_bound_ms(state, cut)
+    print(f"timing {name}: adjoint_trace_kernel {tr_ms * 1e3:.3f} us/step "
+          f"(profiler; bound {tb * 1e3:.4f} by {tby}; plain "
+          f"{tr_plain * 1e3:.1f}); backward kernels {bw_ms * 1e3:.3f} "
+          f"us/step (bound {bb * 1e3:.4f} by {bby}; plain "
+          f"{bw_plain * 1e3:.1f}, the transpose's plain version included); "
+          f"magnet_transpose_kernel {tp_ms * 1e3:.3f} us/launch ({tp_c} "
+          f"launches; wrapper {tp_wrap * 1e3:.3f} us, CUDA events; bound "
+          f"{tpb * 1e3:.4f} us by {tpby}; plain {tp_plain * 1e3:.1f} us), "
+          f"{passes} per step; pairwise field "
+          + (f"{dev['pairwise_magnet_kernel'][0] / dev['pairwise_magnet_kernel'][1]:.3f} us/launch"
+             if "pairwise_magnet_kernel" in dev else "not recorded"))
+    return (dict(ms=tr_ms, plain_ms=tr_plain, bound_ms=tb, bound_by=tby),
+            dict(ms=bw_ms, plain_ms=bw_plain, bound_ms=bb, bound_by=bby),
+            dict(ms=tp_ms, wrapper_ms=tp_wrap, plain_ms=tp_plain,
+                 bound_ms=tpb, bound_by=tpby))
+
+
+def link_grad_phase(titan, kernels):
+    """Phase z7: 1,024 RobotLinks (link_sim, 2,048 masses, in the air at t
+    = 0) take the fused step and the fused adjoint; under Euler, Verlet and
+    RK2 the fused trace and backward against their plain versions at full
+    width (mag_fused_vs_plain), the gradient path over GRAD_STEPS steps in
+    segments of SEG (mag_grad_path: exact counts, 0 eager steps, finite
+    magnet gradients, every term acting and each gradient nonzero), and
+    the kernels' times; appends the
+    entries to ``kernels``."""
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.config import Integrator
+    from titan_tpu_torch.ops import step as tstep
+    name = f"RobotLink {LINK_GRAD_LINKS:,} links"
+    shape, state = marshalled(link_sim(titan, LINK_GRAD_LINKS))
+    z = state.masses.pos[2, :shape.n_masses]
+    print(f"{name}: {shape.n_masses} masses, lowest z {float(z.min()):.4f} "
+          f"m; routes {tstep.chunk_route(shape)}, {diff.grad_route(shape)}")
+    check(shape.n_masses == 2 * LINK_GRAD_LINKS and not shape.magnet_binned
+          and tstep.chunk_route(shape) == ("fused", None)
+          and diff.grad_route(shape) == ("adjoint", None),
+          f"{name}: {shape.n_masses} masses, routes")
+    bad, runs = [], {}
+    for integ in (Integrator.EULER, Integrator.VERLET, Integrator.RK2):
+        sh = integrator_shape(shape, integ)
+        label = f"{name}, {integ.name}"
+        e = mag_fused_vs_plain(sh, state, label, bad)
+        check(not bad, "; ".join(bad))
+        counts, wall = mag_grad_path(f"{label} gradient path", sh, state,
+                                     GRAD_STEPS, SEG, "adjoint",
+                                     every_term=True)
+        runs[integ] = (sh, e, counts, wall)
+    for integ, (sh, e, counts, wall) in runs.items():
+        tr_t, bw_t, tp_t = time_mag_adjoint(f"{name} {integ.name}", sh,
+                                            state)
+        path = f"{name} gradient path, {integ.name}, {GRAD_STEPS} steps"
+        fb = dict(fwd_bwd_s_first_call=wall)
+        for kname, src, replaces, n_launch, err, t in (
+                ("adjoint_trace_kernel", "csrc/adjoint.cu",
+                 "titan_tpu/ops/adjoint.py:1283", counts["adjoint_trace"],
+                 e[0], tr_t),
+                ("bwd_force_kernel + bwd_spring_kernel"
+                 + (" + bwd_mid_kernel" if integ is Integrator.RK2 else "")
+                 + "<BwdChunkArgs>", "csrc/adjoint.cu",
+                 "titan_tpu/ops/adjoint.py:1384", counts["adjoint_bwd"],
+                 e[1], bw_t),
+                ("magnet_transpose_kernel", "csrc/magnets_adjoint.cuh",
+                 "titan_tpu/ops/adjoint.py:1433", counts["transpose"],
+                 e[1], tp_t)):
+            kernels.append(dict(
+                name=f"{kname} ({path})", route="cuda",
+                source=f"titan_tpu_torch/{src}", replaces=replaces,
+                launches=n_launch, max_abs_err=err, **t, **fb,
+                library_ms=None))
+
+
+def glue_sim(titan):
+    """scripts/tpu_soak.py's flow 6 on the card (:124-153): a 64^3 lattice
+    (k 1000, default rest lengths), 10,000 magnets at linspace indices
+    (mag_rad 0.01, stiffness 100, maxf 1e-5, scale 1), 50 random links
+    (RandomState(3)), a frictionless plane, dt 1e-4, g = -9.8."""
+    import numpy as np
+    sim = titan.Simulation(titan.SimConfig(device="cuda",
+                                           host_store_dtype="float32"))
+    sim.createLattice(titan.Vec(0, 0, 4), titan.Vec(3, 3, 3), GLUE_NX,
+                      GLUE_NX, GLUE_NX)
+    sim.setAllSpringConstantValues(1000.0)
+    sim.defaultRestLengths()
+    st = sim._store
+    n = st.n_masses
+    midx = np.linspace(0, n - 1, GLUE_MAGNETS).astype(np.int64)
+    st.mag_rad[midx] = 0.01
+    st.mag_stiffness[midx] = 100.0
+    st.mag_maxf[midx] = 1e-5
+    st.mag_scale[midx] = 1.0
+    rng = np.random.RandomState(3)
+    for a, b in zip(rng.randint(0, n, GLUE_LINKS),
+                    rng.randint(0, n, GLUE_LINKS)):
+        if a != b:
+            sim.createSpring(sim.masses[int(a)], sim.masses[int(b)])
+    sim.createPlane(titan.Vec(0, 0, 1), 0)
+    sim.setTimeStep(1e-4)
+    sim.setGlobalAcceleration(titan.Vec(0, 0, -9.8))
+    return sim
+
+
+def drive_glue(sim, name):
+    """The glue scene through the public API: start -> wait -> getAll ->
+    resume at 4 breakpoints -> stop, GLUE_FWD_STEPS steps, every count set
+    to 0 just before and read just after: the tiled route, one per-step
+    launch and one grid field launch per step, nothing else.  Returns
+    (counts, (shape, state) at the end)."""
+    import numpy as np
+    import torch
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import step as tstep
+    n = sim._store.n_masses
+    dt = sim.getTimeStep()
+    torch.cuda.synchronize()
+    zero_mag_counts()
+    t0 = time.perf_counter()
+    sim.start()
+    shape = sim._shape
+    print(f"main path {name}: {n} masses, {shape.n_springs} remainder "
+          f"springs, magnets binned {shape.magnet_binned} (grid "
+          f"{shape.magnet_grid}, receivers {shape.magnet_receivers}); "
+          f"routes {tstep.chunk_route(shape)}, {diff.grad_route(shape)}; "
+          f"marshalled in {time.perf_counter() - t0:.2f} s")
+    check(shape.has_magnets and shape.magnet_binned and shape.magnet_grid
+          and shape.has_remainder
+          and tstep.chunk_route(shape) == ("tiled", None)
+          and diff.grad_route(shape) == ("tiled_adjoint", None),
+          f"{name}: shape or routes")
+    for k in range(4):
+        sim.wait(GLUE_FWD_STEPS * dt / 4)
+        sim.getAll()
+        if k < 3:
+            sim.resume()
+    end = (sim._shape, sim._snapshot())
+    t_end = sim.time()
+    pos = sim._store.pos[:n].copy()
+    sim.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_mag_counts()
+    steps = int(round(t_end / dt))
+    want = dict.fromkeys(mag_counters(), 0)
+    want.update(fwd_step=steps, grid=steps)
+    print(f"main path {name}: {steps} steps to t={t_end:.4f} s in "
+          f"{wall:.2f} s wall; " + ", ".join(f"{k} {v}"
+                                             for k, v in counts.items()))
+    check(steps == GLUE_FWD_STEPS, f"{name}: {steps} steps")
+    check(counts == want, f"{name}: counts {counts}, want {want}")
+    check(np.isfinite(pos).all(), f"{name}: non-finite state")
+    return counts, end
+
+
+def time_glue(name, shape, state, fb_ms):
+    """The glue path's kernels from `state`: ten steps of the glue chunk,
+    replay and B7 under torch.profiler (device time per launch of the
+    per-step step, replay and backward kernels and of the grid field), the
+    plain versions and the bounds; ``fb_ms`` is the gradient path's
+    forward + backward per step (host clock, its checked run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    from titan_tpu_torch.ops import magnets_grid, tiled_step
+    rk2 = shape.config.integrator.name == "RK2"
+    passes = 2 if rk2 else 1
+    inv = tiled_step.prep_tiled_inputs(shape, state)
+    seg = 10
+    trace = at.tiled_trace_run(shape, state, seg, inv)
+    cts = seeded_cotangents(shape.n_masses, trace.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        at.tiled_trace_run(shape, state, 1, inv)
+        torch.cuda.synchronize()
+        tiled_step.tiled_chunk(shape, state, seg)
+        at.tiled_trace_run(shape, state, seg, inv)
+        at._tiled_bwd_cuda(shape, state, trace, *cts, inv, mega=False)
+        torch.cuda.synchronize()
+    groups = {"step": lambda k: "tiled_step_kernel" in k and "false>" in k,
+              "trace": lambda k: "tiled_step_kernel" in k and "true>" in k,
+              "bwd": lambda k: "<TiledBwdArgs," in k,
+              "grid": lambda k: "grid_magnet_kernel" in k}
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        for g, hit in groups.items():
+            if hit(e.key) and e.count and t:
+                t0, c0 = dev.get(g, (0.0, 0))
+                dev[g] = (t0 + t, c0 + e.count)
+    m, cut, cap = state.masses, shape.config.magnet_cutoff, \
+        shape.magnet_binned[1]
+    step_plain = event_ms(lambda k: tiled_step.tiled_chunk_plain(
+        shape, state, k), 2, reps=1)
+    tr_plain = event_ms(lambda k: at.tiled_trace_run_plain(shape, state, k),
+                        2, reps=1)
+    p_trace = at.tiled_trace_run_plain(shape, state, 2)
+    bw_plain = event_ms(lambda k: at.tiled_bwd_run_plain(
+        shape, state, p_trace, *cts, inv), 2, reps=1)
+    del p_trace
+    grid_plain = event_ms(lambda k: [magnets_grid.grid_magnet_forces_plain(
+        m, cut, cap) for _ in range(k)], 2, reps=1)
+    pairs, inside = grid_pairs(state, cap, cut)
+    per = 5 if rk2 else 2
+    mode = "rk2a" if rk2 else shape.config.integrator.name.lower()
+    out = {}
+    for g, plain, bound in (
+            ("step", step_plain / passes, tiled_bound_ms(shape, state, mode,
+                                                         1)[0]),
+            ("trace", tr_plain / passes, tuple(
+                x / passes if i == 0 else x for i, x in enumerate(
+                    tiled_adjoint_bound_ms(shape, state, "trace", 1)[0]))),
+            ("bwd", bw_plain / per, tuple(
+                x / per if i == 0 else x for i, x in enumerate(
+                    tiled_adjoint_bound_ms(shape, state, "bwd", 1)[0]))),
+            ("grid", grid_plain, field_bound_ms(shape.n_masses, pairs,
+                                                inside))):
+        check(g in dev, f"{name}: the profiler recorded no {g} kernel")
+        ms = dev[g][0] / dev[g][1] / 1e3
+        print(f"timing {name} {g}: {ms * 1e3:.3f} us/launch ({dev[g][1]} "
+              f"launches, torch.profiler); bound {bound[0] * 1e3:.4f} us by "
+              f"{bound[1]}; plain {plain * 1e3:.1f} us/launch")
+        out[g] = dict(ms=ms, plain_ms=plain, bound_ms=bound[0],
+                      bound_by=bound[1], fwd_bwd_ms_per_step=fb_ms)
+    print(f"timing {name} gradient path: forward + backward "
+          f"{fb_ms * 1e3:.3f} us/step over {GLUE_GRAD_STEPS} steps "
+          f"(segments of {GLUE_SEG}; host clock, the checked run)")
+    return out
+
+
+def glue_phase(titan, kernels):
+    """Phase z8: the 64^3 magnet lattice of scripts/tpu_soak.py's flow 6
+    through Simulation for GLUE_FWD_STEPS steps on the tiled route
+    (drive_glue: per-step launches and the grid field only); from its end
+    state under Euler, Verlet and RK2 the glue step, replay and B7 against
+    their plain versions (glue_vs_plain), the gradient path on the tiled
+    adjoint over GLUE_GRAD_STEPS steps in segments of GLUE_SEG
+    (mag_grad_path: exact counts, no resident-grid launch, no B8, 0 eager
+    steps, finite and nonzero magnet gradients; once more under Euler
+    with overlapping shells, GLUE_SHELL_RAD), and timing; appends the
+    entries to ``kernels``."""
+    import dataclasses
+    import torch
+    from titan_tpu_torch.config import Integrator
+    name = f"soak {GLUE_NX}^3 + {GLUE_MAGNETS:,} magnets + {GLUE_LINKS} links"
+    t0 = time.perf_counter()
+    sim = glue_sim(titan)
+    print(f"{name}: built in {time.perf_counter() - t0:.2f} s (host)")
+    fwd, (shape, state) = drive_glue(sim, name)
+    bad, runs = [], {}
+    for integ in (Integrator.EULER, Integrator.VERLET, Integrator.RK2):
+        sh = integrator_shape(shape, integ)
+        label = f"{name}, {integ.name}"
+        e = glue_vs_plain(sh, state, label, bad)
+        check(not bad, "; ".join(bad))
+        counts, wall = mag_grad_path(f"{label} gradient path", sh, state,
+                                     GLUE_GRAD_STEPS, GLUE_SEG,
+                                     "tiled_adjoint", spring_k=True)
+        runs[integ] = (sh, e, counts, wall)
+    m = state.masses
+    shells = dataclasses.replace(state, masses=dataclasses.replace(
+        m, mag_rad=torch.where(m.mag_rad > 0, GLUE_SHELL_RAD, 0.0)))
+    mag_grad_path(f"{name}, mag_rad {GLUE_SHELL_RAD}, EULER gradient path",
+                  integrator_shape(shape, Integrator.EULER), shells,
+                  GLUE_SHELL_STEPS, GLUE_SHELL_STEPS, "tiled_adjoint",
+                  every_term=True)
+    src_step = "titan_tpu_torch/csrc/tiled_step.cu"
+    src_adj = "titan_tpu_torch/csrc/tiled_adjoint.cu"
+    for integ, (sh, e, counts, wall) in runs.items():
+        t = time_glue(f"{name} {integ.name}", sh, state,
+                      wall * 1e3 / GLUE_GRAD_STEPS)
+        path = f"{name} gradient path, {integ.name}, {GLUE_GRAD_STEPS} steps"
+        entries = [
+            ("tiled_step_kernel<MODE, REM, false> (glue forward, "
+             + (f"{path})" if integ is not Integrator.EULER else
+                f"{name} main path, {GLUE_FWD_STEPS} steps)"),
+             src_step, "titan_tpu/ops/pallas_tiled.py:1051",
+             fwd["fwd_step"] if integ is Integrator.EULER
+             else counts["fwd_step"], e[0], t["step"]),
+            (f"tiled_step_kernel<MODE, REM, true> (glue replay, {path})",
+             src_adj, "titan_tpu/ops/pallas_tiled.py:1305",
+             counts["trace_step"], e[1], t["trace"]),
+            ("bwd_force_kernel + bwd_spring_kernel"
+             + (" + bwd_mid_kernel" if integ is Integrator.RK2 else "")
+             + f"<TiledBwdArgs> (glue backward, {path})", src_adj,
+             "titan_tpu/ops/adjoint_tiled.py:671", counts["bwd_step"], e[2],
+             t["bwd"])]
+        if integ is Integrator.EULER:
+            entries.append((f"grid_magnet_kernel ({name} main path, "
+                            f"{GLUE_FWD_STEPS} steps)",
+                            "titan_tpu_torch/csrc/magnets_grid.cu",
+                            "titan_tpu/ops/magnets_grid.py:64", fwd["grid"],
+                            0.0, t["grid"]))
+        for kname, src, replaces, n_launch, err, tm in entries:
+            kernels.append(dict(name=kname, route="cuda", source=src,
+                                replaces=replaces, launches=n_launch,
+                                max_abs_err=err, **tm, library_ms=None))
+
+
+def mag_grad_phases(titan, kernels):
+    """Phases z6-z9: the magnet gradients' and the tiled glue's kernels."""
+    mag_small_scenes(titan)
+    link_grad_phase(titan, kernels)
+    glue_phase(titan, kernels)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3790,6 +4610,11 @@ def main() -> int:
     # route rule, 43^3 + 1,024 links and 100^3 + 512 links, their gradient
     # paths with per-spring gradients, timing
     remainder_phases(titan, kernels)
+
+    # z6-z9. magnet gradients and the tiled magnet glue: every new branch
+    # on small scenes, the RobotLink gradient path, the 64^3 magnet lattice
+    # through Simulation and its gradient paths, timing
+    mag_grad_phases(titan, kernels)
 
     # 5. result lines
     smi = subprocess.run(

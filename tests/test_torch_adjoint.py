@@ -40,9 +40,13 @@ from test_torch_step import build_scene, carry_over, jax_grad_ref
 from titan_tpu_torch.builders import build_incidence
 
 # the variants of test_adjoint.py inside the port's envelope: local
-# constraints and remainder springs run in it; magnets do not yet
+# constraints, remainder springs and magnets run in it.  Of its six magnet
+# variants the three that cover the others' features (fixed masses, RK2,
+# and everything at once) keep the test budget; tests/
+# test_torch_adjoint_magnets.py holds the rest of the magnet branch
+MAGNET_VARIANTS = ("magnets_fixed", "rk2_magnets", "everything_magnets")
 PORT_VARIANTS = sorted(v for v, kw in VARIANTS.items()
-                       if not kw.get("magnets"))
+                       if not kw.get("magnets") or v in MAGNET_VARIANTS)
 
 # the per-spring gradient keys of the two packages' backward_step
 REM_BARS = ("k_e", "rest_e", "damp_e", "omega_e", "aratedt_e")
@@ -124,6 +128,8 @@ def _bar_names(Pt):
         names += ["k_e", "rest_e"] + ["damp_e"] * Pt["has_damping"]
         names += ["omega_e"] * Pt["has_breathing"]
         names += ["aratedt_e"] * Pt["has_actuated"]
+    if Pt.get("mag") is not None:
+        names += list(tadj.MAG_BARS)
     return names
 
 
@@ -135,8 +141,11 @@ def _stacked(bars, name):
 # f32 cases: every variant but local_rk2, whose random inputs are so badly
 # conditioned in f32 that both packages' f32 gradients leave the f64 value
 # by up to 2.95e-2 (the two by 2.7e-4 on one of 1,536 velocity entries);
-# it is held in f64 at 1e-9 and against the port's own VJP
-F32_VARIANTS = [v for v in PORT_VARIANTS if v != "local_rk2"]
+# it is held in f64 at 1e-9 and against the port's own VJP.  And but
+# everything_magnets, held in f64 and against the VJP, whose JAX
+# reference (~5 s) the test budget leaves out in f32
+F32_VARIANTS = [v for v in PORT_VARIANTS
+                if v not in ("local_rk2", "everything_magnets")]
 
 
 @pytest.mark.parametrize("variant,dtype",
@@ -195,6 +204,10 @@ def test_backward_step_is_vjp_of_forward_step(variant):
         # aratedt_e
         diffable += ["rem_p", "rem_rest"]
         P = {**P, "rem_p": rem["p"], "rem_rest": rem["rest"]}
+    if P.get("mag") is not None:
+        # the folded magnet parameters' rows rad, stiffness, maxf, scale
+        # against mag_rad, mag_stiffness, mag_maxf, mag_scale
+        diffable.append("mag")
 
     def fwd(pos, vel, acc, params):
         Pv = {**P, **params}
@@ -214,6 +227,12 @@ def test_backward_step_is_vjp_of_forward_step(variant):
                        ("gacc_prev", gacc, gacc_v)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **tol)
     for name in diffable:
+        if name == "mag":
+            for row, bar in enumerate(tadj.MAG_BARS):
+                np.testing.assert_allclose(
+                    bars[bar].numpy(), gpar_v[name][row].numpy(),
+                    err_msg=bar, **tol)
+            continue
         if name == "rem_p":
             rows = [("k_e", 0)] + [("damp_e", 1)] * P["has_damping"]
             rows += [("omega_e", 3)] * P["has_breathing"]

@@ -241,7 +241,12 @@ def test_grad_route_on_shapes():
     rk2 = _lattice_shape(100, config=titan_tpu_torch.SimConfig(
         device="cpu", integrator=titan_tpu_torch.Integrator.RK2))
     assert tdiff.grad_route(rk2)[0] == "tiled_adjoint"
-    route, reason = tdiff.grad_route(_lattice_shape(100, has_magnets=True))
+    # a magnet lattice past magnet_pallas_max: the tiled adjoint with its
+    # glue, as on a TPU
+    assert tdiff.grad_route(_lattice_shape(100, has_magnets=True)) == (
+        "tiled_adjoint", None)
+    route, reason = tdiff.grad_route(_lattice_shape(100, config=(
+        titan_tpu_torch.SimConfig(device="cpu", dtype="float64"))))
     assert route == "fast"
     assert "fused adjoint:" in reason and "tiled adjoint:" in reason
     # local constraints run in both adjoints: by the residency rule

@@ -20,6 +20,7 @@ import torch
 
 import titan_tpu
 from titan_tpu.ops import pallas_step
+from titan_tpu_torch import diff as tdiff
 from titan_tpu_torch.ops import fused_step
 from titan_tpu_torch.state import shape_from_fields
 
@@ -128,11 +129,22 @@ def test_fused_reject_reason(variant, reason):
 
 
 def test_adjoint_reject_reason_names_magnets():
-    """The fused step takes magnet scenes, the adjoint kernels do not (no
-    magnet branch yet): grad_rollout must not send them there."""
+    """The fused step and the adjoint kernels both take magnet scenes (the
+    adjoint's magnet branches, B4 and B5); the adjoint keeps the
+    reference's magnet_pallas_max rule, and refuses binned magnets (its
+    transpose is the all-pairs field's): within it the fused adjoint, past
+    it the tiled one."""
     from titan_tpu_torch.ops.adjoint import adjoint_reject_reason
     shape = dataclasses.replace(
         shape_from_fields(build_scene(titan_tpu, "plain")._shape, "cpu"),
         has_magnets=True)
     assert fused_step.fused_reject_reason(shape) is None
-    assert "magnets" in adjoint_reject_reason(shape)
+    assert adjoint_reject_reason(shape) is None
+    assert tdiff.grad_route(shape) == ("adjoint", None)
+    cfg = dataclasses.replace(shape.config,
+                              magnet_pallas_max=shape.n_masses - 1)
+    past = dataclasses.replace(shape, config=cfg)
+    assert "magnet_pallas_max" in adjoint_reject_reason(past)
+    assert "binned magnets" in adjoint_reject_reason(
+        dataclasses.replace(shape, magnet_binned=(shape.n_masses, 16)))
+    assert tdiff.grad_route(past) == ("tiled_adjoint", None)

@@ -17,8 +17,9 @@
   with the time step raised from 0.1 ms to 3 ms (2,000 steps), the magnet
   pull at its 0.1 ms (500 steps), and detach.
 - ``diff.grad_rollout`` on a 4-link scene in f64 routes to ``fast_rollout``
-  (the adjoint's reason names magnets) and equals ``jax.grad`` through
-  ``titan_tpu.diff.rollout`` to 1e-9.
+  (the adjoint's reason names the dtype) and equals ``jax.grad`` through
+  ``titan_tpu.diff.rollout`` to 1e-9; the same scene in f32 routes to the
+  fused adjoint, and the spring-less swarm to ``fast_rollout``.
 
 Small tensors: torch runs these on one thread.
 """
@@ -258,7 +259,16 @@ def test_grad_rollout_on_magnets_routes_to_fast_rollout(x64, caplog):
     want = jax.grad(jloss, argnums=(0, 1))(jstate.masses.pos,
                                             jstate.masses.vel)
     shape, state = carry_over(jsim)
-    assert "magnets" in adjoint_reject_reason(shape)
+    # f64: outside both adjoints (the fused step is f32-only); in f32 the
+    # RobotLink scene takes the fused adjoint, as on a TPU, and the
+    # spring-less swarm, which neither adjoint takes, fast_rollout
+    assert "float64" in adjoint_reject_reason(shape)
+    f32_shape, _ = carry_over(link_scene(titan_tpu, n_links=4,
+                                         magnetic_force=1.0))
+    assert tdiff.grad_route(f32_shape) == ("adjoint", None)
+    swarm, _ = carry_over(swarm_scene())
+    route, reason = tdiff.grad_route(swarm)
+    assert route == "fast" and "no stencil spring families" in reason
     pos, vel = (t.clone().requires_grad_()
                 for t in (state.masses.pos, state.masses.vel))
     state = dataclasses.replace(state, masses=dataclasses.replace(
@@ -266,7 +276,7 @@ def test_grad_rollout_on_magnets_routes_to_fast_rollout(x64, caplog):
     with caplog.at_level(logging.WARNING):
         out = tdiff.grad_rollout(shape, state, steps)
     assert any("fast_rollout" in r.getMessage()
-               and "magnets" in r.getMessage() for r in caplog.records)
+               and "float64" in r.getMessage() for r in caplog.records)
     loss = torch.sum(out.masses.pos[:, :n] * out.masses.vel[:, :n])
     got = torch.autograd.grad(loss, [pos, vel])
     for name, a, b in zip(("pos", "vel"), got, want):

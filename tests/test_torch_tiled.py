@@ -216,8 +216,10 @@ def test_chunk_route_on_shapes(caplog):
     assert tstep.chunk_route(_lattice_shape(100)) == ("tiled", None)
     assert tstep.chunk_route(_lattice_shape(43))[0] == "fused"
     assert tstep.chunk_route(_lattice_shape(20))[0] == "fused"
-    assert tstep.chunk_route(_lattice_shape(100, has_magnets=True))[0] \
-        == "fused"
+    # a magnet lattice past magnet_pallas_max: the tiled step with its
+    # per-pass field glue, as on a TPU
+    assert tstep.chunk_route(_lattice_shape(100, has_magnets=True)) \
+        == ("tiled", None)
     rk2 = _lattice_shape(100, config=titan_tpu_torch.SimConfig(
         device="cpu", integrator=titan_tpu_torch.Integrator.RK2))
     assert tstep.chunk_route(rk2)[0] == "tiled"

@@ -114,10 +114,11 @@ class SimConfig:
     # magnet_cell_cap masses keeps the binned pass's overflow rule).
     magnet_grid_threshold: int = 8192
     # In the JAX package, scenes up to this many (padded) masses run the
-    # magnet pass inside the TPU's VMEM kernel.  In the port it bounds
-    # nothing: every unbinned magnet scene in the fused step's envelope
-    # takes the pairwise field kernel (csrc/magnets.cu), which has no size
-    # cap.  Kept so that titan_tpu's configs carry over field for field.
+    # magnet pass inside the TPU's VMEM kernel, and larger magnet scenes
+    # the tiled kernel with per-step magnet glue.  The port keeps it as a
+    # route rule (ops/step.py::fits_fused): a magnet scene within it takes
+    # the fused step and adjoint, past it the tiled ones, as on a TPU; the
+    # card's field kernels themselves have no size cap.
     magnet_pallas_max: int = 2048
     # Steps dispatched per on-device fori_loop chunk when no breakpoint is
     # nearer.  Bounds host `time()` granularity and re-dispatch overhead.

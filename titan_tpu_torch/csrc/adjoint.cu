@@ -55,6 +55,18 @@
 // where the plain version blends x * (1 - fixed) + x0 * fixed: the two
 // differ at most in the sign of a zero.
 //
+// Magnets (the TPU kernels' branches :1330 and :1433).  The forward feeds
+// each force pass's field through the constant force, one pass at a time
+// (ops/fused_step.py::_magnet_passes); the replay runs those passes with
+// this file's trace kernel (titan_adjoint_trace_pass), the caller writing
+// each pass's constant force const_f + field into the trace entry beside
+// (pos_t, vel_t): [seg, 9, N], [seg, 12, N] under RK2.  The backward reads
+// each pass's constant force from there, and after each pass's phase B
+// launches the pairwise field's transpose (B5, csrc/magnets_adjoint.cuh):
+// it reads that pass's gf and adds to the pass's position cotangent (the
+// carry, or the RK2 midpoint's before pass 1 reads it) and to the [4, N]
+// magnet parameter gradients.
+//
 // The transpose (phases A and B, the RK2 midpoint) and the sweep's launch
 // loop live in csrc/adjoint_body.cuh, templated over the argument struct:
 // csrc/tiled_adjoint.cu runs the same code on the tiled step's inputs.
@@ -72,6 +84,8 @@ struct BwdChunkArgs {
   int n, nf, n_planes, n_balls, seg, integrator;  // 0 Euler, 1 Verlet, 2 RK2
   int clamp, has_damping, has_breathing, has_actuated, has_drag, device;
   float normal_coeff;
+  int np;        // rows per trace entry: 6, or 9 / 12 with each pass's cf
+  float cutoff;  // magnet cutoff (with mag)
   const int* deltas;
   const float* scal;
   const float* planes;
@@ -108,6 +122,8 @@ struct BwdChunkArgs {
   float* pos_h;
   float* vel_h;
   float* grem;              // [5, S] per-spring gradients (remainder)
+  const float* mag;         // [5, N] folded magnet parameters, or null
+  float* gmag;              // [4, N] magnet parameter gradients (with mag)
   titan::LocalSlots local;  // per-mass local-constraint slots
   titan::Remainder rem;     // remainder springs (rest_src: the segment's)
 
@@ -149,8 +165,43 @@ extern "C" int titan_adjoint_trace(const ChunkArgs* c, float* trace,
       });
 }
 
+// One force pass of a magnet scene's replay (the forward's
+// titan_fused_pass with p->cforce = const_f + the pass's field), writing
+// the step's input to p->trace where it is set (the step's first pass).
+extern "C" int titan_adjoint_trace_pass(const ChunkArgs* c,
+                                        const titan::PassArgs* p,
+                                        void* stream) {
+  cudaError_t err = cudaSetDevice(c->device);
+  if (err != cudaSuccess) return (int)err;
+  const titan::StepArgs a = titan::pass_step_args(c, p);
+  const int threads = 256;
+  const int blocks = (c->n + threads - 1) / threads;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.rem.inc != nullptr) {
+    adjoint_trace_kernel<true><<<blocks, threads, 0, st>>>(a, p->mode,
+                                                           p->trace);
+  } else {
+    adjoint_trace_kernel<false><<<blocks, threads, 0, st>>>(a, p->mode,
+                                                            p->trace);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Enqueue the reverse sweep over the trace on `stream`: two launches per
-// step (five for RK2).  Returns 0 or the first CUDA error.
+// step (five for RK2), and with c->mag one magnet transpose per force
+// pass.  Returns 0 or the first CUDA error.
 extern "C" int titan_adjoint_bwd(const BwdChunkArgs* c, void* stream) {
   return titan_adj::enqueue_bwd(c, stream);
+}
+
+// B5 alone: the pairwise magnet field's transpose for one force pass at
+// pos [3, N] (csrc/magnets_adjoint.cuh), adding to gpos [3, N] and gmag
+// [4, N].  Returns 0 or the launch's CUDA error.
+extern "C" int titan_magnet_transpose(int n, float cutoff, const float* pos,
+                                      const float* params, const float* fixed,
+                                      const float* gf, float* gpos,
+                                      float* gmag, void* stream) {
+  return (int)titan_mag::launch_magnet_transpose(
+      n, cutoff, pos, params, fixed, gf, gpos, gmag,
+      static_cast<cudaStream_t>(stream));
 }

@@ -25,6 +25,14 @@
 // spring's gradients to grem, [5, S] (k, rest, damping, omega, rate * dt),
 // summed over the segment's steps: no atomics, a fixed order.
 //
+// Magnets.  A magnet scene's trace entry holds each force pass's constant
+// force (const_f + the field) after pos and vel (np rows); the sweep reads
+// it in place of cforce and, where the argument struct carries the folded
+// magnet parameters (mag), follows each pass's phase B with the pairwise
+// field's transpose (csrc/magnets_adjoint.cuh) on that pass's gf.
+// enqueue_part runs one part of a reversed step, for a caller that runs a
+// binned field's transpose itself between the parts.
+//
 // Local constraints.  The JAX kernel stashes each slot's inputs (the force
 // entering a contact plane; the force and velocity entering a constraint
 // plane or direction) in VMEM for the transpose.  Here the chain is per
@@ -40,6 +48,7 @@
 
 #include <cuda_runtime.h>
 
+#include "magnets_adjoint.cuh"
 #include "step_body.cuh"
 
 namespace titan_adj {
@@ -723,6 +732,10 @@ int bwd_prologue(const A* c, cudaStream_t st) {
       (err = cudaMemsetAsync(c->gdrag, 0, n * sizeof(float), st))) {
     return (int)err;
   }
+  if (c->gmag != nullptr &&
+      (err = cudaMemsetAsync(c->gmag, 0, 4 * n * sizeof(float), st))) {
+    return (int)err;
+  }
   if (c->grem != nullptr &&
       (err = cudaMemsetAsync(c->grem, 0,
                              5 * static_cast<size_t>(c->rem.s) * sizeof(float),
@@ -732,41 +745,93 @@ int bwd_prologue(const A* c, cudaStream_t st) {
   return 0;
 }
 
-// The reverse sweep's launches on `st`, two per step (five for RK2), with
-// or without the remainder calls.  Returns 0 or the first CUDA error.
+// Which launches of reversed step t enqueue_reversed enqueues: all of
+// them, or under RK2 the midpoint and pass 2 (kRk2b) or pass 1 (kRk2a),
+// for a caller that runs the magnet glue's transpose between the two.
+enum Part { kAll = 0, kRk2b = 1, kRk2a = 2 };
+
+// The launches of reversed step t on `st`: two (five for RK2), with or
+// without the remainder calls.  A trace entry holds c->np rows: pos, vel
+// and, for a magnet scene (np 9, 12 under RK2: the layout of
+// ops/fused_step.py::trace_rows), each force pass's constant
+// force (const_f + that pass's magnet field), which replaces c->cforce
+// for the pass.  With c->mag set, each pass's spring phase is followed by
+// the pairwise field's transpose at that pass's positions
+// (magnets_adjoint.cuh), which reads the pass's force cotangent gf and
+// adds to the pass's position cotangent: the carry gpos, or gpc at the
+// RK2 midpoint (before pass 1 reads it).  Returns 0 or the first error.
 template <class A, bool REM>
-int enqueue_sweep(const A* c, cudaStream_t st) {
+int enqueue_reversed(const A* c, int t, int part, cudaStream_t st) {
   const size_t n = static_cast<size_t>(c->n);
-  const A a = *c;
   const int threads = 256;
   const int blocks = (c->n + threads - 1) / threads;
-  for (int t = c->seg - 1; t >= 0; --t) {
-    const float* pos = c->trace + static_cast<size_t>(t) * 6 * n;
-    const float* vel = pos + 3 * n;
-    if (c->integrator == 2) {
+  const float* entry = c->trace + static_cast<size_t>(t) * c->np * n;
+  const float* pos = entry;
+  const float* vel = entry + 3 * n;
+  A a = *c;
+  if (c->np > 6) a.cforce = entry + 6 * n;
+  cudaError_t err = cudaSuccess;
+  auto mag_t = [&](const float* p, float* gp) {
+    if (c->mag != nullptr && err == cudaSuccess) {
+      err = titan_mag::launch_magnet_transpose(c->n, c->cutoff, p, c->mag,
+                                               c->fixed, c->gf, gp, c->gmag,
+                                               st);
+    }
+  };
+  if (c->integrator == 2) {
+    if (part != kRk2a) {
       bwd_mid_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t);
-      bwd_force_kernel<A, REM><<<blocks, threads, 0, st>>>(a, c->pos_h,
+      A a2 = a;
+      if (c->np > 6) a2.cforce = entry + 9 * n;
+      bwd_force_kernel<A, REM><<<blocks, threads, 0, st>>>(a2, c->pos_h,
                                                            c->vel_h, t, 2);
-      bwd_spring_kernel<A, REM><<<blocks, threads, 0, st>>>(a, c->pos_h,
+      bwd_spring_kernel<A, REM><<<blocks, threads, 0, st>>>(a2, c->pos_h,
                                                             c->vel_h, t, 2);
+      err = cudaGetLastError();
+      mag_t(c->pos_h, c->gpc);
+    }
+    if (part != kRk2b && err == cudaSuccess) {
       bwd_force_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t,
                                                            1);
       bwd_spring_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t,
                                                             1);
-    } else {
-      bwd_force_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t,
-                                                           0);
-      bwd_spring_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t,
-                                                            0);
+      err = cudaGetLastError();
+      mag_t(pos, c->gpos);
     }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  } else {
+    bwd_force_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t, 0);
+    bwd_spring_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t, 0);
+    err = cudaGetLastError();
+    mag_t(pos, c->gpos);
+  }
+  return (int)err;
+}
+
+// The reverse sweep's launches on `st`: enqueue_reversed for each step
+// from the last.  Returns 0 or the first CUDA error.
+template <class A, bool REM>
+int enqueue_sweep(const A* c, cudaStream_t st) {
+  for (int t = c->seg - 1; t >= 0; --t) {
+    const int rc = enqueue_reversed<A, REM>(c, t, kAll, st);
+    if (rc != 0) return rc;
   }
   return 0;
 }
 
-// Enqueue the reverse sweep over the trace ([seg, 6, N]) on `stream`: two
-// launches per step (five for RK2).  Returns 0 or the first CUDA error.
+// One part of reversed step t (Part) on `stream`, the sweep's prologue
+// already run (bwd_prologue).  Returns 0 or the first CUDA error.
+template <class A>
+int enqueue_part(const A* c, int t, int part, void* stream) {
+  cudaError_t err = cudaSetDevice(c->device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return c->rem.inc != nullptr ? enqueue_reversed<A, true>(c, t, part, st)
+                               : enqueue_reversed<A, false>(c, t, part, st);
+}
+
+// Enqueue the reverse sweep over the trace ([seg, np, N]) on `stream`: two
+// launches per step (five for RK2), and with c->mag one transpose per force
+// pass.  Returns 0 or the first CUDA error.
 template <class A>
 int enqueue_bwd(const A* c, void* stream) {
   cudaError_t err = cudaSetDevice(c->device);

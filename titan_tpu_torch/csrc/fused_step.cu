@@ -107,53 +107,12 @@ extern "C" int titan_fused_chunk(const ChunkArgs* c, void* stream) {
       });
 }
 
-// One force pass with explicit buffers; field order matches the ctypes
-// structure _PassArgs in titan_tpu_torch/ops/fused_step.py.
-struct PassArgs {
-  int step;  // step index inside the chunk
-  int mode;  // titan::Mode
-  const float* fpos;  // [3, N] state the forces are evaluated at
-  const float* fvel;
-  const float* pos0;  // [3, N] state at the start of the step
-  const float* vel0;
-  const float* acc0;
-  const float* rest_src;  // [F, N]
-  const float* cforce;    // [3, N] const_f + this pass's magnet field
-  float* pos_dst;
-  float* vel_dst;
-  float* acc_dst;   // null for the RK2 predictor
-  float* rest_dst;  // [F, N] (actuated only)
-  float* vel_v1;    // RK2 with local constraints: pass 1's mutated velocity
-  const float* rem_src;  // [S] remainder rest this pass reads
-  float* rem_dst;        // [S] and writes (actuated only)
-};
-
-// Enqueue one launch of the step kernel: pass `p` of a chunk whose
-// invariants are `c` (c->cforce is replaced by p->cforce).  The per-pass
-// entry of magnet scenes, whose field the caller computes between passes.
-// Returns 0, or the cudaError_t of the launch.
-extern "C" int titan_fused_pass(const ChunkArgs* c, const PassArgs* p,
+// One force pass with explicit buffers (titan::PassArgs).
+extern "C" int titan_fused_pass(const ChunkArgs* c, const titan::PassArgs* p,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(c->device);
   if (err != cudaSuccess) return (int)err;
-  titan::StepArgs a = titan::step_args(c);
-  a.step = p->step;
-  a.half = p->mode == titan::kRk2Full ? 0.5f : 0.f;
-  a.cforce = p->cforce;
-  a.fpos = p->fpos;
-  a.fvel = p->fvel;
-  a.pos0 = p->pos0;
-  a.vel0 = p->vel0;
-  a.acc0 = p->acc0;
-  a.rest_src = p->rest_src;
-  a.rest_dst = c->has_actuated ? p->rest_dst : nullptr;
-  a.rem.rest_src = p->rem_src;
-  a.rem.rest_dst = c->has_actuated ? p->rem_dst : nullptr;
-  a.pos_dst = p->pos_dst;
-  a.vel_dst = p->vel_dst;
-  a.acc_dst = p->acc_dst;
-  a.v1_dst = p->mode == titan::kRk2Half ? p->vel_v1 : nullptr;
-  a.v1_src = p->mode == titan::kRk2Full ? p->vel_v1 : nullptr;
+  const titan::StepArgs a = titan::pass_step_args(c, p);
   const int threads = 256;
   const int blocks = (c->n + threads - 1) / threads;
   return (int)launch(blocks, threads, static_cast<cudaStream_t>(stream), a,

@@ -616,6 +616,54 @@ inline StepArgs step_args(const ChunkArgs* c) {
   return a;
 }
 
+// One force pass with explicit buffers, for a magnet scene that steps one
+// pass at a time (the caller computes the pass's field); field order
+// matches the ctypes structure _PassArgs in
+// titan_tpu_torch/ops/fused_step.py.
+struct PassArgs {
+  int step;  // step index inside the chunk
+  int mode;  // Mode
+  const float* fpos;  // [3, N] state the forces are evaluated at
+  const float* fvel;
+  const float* pos0;  // [3, N] state at the start of the step
+  const float* vel0;
+  const float* acc0;
+  const float* rest_src;  // [F, N]
+  const float* cforce;    // [3, N] const_f + this pass's magnet field
+  float* pos_dst;
+  float* vel_dst;
+  float* acc_dst;   // null for the RK2 predictor
+  float* rest_dst;  // [F, N] (actuated only)
+  float* vel_v1;    // RK2 with local constraints: pass 1's mutated velocity
+  const float* rem_src;  // [S] remainder rest this pass reads
+  float* rem_dst;        // [S] and writes (actuated only)
+  float* trace;          // the replay's trace entry (step's first pass), or
+                         // null
+};
+
+// The launch arguments of one force pass.
+inline StepArgs pass_step_args(const ChunkArgs* c, const PassArgs* p) {
+  StepArgs a = step_args(c);
+  a.step = p->step;
+  a.half = p->mode == kRk2Full ? 0.5f : 0.f;
+  a.cforce = p->cforce;
+  a.fpos = p->fpos;
+  a.fvel = p->fvel;
+  a.pos0 = p->pos0;
+  a.vel0 = p->vel0;
+  a.acc0 = p->acc0;
+  a.rest_src = p->rest_src;
+  a.rest_dst = c->has_actuated ? p->rest_dst : nullptr;
+  a.rem.rest_src = p->rem_src;
+  a.rem.rest_dst = c->has_actuated ? p->rem_dst : nullptr;
+  a.pos_dst = p->pos_dst;
+  a.vel_dst = p->vel_dst;
+  a.acc_dst = p->acc_dst;
+  a.v1_dst = p->mode == kRk2Half ? p->vel_v1 : nullptr;
+  a.v1_src = p->mode == kRk2Full ? p->vel_v1 : nullptr;
+  return a;
+}
+
 // Enqueue c->n_steps steps on `stream`: one call of `launch(blocks,
 // threads, stream, args, mode, step, first)` per force evaluation, where
 // `first` marks the step's first evaluation (the one at the step's input

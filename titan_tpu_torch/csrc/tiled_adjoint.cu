@@ -50,6 +50,18 @@
 // gathers both incident springs needs no halo.  Every slot gets its own
 // gradient [F, N], whether its field rode as a scalar or as a plane.
 //
+// Magnet glue.  B6 replays a magnet scene's glue passes one at a time
+// (titan_tiled_trace_pass, csrc/tiled_chunk.cuh::enqueue_tiled_pass with
+// TRACE), the caller writing each pass's constant force const_f + field
+// into the trace entry ([seg, 9, N], [seg, 12, N] under RK2, the JAX
+// package's layout, adjoint_tiled.py:513-546).  B7 reads each pass's
+// constant force from the entry; on an unbinned scene it launches the
+// pairwise field's transpose (csrc/magnets_adjoint.cuh) after each pass,
+// on a binned one the caller runs the binned pass's vjp between the parts
+// of each reversed step (titan_tiled_bwd_begin, titan_tiled_bwd_part: the
+// whole step, or under RK2 the midpoint and pass 2 (rk2b), then pass 1
+// (rk2a); adjoint_tiled.py:780-803, :1182-1340).
+//
 // B8, resident-grid backward (Euler and Verlet).  One cooperative launch
 // per segment, no larger than the co-resident blocks, grid-striding over
 // the masses, runs all seg reversed steps: phase A, a grid barrier, phase
@@ -94,6 +106,8 @@ struct TiledBwdArgs {
   int n, nf, n_planes, n_balls, seg, integrator;  // 0 Euler, 1 Verlet, 2 RK2
   int clamp, has_damping, has_breathing, has_actuated, has_drag, device;
   float normal_coeff;
+  int np;        // rows per trace entry: 6, or 9 / 12 with each pass's cf
+  float cutoff;  // magnet cutoff (with mag)
   int deltas[titan_tiled::kMaxFamilies];
   const float* scal;     // [2]: dt, t at segment start
   const float* planes;   // [P, 6]
@@ -111,7 +125,7 @@ struct TiledBwdArgs {
   const float* minv;     // [N]
   const float* fixed;    // [N]
   const float* drag;     // [N] (has_drag only)
-  const float* trace;    // [seg, 6, N]
+  const float* trace;    // [seg, np, N]
   const float* gpos_in;
   const float* gvel_in;
   const float* gacc_in;
@@ -132,6 +146,8 @@ struct TiledBwdArgs {
   float* pos_h;
   float* vel_h;
   float* grem;              // [5, S] per-spring gradients (remainder)
+  const float* mag;         // [5, N] folded magnet parameters, or null
+  float* gmag;              // [4, N] magnet parameter gradients (with mag)
   titan::LocalSlots local;  // per-mass local-constraint slots
   titan::Remainder rem;     // remainder springs (rest_src: the segment's)
 
@@ -227,4 +243,28 @@ extern "C" int titan_tiled_bwd(const TiledBwdArgs* c, int mega, float* gf_odd,
   err = cudaLaunchCooperativeKernel(entry, dim3(blocks), dim3(kThreads),
                                     params, 0, st);
   return static_cast<int>(err);
+}
+
+// B6 for a magnet scene: one per-step launch of the replay with its pass's
+// constant force (TiledPass), writing the step's input to p->entry on the
+// step's first pass.  Returns 0 or the launch's CUDA error.
+extern "C" int titan_tiled_trace_pass(const TiledChunk* c,
+                                      const titan_tiled::TiledPass* p,
+                                      void* stream) {
+  return titan_tiled::enqueue_tiled_pass<true>(c, p, stream);
+}
+
+// B7 split around a magnet glue's transpose that the caller runs: the
+// prologue (carry in, accumulators zeroed), then one part of reversed step
+// t (titan_adj::Part: both phases; or under RK2 the midpoint and pass 2,
+// then pass 1).  Each returns 0 or the first CUDA error.
+extern "C" int titan_tiled_bwd_begin(const TiledBwdArgs* c, void* stream) {
+  cudaError_t err = cudaSetDevice(c->device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return titan_adj::bwd_prologue(c, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int titan_tiled_bwd_part(const TiledBwdArgs* c, int t, int part,
+                                    void* stream) {
+  return titan_adj::enqueue_part(c, t, part, stream);
 }

@@ -8,7 +8,10 @@
 // TRACE = true: before each step, each mass's input (pos, vel) of that step
 // is also written to the trace, [steps, 6, N] (pos rows, then vel rows), as
 // csrc/adjoint.cu's trace.  The step's own arithmetic is tiled_mass either
-// way.
+// way.  A magnet scene's passes are launched one at a time with their own
+// constant force (enqueue_tiled_pass), each writing the step's input to
+// the entry the caller gives (whose rows after pos and vel hold each
+// pass's constant force).
 
 #ifndef TITAN_TILED_CHUNK_CUH_
 #define TITAN_TILED_CHUNK_CUH_
@@ -284,6 +287,66 @@ int enqueue_tiled_chunk(const TiledChunk* c, float* trace, void* stream) {
     cur = dst;
   }
   return 0;
+}
+
+// Host-side arguments of one per-step launch of a magnet scene, which steps
+// one force pass at a time with the pass's constant force (const_f + the
+// magnet field the caller computed at the pass's positions, the TPU's
+// per-step glue); field order matches the ctypes structure _TiledPass in
+// titan_tpu_torch/ops/tiled_step.py.
+struct TiledPass {
+  int step, mode;        // the step's index in the chunk; Mode
+  const float* cforce;   // [3, N] this pass's constant force
+  const float* pos;      // [3, N] state the forces are evaluated at
+  const float* vel;
+  const float* acc;      // previous acc (Verlet)
+  const float* pos0;     // the step's input (rk2b)
+  const float* vel0;
+  float* pos_dst;
+  float* vel_dst;
+  float* acc_dst;        // null for rk2a
+  float* v1_dst;         // rk2a with local constraints
+  const float* v1;       // rk2b with local constraints
+  float* entry;          // TRACE: the trace entry of the step (single, rk2a)
+};
+
+// Enqueue the per-step launch p on `stream`: c's invariants with
+// p->cforce.  Returns 0 or the launch's CUDA error.
+template <bool TRACE>
+int enqueue_tiled_pass(const TiledChunk* c, const TiledPass* p,
+                       void* stream) {
+  cudaError_t err = cudaSetDevice(c->device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  TiledArgs a = c->a;
+  a.cforce = p->cforce;
+  StepIO io = {};
+  io.step = p->step;
+  io.pos = p->pos;
+  io.vel = p->vel;
+  io.acc = p->acc;
+  io.pos0 = p->pos0;
+  io.vel0 = p->vel0;
+  io.pos_dst = p->pos_dst;
+  io.vel_dst = p->vel_dst;
+  io.acc_dst = p->acc_dst;
+  io.v1_dst = p->v1_dst;
+  io.v1 = p->v1;
+  const int blocks = (a.n + kThreads - 1) / kThreads;
+  switch (p->mode) {
+    case kEuler:
+      err = launch_step<kEuler, TRACE>(blocks, st, a, io, p->entry);
+      break;
+    case kVerlet:
+      err = launch_step<kVerlet, TRACE>(blocks, st, a, io, p->entry);
+      break;
+    case kRk2a:
+      err = launch_step<kRk2a, TRACE>(blocks, st, a, io, p->entry);
+      break;
+    default:
+      err = launch_step<kRk2b, TRACE>(blocks, st, a, io, p->entry);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace titan_tiled

@@ -14,8 +14,13 @@
 // device function, csrc/step_body.cuh::local_constraints, on the same
 // stacked slot rows; pallas_tiled.py:789-865), drag and the Euler (clamp
 // on/off), Verlet or RK2 update, fixed and invalid masses frozen.
-// Remainder springs and magnets are outside its envelope
-// (tiled_reject_reason).  With local constraints the RK2 predictor also
+// Remainder springs run inside the per-step launches (REM).  A magnet
+// scene steps one force pass at a time (titan_tiled_pass): the caller
+// computes the field at the pass's positions (csrc/magnets.cu or
+// csrc/magnets_grid.cu) and launches the pass with cforce = const_f +
+// field, the RK2 midpoint's between rk2a and rk2b (the TPU's per-step
+// magnet glue, pallas_tiled.py:1609-1700); such a scene takes no resident
+// grid.  With local constraints the RK2 predictor also
 // stores pass 1's mutated velocity, which the corrector starts from (the
 // TPU's megark2 cell carries it in its midpoint buffer, :898).
 //
@@ -89,4 +94,12 @@ extern "C" int titan_tiled_coop_blocks(int integrator, int device) {
 // Returns 0, or the cudaError_t of the first launch that failed.
 extern "C" int titan_tiled_chunk(const TiledChunk* c, void* stream) {
   return titan_tiled::enqueue_tiled_chunk<false>(c, nullptr, stream);
+}
+
+// One per-step launch of a magnet scene with its pass's constant force
+// (TiledPass).  Returns 0 or the launch's CUDA error.
+extern "C" int titan_tiled_pass(const TiledChunk* c,
+                                const titan_tiled::TiledPass* p,
+                                void* stream) {
+  return titan_tiled::enqueue_tiled_pass<false>(c, p, stream);
 }

@@ -26,8 +26,10 @@ masses', the stencil families' and the remainder springs' parameters).  Routes:
   config): the tiled step forward that ``Simulation`` runs there, the
   trace replay and the reverse sweep of ``csrc/tiled_adjoint.cu``.
 - ``grad_rollout``: the route ``grad_route`` picks, as the JAX package's
-  ``grad_rollout`` picks it; ``fast_rollout`` with a one-line warning
-  naming both adjoints' reasons where neither accepts the scene.
+  ``grad_rollout`` picks it (a magnet scene within ``magnet_pallas_max``
+  takes the fused adjoint, a larger magnet lattice the tiled one with its
+  glue); ``fast_rollout`` with a one-line warning naming both adjoints'
+  reasons where neither accepts the scene (a spring-less magnet swarm).
 
 Every eager step here is built from ``xla_only_shape(shape)``: the grid
 magnet kernel has no backward, so a differentiated step takes the binned
@@ -137,7 +139,8 @@ def grad_route(shape: SceneShape):
     both adjoints' reasons (else None).  As the JAX package routes
     (``titan_tpu/diff.py:154-160``): the fused adjoint where it accepts the
     scene and the scene fits the reference's rule (``step.fits_fused``:
-    its remainder selectors, and ``adjoint_resident_bytes`` under
+    ``magnet_pallas_max`` and the pairwise magnet temporaries, its
+    remainder selectors, and ``adjoint_resident_bytes`` under
     ``RESIDENT_BUDGET``), else the tiled adjoint where it accepts the
     scene, else the fused adjoint where it accepts it (its card kernels
     have no size cap, as ``chunk_route`` keeps the fused step for large

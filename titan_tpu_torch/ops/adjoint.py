@@ -42,14 +42,30 @@ while the forward and the replay advance it step by step; the two differ
 by about 1e-7 relative.
 
 Differentiable inputs: masses.pos, vel, acc, extern_force, m, drag,
-stencil.k, rest, damping, omega, rate, springs.k, rest, damping, omega,
+mag_rad, mag_stiffness, mag_maxf, mag_scale, stencil.k, rest, damping, omega, rate, springs.k, rest, damping, omega,
 rate, and g.  dt, plane and ball geometry, the local-constraint slots, t
 and the actuation bounds get no gradient.
 
-Envelope (``adjoint_reject_reason``): the fused step's, without magnets
-and without scenes that have no stencil family.  A trace that does not fit
-on the card raises out-of-memory in the backward; a shorter ``segment``
-makes it smaller.  The magnet branches wait for a later slice.
+Magnets (``titan_tpu/ops/adjoint.py:282-300``, transpose :935-1017).  The
+forward feeds each force pass's pairwise or grid field through the
+constant force (``fused_step._magnet_passes``); the replay runs the same
+passes with the replay kernel and keeps each pass's constant force
+``const_f + field`` in the trace entry (``trace_rows``: 9 rows, 12 under
+RK2), which the backward reads.  After each pass's spring phase the
+field's transpose (the B5 kernel ``csrc/magnets_adjoint.cuh``, launched
+inside the sweep; plain version ``magnets.magnet_transpose_plain``) turns that pass's force cotangent on
+movable masses into position cotangents and the per-mass gradients of
+mag_rad, mag_stiffness, mag_maxf and mag_scale (``MAG_BARS``).  The
+transpose is the all-pairs field's, so the adjoint takes unbinned magnet
+scenes only: a binned scene's field visits at most ``cell_cap`` sources
+per 3 x 3 neighbourhood, a different function once a neighbourhood holds
+more (``adjoint_reject_reason``).
+
+Envelope (``adjoint_reject_reason``): the fused step's, without scenes that
+have no stencil family, and magnet scenes only within the reference's
+``magnet_pallas_max`` and pairwise-temporaries rules and unbinned.  A trace
+that does not fit on the card raises out-of-memory in the backward; a
+shorter ``segment`` makes it smaller.
 """
 
 from __future__ import annotations
@@ -65,28 +81,47 @@ from ..config import ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator
 from ..state import SceneShape, SimState
 from . import forces as F
 from .fused_step import (_ChunkArgs, _LocalSlots, _Remainder, _checked,
-                         _chunk_args, deltas_on, fused_chunk,
-                         fused_reject_reason, local_struct, prep_invariants,
-                         remainder_struct)
-from .step import local_caps
+                         _chunk_args, _magnet_passes, cf_rows, deltas_on,
+                         fused_chunk, fused_reject_reason, local_struct,
+                         magnet_field_fn, prep_invariants, remainder_struct,
+                         trace_rows)
+from .magnets import (magnet_transpose_plain, pairwise_field_lanes,
+                      pairwise_params)
+from .step import MAGNET_PAIR_BUDGET, local_caps, magnet_pair_bytes
 
 
 def adjoint_reject_reason(shape: SceneShape):
     """None if the adjoint kernels accept this scene, else why not: the
-    fused step's envelope, less magnet scenes and scenes without stencil
-    families.  The fused step takes both, but the adjoint's transpose has
-    no magnet branch yet (``titan_tpu/ops/adjoint.py:282-300``, :935), so
-    its gradients would leave the magnet term out.  Memory is no part of
-    it: a trace too large for the card raises ``torch.OutOfMemoryError``
-    when the backward allocates it (``trace_run``), as the JAX package's
-    staging fails cleanly.  ``diff.grad_route`` reads the reference's
-    residency rule (``adjoint_resident_bytes``) to choose between this
-    adjoint and the tiled one."""
-    if shape.has_magnets:
-        return ("magnets: the adjoint kernels have no magnet branch yet "
-                "(ROADMAP B4/B5)")
+    fused step's envelope, less scenes without stencil families, less
+    magnet scenes outside the reference's fused envelope
+    (``titan_tpu/ops/pallas_step.py:71-73``, :97-98: ``magnet_pallas_max``
+    masses and the pairwise temporaries' budget) and binned magnet scenes:
+    the transpose (B5) is the all-pairs field's, and a binned field caps
+    the sources of each neighbourhood.  The reference's fused adjoint
+    takes a binned scene within ``magnet_pallas_max`` (only where
+    ``magnet_binned_threshold`` is set below it) through its dense field;
+    the port's forward takes the grid field there, so its gradient goes to
+    the tiled adjoint, whose glue transposes the binned pass.  Memory is
+    no part of it: a trace too large for the card raises
+    ``torch.OutOfMemoryError`` when the backward allocates it
+    (``trace_run``), as the JAX package's staging fails cleanly.
+    ``diff.grad_route`` reads the reference's residency rule
+    (``step.fits_fused`` with ``adjoint_resident_bytes``) to choose
+    between this adjoint and the tiled one."""
     if not shape.stencil_deltas:
         return "no stencil spring families"
+    if shape.has_magnets:
+        cfg = shape.config
+        if shape.n_masses > cfg.magnet_pallas_max:
+            return (f"magnetic scene with {shape.n_masses} masses > "
+                    f"magnet_pallas_max={cfg.magnet_pallas_max}")
+        if magnet_pair_bytes(shape) > MAGNET_PAIR_BUDGET:
+            return (f"pairwise magnet temporaries at {shape.n_masses} "
+                    "masses exceed 16 MB")
+        if shape.magnet_binned:
+            return ("binned magnets: the adjoint's transpose is the "
+                    "all-pairs field's, and the binned field caps each "
+                    "neighbourhood's sources")
     return fused_reject_reason(shape)
 
 
@@ -175,16 +210,27 @@ def _rest_eff(P, fi, t_now, cidx=None):
     return rest
 
 
-def _force(pos, vel, P, rg, rs, t_now=None, keep_stages=False, cidx=None):
-    """Full force evaluation (springs, planes, balls, local constraints,
-    drag), the fused step's ``compute_forces``.  Returns (f, v, stages):
-    v is the velocity the local constraints leave (what drag and the
-    integrator read); with keep_stages, stages holds the force entering
-    each plane and local contact plane (their friction selects read it),
-    the (force, velocity) entering each constraint plane and direction,
-    the final velocity and the per-family intermediates the transpose
-    reuses."""
-    f = P["cf"] + 0.0
+def _force(pos, vel, P, rg, rs, t_now=None, keep_stages=False, cidx=None,
+           cf=None):
+    """Full force evaluation (magnets, springs, planes, balls, local
+    constraints, drag), the fused step's ``compute_forces``.  Returns (f,
+    v, stages): v is the velocity the local constraints leave (what drag
+    and the integrator read); with keep_stages, stages holds the force
+    entering each plane and local contact plane (their friction selects
+    read it), the (force, velocity) entering each constraint plane and
+    direction, the final velocity and the per-family intermediates the
+    transpose reuses.  The constant force is ``cf`` where given (a magnet
+    scene's trace holds each pass's ``const_f + field``), else ``P["cf"]``
+    plus, for a magnet scene (``P["mag"]``, the folded [5, N] parameters),
+    the pairwise field at ``pos``, 0 on frozen masses, in the field
+    kernel's order (``magnets.pairwise_field_lanes``)."""
+    if cf is not None:
+        f = cf + 0.0
+    elif P.get("mag") is not None:
+        f = P["cf"] + pairwise_field_lanes(pos, P["mag"], P["magnet_cutoff"]
+                                           ) * (1.0 - P["fixed"])
+    else:
+        f = P["cf"] + 0.0
     fam = ({"inv": [], "cm": [], "ax": [], "ln": []} if keep_stages
            else None)
     for fi, d in enumerate(P["deltas"]):
@@ -339,25 +385,31 @@ def _bars_accumulate(dst, src):
 
 
 def backward_step(pos, vel, gpos2, gvel2, gacc2, P, rg, rs, t_now=None,
-                  s_idx=0.0):
+                  s_idx=0.0, cfs=None):
     """Transpose of ``forward_step`` at primal (pos, vel): from the
     cotangents of (pos2, vel2, acc) to those of (pos, vel, acc_prev), plus
-    the parameter bars of this step (titan_tpu/ops/adjoint.py:600-689)."""
+    the parameter bars of this step (titan_tpu/ops/adjoint.py:600-689).
+    ``cfs`` are a magnet scene's per-pass constant forces from its trace
+    (else each pass recomputes the field); the field's transpose
+    (``_magnet_bars``) follows each pass's force transpose and adds to
+    that pass's position cotangent, in the order the kernels add it."""
     nf = 1.0 - P["fixed"]
     fx = P["fixed"]
     dt = P["dt"]
+    cf1, cf2 = tuple(cfs) + (None,) * (2 - len(cfs)) if cfs else (None, None)
+    mag = P.get("mag") is not None
     if P["rk2"]:
         # two force passes per dt, each with its own transpose; the
         # midpoint is recomputed from the traced (pos, vel)
         c1, c2 = _cidx(P, s_idx, 1.0), _cidx(P, s_idx, 2.0)
         f1, vel1, st1 = _force(pos, vel, P, rg, rs, t_now, keep_stages=True,
-                               cidx=c1)
+                               cidx=c1, cf=cf1)
         acc1 = f1 * P["minv"]
         pos_h = (pos + 0.5 * vel1 * dt) * nf + pos * fx
         vel_h = (vel1 + 0.5 * acc1 * dt) * nf + vel1 * fx
         t_h = None if t_now is None else t_now + 0.5 * dt
         f2, _, st2 = _force(pos_h, vel_h, P, rg, rs, t_h, keep_stages=True,
-                            cidx=c2)
+                            cidx=c2, cf=cf2)
         # v2 = (vel1 + acc dt) nf + vel fx; pos2 = pos + vel2 dt nf;
         # acc_out = acc nf + acc_prev fx; each pass's velocity cotangent
         # (on its mutated vel1 / vel2) threads back through its own force
@@ -372,6 +424,8 @@ def backward_step(pos, vel, gpos2, gvel2, gacc2, P, rg, rs, t_now=None,
         minv_bar = torch.sum(gacc * f2, dim=0, keepdim=True)
         gpos_h, gv_h, bars = _force_transpose(pos_h, vel_h, gf2, gvel2ct,
                                               P, rg, rs, t_h, st2, cidx=c2)
+        if mag:
+            gpos_h = gpos_h + _magnet_bars(pos_h, bars["cf"], P, bars)
         # vel_h = (vel1 + 0.5 acc1 dt) nf + vel1 fx; pos_h likewise
         gvel1 = gvel1 + gv_h + gpos_h * (0.5 * dt * nf)
         gacc1 = gv_h * (0.5 * dt * nf)
@@ -380,13 +434,16 @@ def backward_step(pos, vel, gpos2, gvel2, gacc2, P, rg, rs, t_now=None,
         minv_bar = minv_bar + torch.sum(gacc1 * f1, dim=0, keepdim=True)
         gp_c, gv_c, bars1 = _force_transpose(pos, vel, gf1, gvel1, P, rg,
                                              rs, t_now, st1, cidx=c1)
+        gpos = gpos + gp_c
+        if mag:
+            gpos = gpos + _magnet_bars(pos, bars1["cf"], P, bars1)
         _bars_accumulate(bars, bars1)
         bars["minv"] = minv_bar
-        return gpos + gp_c, gvel0 + gv_c, gacc_prev, bars
+        return gpos, gvel0 + gv_c, gacc_prev, bars
 
     c1 = _cidx(P, s_idx, 1.0)
     f_final, vel_m, st = _force(pos, vel, P, rg, rs, t_now, keep_stages=True,
-                                cidx=c1)
+                                cidx=c1, cf=cf1)
     acc = f_final * P["minv"]
     gpos = gpos2 + 0.0
     gv2 = gvel2 + gpos2 * (dt * nf)
@@ -419,7 +476,33 @@ def backward_step(pos, vel, gpos2, gvel2, gacc2, P, rg, rs, t_now=None,
     gp_c, gv_c, bars = _force_transpose(pos, vel, gf, gvel_mut, P, rg, rs,
                                         t_now, st, cidx=c1)
     bars["minv"] = torch.sum(gacc * f_final, dim=0, keepdim=True)
-    return gpos + gp_c, gvel0 + gv_c, gacc_prev, bars
+    gpos = gpos + gp_c
+    if mag:
+        gpos = gpos + _magnet_bars(pos, bars["cf"], P, bars)
+    return gpos, gvel0 + gv_c, gacc_prev, bars
+
+
+#: the magnet parameter gradients of one step, in the rows of the
+#: kernels' [4, N] accumulator
+MAG_BARS = ("mag_rad", "mag_stiffness", "mag_maxf", "mag_scale")
+
+
+def _magnet_bars(pos, gf, P, bars):
+    """Transpose of a force pass's magnet field at ``pos`` (the branch of
+    titan_tpu/ops/adjoint.py:935-1017) for ``gf``, the pass's cotangent on
+    its constant force (``bars["cf"]``; the field's is gf on movable
+    masses): adds the [N] ``MAG_BARS`` to ``bars`` and returns the
+    position cotangent.  ``P["mag_vjp"]`` where set (the tiled glue of a
+    binned scene, ``magnets.binned_field_vjp``), else the pairwise
+    transpose in the B5 kernel's order (``magnets.magnet_transpose_plain``)."""
+    if P.get("mag_vjp") is not None:
+        gp, g4 = P["mag_vjp"](pos, gf * (1.0 - P["fixed"]))
+    else:
+        gp, g4 = magnet_transpose_plain(pos, P["mag"], P["fixed"], gf,
+                                        P["magnet_cutoff"])
+    for key, g in zip(MAG_BARS, g4):
+        bars[key] = g
+    return gp
 
 
 def _force_transpose(pos, vel, gf, gvel_mut, P, rg, rs, t_now, st,
@@ -816,6 +899,9 @@ def _prep(shape: SceneShape, state: SimState, inv: dict = None) -> dict:
     }
     if shape.has_actuated:
         P["aratedt"], P["sstop"] = _actuation_inputs(state, inv["pair_ok"])
+    if shape.has_magnets:
+        P["mag"] = pairwise_params(state.masses)
+        P["magnet_cutoff"] = cfg.magnet_cutoff
     return P
 
 
@@ -823,13 +909,16 @@ def _prep(shape: SceneShape, state: SimState, inv: dict = None) -> dict:
 # The two kernels' plain versions, and their dispatch
 # ---------------------------------------------------------------------------
 
-def trace_run_plain(shape: SceneShape, state: SimState, seg: int):
+def trace_run_plain(shape: SceneShape, state: SimState, seg: int,
+                    field=None):
     """Plain version of the trace kernel (``build_trace_run`` :1661):
     replays ``seg`` steps of the fused chunk and returns each step's input
-    (pos_t, vel_t) as a trace [seg, 6, N]."""
+    (pos_t, vel_t), with a magnet scene's per-pass constant forces, as a
+    trace [seg, trace_rows, N].  ``field`` is ``fused_chunk_plain``'s (the
+    card's checks feed the kernel's field, to hold the step bitwise)."""
     from .fused_step import fused_chunk_plain
     trace = []
-    fused_chunk_plain(shape, state, seg, trace=trace)
+    fused_chunk_plain(shape, state, seg, trace=trace, field=field)
     return torch.stack(trace)
 
 
@@ -874,14 +963,19 @@ def sweep_plain(shape: SceneShape, P: dict, trace, gpos, gvel,
     rg, rs = torch_rolls()
     seg = trace.shape[0]
     acc = {}
+    mag = P.get("mag") is not None
     for t in range(seg - 1, -1, -1):
         t_now = P["t0"] + t * P["dt"]
+        cfs = cf_rows(trace, t)
         gpos, gvel, gacc, bars = backward_step(
-            trace[t, :3], trace[t, 3:], gpos, gvel, gacc, P, rg, rs, t_now,
-            s_idx=float(t))
+            trace[t, :3], trace[t, 3:6], gpos, gvel, gacc, P, rg, rs, t_now,
+            s_idx=float(t), cfs=cfs)
         for key in _bar_keys(shape):
             b = torch.stack(bars[key])
             acc[key] = acc[key] + b if key in acc else b
+        if mag:
+            b = torch.stack([bars[k] for k in MAG_BARS])
+            acc["mag"] = acc["mag"] + b if "mag" in acc else b
         for key in (["cf", "minv"] + ["drag"] * shape.has_drag
                     + rem_bar_keys(shape)):
             acc[key] = acc[key] + bars[key] if key in acc else bars[key]
@@ -897,10 +991,15 @@ def sweep_plain(shape: SceneShape, P: dict, trace, gpos, gvel,
 
 def _lib():
     from .. import _build
+    from .fused_step import _PassArgs
     lib = _build.load("adjoint")
     lib.titan_adjoint_trace.argtypes = [ctypes.POINTER(_ChunkArgs),
                                         ctypes.c_void_p, ctypes.c_void_p]
     lib.titan_adjoint_trace.restype = ctypes.c_int
+    lib.titan_adjoint_trace_pass.argtypes = [ctypes.POINTER(_ChunkArgs),
+                                             ctypes.POINTER(_PassArgs),
+                                             ctypes.c_void_p]
+    lib.titan_adjoint_trace_pass.restype = ctypes.c_int
     lib.titan_adjoint_bwd.argtypes = [ctypes.POINTER(_BwdArgs),
                                       ctypes.c_void_p]
     lib.titan_adjoint_bwd.restype = ctypes.c_int
@@ -910,17 +1009,31 @@ def _lib():
 def _trace_run_cuda(shape: SceneShape, state: SimState, seg: int, inv):
     lib = _lib()
     a, keep = _chunk_args(shape, state, seg, inv)
+    rows = trace_rows(shape)
     try:
-        trace = torch.empty((seg, 6, shape.n_masses), dtype=torch.float32,
+        trace = torch.empty((seg, rows, shape.n_masses), dtype=torch.float32,
                             device=state.masses.pos.device)
     except torch.OutOfMemoryError as e:
-        mib = seg * 6 * shape.n_masses * 4 >> 20
+        mib = seg * rows * shape.n_masses * 4 >> 20
         raise torch.OutOfMemoryError(
             f"the adjoint's {seg}-step trace ({mib} MiB) does not fit on the "
             f"card; a shorter segment makes it smaller: {e}") from e
-    rc = lib.titan_adjoint_trace(
-        ctypes.byref(a), trace.data_ptr(),
-        torch.cuda.current_stream(trace.device).cuda_stream)
+    stream = torch.cuda.current_stream(trace.device).cuda_stream
+    if shape.has_magnets:
+        # the forward's passes (fused_step._magnet_passes), each with the
+        # replay kernel and its constant force kept in the trace
+        def run(p):
+            rc = lib.titan_adjoint_trace_pass(ctypes.byref(a),
+                                              ctypes.byref(p), stream)
+            if rc != 0:
+                raise RuntimeError(f"adjoint trace kernel launch failed: "
+                                   f"CUDA error {rc}")
+            trace_run.launches += 1
+        _magnet_passes(shape, state, seg, keep[0],
+                       magnet_field_fn(shape, state, plain=False), run,
+                       trace=trace)
+        return trace
+    rc = lib.titan_adjoint_trace(ctypes.byref(a), trace.data_ptr(), stream)
     del keep     # freed on this stream: reused only by later work on it
     if rc != 0:
         raise RuntimeError(f"adjoint trace kernel launch failed: CUDA error "
@@ -932,11 +1045,13 @@ def _trace_run_cuda(shape: SceneShape, state: SimState, seg: int, inv):
 
 def trace_run(shape: SceneShape, state: SimState, seg: int,
               inv: dict = None):
-    """The segment's trace [seg, 6, N]: the CUDA trace kernel for state on
-    the card, ``trace_run_plain`` for state on the CPU.  ``inv`` is
-    ``prep_invariants(shape, state)`` where the caller has it already (the
-    kernel reads it).  ``trace_run.launches`` counts the kernel launches
-    (one per step, two for RK2)."""
+    """The segment's trace [seg, trace_rows, N]: the CUDA trace kernel for
+    state on the card (a magnet scene replays the forward's passes, each
+    field kernel's field with the replay kernel), ``trace_run_plain`` for
+    state on the CPU.  ``inv`` is ``prep_invariants(shape, state)`` where
+    the caller has it already (the kernel reads it).
+    ``trace_run.launches`` counts the replay kernel's launches (one per
+    step, two for RK2)."""
     dev = state.masses.pos.device
     if dev.type == "cpu":
         return trace_run_plain(shape, state, seg)
@@ -955,15 +1070,34 @@ class _BwdArgs(ctypes.Structure):
         "n", "nf", "n_planes", "n_balls", "seg", "integrator", "clamp",
         "has_damping", "has_breathing", "has_actuated", "has_drag",
         "device")]
-        + [("normal_coeff", ctypes.c_float)]
+        + [("normal_coeff", ctypes.c_float), ("np", ctypes.c_int),
+           ("cutoff", ctypes.c_float)]
         + [(f, ctypes.c_void_p) for f in (
             "deltas", "scal", "planes", "balls", "cforce", "minv", "fixed",
             "k", "rest", "damping", "bsign", "bomega", "aratedt", "sstop",
             "drag", "trace", "gpos_in", "gvel_in", "gacc_in", "gpos",
             "gvel", "gacc", "gk", "grest", "gdamp", "gomega", "garate",
             "gcf", "gminv", "gdrag", "gf", "gpc", "gvc", "pos_h",
-            "vel_h", "grem")]
+            "vel_h", "grem", "mag", "gmag")]
         + [("local", _LocalSlots), ("rem", _Remainder)])
+
+
+def magnet_args(a, shape: SceneShape, state: SimState, g: dict, empty,
+                kernel: str) -> list:
+    """Set a backward's magnet fields (``BwdChunkArgs`` /
+    ``TiledBwdArgs``): the trace's rows and, for a magnet scene, the cutoff,
+    the folded parameters and the [4, N] gradient accumulator, which
+    becomes ``g["mag"]``.  Returns the tensors the launch reads."""
+    a.np = trace_rows(shape)
+    if not shape.has_magnets:
+        return []
+    n = shape.n_masses
+    prm = pairwise_params(state.masses)
+    a.cutoff = float(shape.config.magnet_cutoff)
+    a.mag = _checked("magnet params", prm, (5, n), kernel=kernel)
+    g["mag"] = empty((4, n))
+    a.gmag = g["mag"].data_ptr()
+    return [prm]
 
 
 def rem_bars(shape: SceneShape, empty) -> tuple:
@@ -1031,7 +1165,8 @@ def _bwd_run_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
         keep += [aratedt, sstop]
     if shape.has_drag:
         a.drag = _checked("drag", m.drag, (n,))
-    a.trace = _checked("trace", trace, (seg, 6, n))
+    keep += magnet_args(a, shape, state, g, empty, "adjoint")
+    a.trace = _checked("trace", trace, (seg, a.np, n))
     a.gpos_in = _checked("gpos", gpos, vec)
     a.gvel_in = _checked("gvel", gvel, vec)
     a.gacc_in = _checked("gacc", gacc, vec)
@@ -1056,7 +1191,10 @@ def _bwd_run_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
     if rc != 0:
         raise RuntimeError(f"adjoint backward kernel launch failed: CUDA "
                            f"error {rc}")
-    bwd_run.launches += seg * (5 if cfg.integrator is Integrator.RK2 else 2)
+    passes = 2 if cfg.integrator is Integrator.RK2 else 1
+    bwd_run.launches += seg * (5 if passes == 2 else 2)
+    if shape.has_magnets:
+        bwd_run.mag_launches += seg * passes
     g["pair_ok"] = inv["pair_ok"]
     return g
 
@@ -1066,8 +1204,9 @@ def bwd_run(shape: SceneShape, state: SimState, trace, gpos, gvel,
     """The reverse sweep over ``trace``: the CUDA backward kernel for
     state on the card, ``bwd_run_plain`` for state on the CPU (the same
     keys).  ``inv`` is ``prep_invariants(shape, state)`` where the caller
-    has it already.  ``bwd_run.launches`` counts the kernel launches (two
-    per step, five for RK2)."""
+    has it already.  ``bwd_run.launches`` counts the step kernels'
+    launches (two per step, five for RK2), ``bwd_run.mag_launches`` the
+    magnet transpose's (B5: one per force pass of a magnet scene)."""
     dev = state.masses.pos.device
     if dev.type == "cpu":
         return bwd_run_plain(shape, state, trace, gpos, gvel, gacc, inv)
@@ -1077,6 +1216,7 @@ def bwd_run(shape: SceneShape, state: SimState, trace, gpos, gvel,
 
 
 bwd_run.launches = 0
+bwd_run.mag_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1085,7 +1225,8 @@ bwd_run.launches = 0
 
 #: the differentiable leaves of a state, in the order a segment takes them:
 #: masses, stencil families, remainder springs (``springs.<name>``), g
-MASS_LEAVES = ("pos", "vel", "acc", "extern_force", "m", "drag")
+MASS_LEAVES = ("pos", "vel", "acc", "extern_force", "m", "drag", "mag_rad",
+               "mag_stiffness", "mag_maxf", "mag_scale")
 STENCIL_LEAVES = ("k", "rest", "damping", "omega", "rate")
 SPRING_LEAVES = ("k", "rest", "damping", "omega", "rate")
 LEAVES = (MASS_LEAVES + STENCIL_LEAVES
@@ -1173,6 +1314,11 @@ def assemble_ct(shape: SceneShape, seg: int, s0: SimState, ct_rest,
                 - g["minv"] / (m0.m * m0.m))
     if shape.has_drag:
         out["drag"] = g["drag"]
+    if shape.has_magnets:
+        # the staging folds validity into the parameters, so an invalid
+        # mass's have no effect (titan_tpu/ops/adjoint.py:1850-1863)
+        for key, gm in zip(MAG_BARS, g["mag"]):
+            out[key] = torch.where(m0.valid, gm, 0.0)
     out["k"] = torch.where(ok, g["k"], 0.0)
     out["rest"] = ct_rest + g["rest"]
     if shape.has_damping:
@@ -1242,8 +1388,9 @@ def adjoint_rollout(shape: SceneShape, state: SimState, n_steps: int,
     input state per segment plus, during the backward, one trace of
     ``segment`` steps.  Gradients are the exact transpose of the fused
     step's physics for the differentiable inputs listed in the module
-    docstring; scenes outside ``adjoint_supported`` use
-    ``diff.fast_rollout``."""
+    docstring.  A scene outside ``adjoint_supported`` raises;
+    ``diff.grad_rollout`` routes it to the tiled adjoint or
+    ``fast_rollout``."""
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
     seg = segment or default_segment(n_steps)

@@ -46,9 +46,21 @@ feeds them in as glue and splits its RK2 backward around the glue's vjp
 step): the tiled step's closed-form rest makes that unnecessary.  Their
 scenes take no resident grid, forward or backward, as in the reference.
 
+Magnet glue follows the reference's data contract (``build_tiled_trace``
+:513-546, ``build_tiled_bwd`` :1182-1340).  The replay runs the forward's
+glue passes (``tiled_step.glue_passes``) and keeps each step's constant
+force ``const_f + field`` in its trace entry: 9 rows, 12 under RK2 (both
+passes').  The backward reads each pass's constant force from there and
+routes the pass's force cotangent gf (on movable masses) through the
+field's transpose before the earlier pass runs: on an unbinned scene the
+pairwise transpose kernel (B5, ``csrc/magnets_adjoint.cuh``) inside the
+sweep; on a binned one autograd through the binned pass
+(``magnets.binned_field_vjp``, as the JAX package takes that vjp in XLA)
+between B7's parts, rk2b, the midpoint's vjp, then rk2a under RK2
+(``_glue_sweep``).  Glue scenes take no resident grid here either.
+
 Envelope (``tiled_adjoint_reject_reason``): the tiled step's, local
-constraints and remainder springs included.  The magnet glue is outside
-it, as it is outside the tiled step's.
+constraints, remainder springs and magnets included.
 """
 
 from __future__ import annotations
@@ -61,19 +73,20 @@ from torch.autograd.function import once_differentiable
 
 from ..config import Integrator
 from ..state import SceneShape, SimState
-from .adjoint import (LEAVES, assemble_ct, leaves_of, rem_bars,
-                      segment_outputs, state_from_outputs, sweep_plain,
-                      with_leaves)
+from .adjoint import (LEAVES, assemble_ct, leaves_of, magnet_args,
+                      rem_bars, segment_outputs, state_from_outputs,
+                      sweep_plain, trace_rows, with_leaves)
 from .fused_step import (_LocalSlots, _Remainder, _checked, local_struct,
-                         remainder_struct)
+                         magnet_field_fn, remainder_struct)
+from .magnets import binned_field_vjp, pairwise_params
 from .step import local_caps
 from .tiled_step import (_INTEGRATOR_CODE, _MAX_FAMILIES, _TiledChunk,
-                         chunk_struct, launch_counts, mega_seg,
-                         prep_tiled_inputs, tiled_chunk, tiled_chunk_plain,
-                         tiled_reject_reason)
+                         _TiledPass, chunk_struct, glue_passes, launch_counts,
+                         mega_seg, prep_tiled_inputs, tiled_chunk,
+                         tiled_chunk_plain, tiled_reject_reason)
 
-#: the default segment's cap on the trace ([seg, 6, N] f32), and on its
-#: steps (``adjoint_tiled.py:1504-1520``)
+#: the default segment's cap on the trace ([seg, trace_rows, N] f32), and
+#: on its steps (``adjoint_tiled.py:1504-1520``)
 TRACE_BYTES, MAX_SEGMENT = 1.5e9, 64
 
 
@@ -123,7 +136,8 @@ def default_segment(shape: SceneShape, n_steps: int) -> int:
     multiple for its resident-grid adjoint (Euler, Verlet); here RK2's
     forward and replay run resident-grid launches too, so it applies to
     every scene whose chunk does."""
-    cap = max(1, int(TRACE_BYTES // (4 * 6 * shape.n_masses)))
+    cap = max(1, int(TRACE_BYTES // (4 * trace_rows(shape)
+                                     * shape.n_masses)))
     hi = min(n_steps, MAX_SEGMENT, cap)
     seg = next(s for s in range(hi, 0, -1) if n_steps % s == 0)
     k = mega_seg(shape)
@@ -182,13 +196,26 @@ def _plain_inputs(shape: SceneShape, inv: dict) -> dict:
     }
 
 
-def tiled_trace_run_plain(shape: SceneShape, state: SimState, seg: int):
+def tiled_trace_run_plain(shape: SceneShape, state: SimState, seg: int,
+                          field=None):
     """Plain version of the trace replay (B6): ``tiled_chunk_plain`` over
-    ``seg`` steps with each step's input (pos, vel) written to the trace
-    [seg, 6, N]."""
+    ``seg`` steps with each step's input (pos, vel), and a magnet scene's
+    per-pass constant forces, written to the trace [seg, trace_rows, N].
+    ``field`` is ``tiled_chunk_plain``'s (the card's checks feed the
+    kernel's field, to hold the replay bitwise)."""
     trace = []
-    tiled_chunk_plain(shape, state, seg, trace=trace)
+    tiled_chunk_plain(shape, state, seg, trace=trace, field=field)
     return torch.stack(trace)
+
+
+def glue_vjp(shape: SceneShape, state: SimState):
+    """The magnet glue's transpose on a binned scene, ``vjp(pos, gfm) ->
+    (gpos, [4, N])``: autograd through the binned pass
+    (``magnets.binned_field_vjp``), whose forward took the grid field, as
+    ``build_tiled_bwd`` takes this vjp in XLA (:1248-1305).  An unbinned
+    scene's is the pairwise transpose (B5), inside the sweep."""
+    m = state.masses
+    return lambda pos, gfm: binned_field_vjp(m, shape, pos, gfm)
 
 
 def tiled_bwd_run_plain(shape: SceneShape, state: SimState, trace, gpos,
@@ -196,13 +223,22 @@ def tiled_bwd_run_plain(shape: SceneShape, state: SimState, trace, gpos,
     """Plain version of the tiled backward (B7 and B8; ``build_tiled_bwd``
     :1182): the reverse sweep of ``ops/adjoint.py::backward_step`` over
     ``trace`` on the tiled staging, from the cotangents (gpos, gvel, gacc)
-    of the segment's output.  Returns the keys of
+    of the segment's output.  A magnet scene's passes read their constant
+    force from the trace and route its cotangent through the glue's
+    transpose: the pairwise transpose's plain version
+    (``magnets.magnet_transpose_plain``) on an unbinned scene, the binned
+    pass's vjp (``glue_vjp``) on a binned one.  Returns the keys of
     ``ops/adjoint.py::bwd_run_plain``.  ``inv`` is
     ``prep_tiled_inputs(shape, state)`` where the caller has it."""
     if inv is None:
         inv = prep_tiled_inputs(shape, state)
-    return sweep_plain(shape, _plain_inputs(shape, inv), trace, gpos, gvel,
-                       gacc)
+    P = _plain_inputs(shape, inv)
+    if shape.has_magnets:
+        P["mag"] = pairwise_params(state.masses)
+        P["magnet_cutoff"] = shape.config.magnet_cutoff
+        if shape.magnet_binned:
+            P["mag_vjp"] = glue_vjp(shape, state)
+    return sweep_plain(shape, P, trace, gpos, gvel, gacc)
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +252,8 @@ class _TiledBwdArgs(ctypes.Structure):
         "n", "nf", "n_planes", "n_balls", "seg", "integrator", "clamp",
         "has_damping", "has_breathing", "has_actuated", "has_drag",
         "device")]
-        + [("normal_coeff", ctypes.c_float),
+        + [("normal_coeff", ctypes.c_float), ("np", ctypes.c_int),
+           ("cutoff", ctypes.c_float),
            ("deltas", ctypes.c_int * _MAX_FAMILIES)]
         + [(f, ctypes.c_void_p) for f in (
             "scal", "planes", "balls", "fparams", "bits", "k", "rest",
@@ -224,7 +261,7 @@ class _TiledBwdArgs(ctypes.Structure):
             "minv", "fixed", "drag", "trace", "gpos_in", "gvel_in",
             "gacc_in", "gpos", "gvel", "gacc", "gk", "grest", "gdamp",
             "gomega", "garate", "gcf", "gminv", "gdrag", "gf", "gpc", "gvc",
-            "pos_h", "vel_h", "grem")]
+            "pos_h", "vel_h", "grem", "mag", "gmag")]
         + [("local", _LocalSlots), ("rem", _Remainder)])
 
 
@@ -240,6 +277,17 @@ def _lib():
     lib.titan_tiled_bwd.restype = ctypes.c_int
     lib.titan_tiled_adjoint_coop_blocks.argtypes = [ctypes.c_int] * 3
     lib.titan_tiled_adjoint_coop_blocks.restype = ctypes.c_int
+    lib.titan_tiled_trace_pass.argtypes = [ctypes.POINTER(_TiledChunk),
+                                           ctypes.POINTER(_TiledPass),
+                                           ctypes.c_void_p]
+    lib.titan_tiled_trace_pass.restype = ctypes.c_int
+    lib.titan_tiled_bwd_begin.argtypes = [ctypes.POINTER(_TiledBwdArgs),
+                                          ctypes.c_void_p]
+    lib.titan_tiled_bwd_begin.restype = ctypes.c_int
+    lib.titan_tiled_bwd_part.argtypes = [ctypes.POINTER(_TiledBwdArgs),
+                                         ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+    lib.titan_tiled_bwd_part.restype = ctypes.c_int
     return lib
 
 
@@ -264,16 +312,34 @@ def _device_index(dev: torch.device) -> int:
 def _tiled_trace_cuda(shape: SceneShape, state: SimState, seg: int,
                       inv: dict, k_seg: int):
     """B6: the trace of ``seg`` steps through the forward's launches, cut
-    into ``k_seg``-step resident-grid segments (0: one launch per step)."""
+    into ``k_seg``-step resident-grid segments (0: one launch per step); a
+    magnet scene's through its glue passes (``tiled_step.glue_passes``),
+    each pass's constant force kept in the trace."""
     c, out, scratch = chunk_struct(shape, state, seg, k_seg, inv)
+    rows = trace_rows(shape)
     try:
-        trace = torch.empty((seg, 6, shape.n_masses), dtype=torch.float32,
+        trace = torch.empty((seg, rows, shape.n_masses), dtype=torch.float32,
                             device=state.masses.pos.device)
     except torch.OutOfMemoryError as e:
-        mib = seg * 6 * shape.n_masses * 4 >> 20
+        mib = seg * rows * shape.n_masses * 4 >> 20
         raise torch.OutOfMemoryError(
             f"the tiled adjoint's {seg}-step trace ({mib} MiB) does not fit "
             f"on the card; a shorter segment makes it smaller: {e}") from e
+    if shape.has_magnets:
+        lib = _lib()
+        stream = torch.cuda.current_stream(trace.device).cuda_stream
+
+        def run(p):
+            rc = lib.titan_tiled_trace_pass(ctypes.byref(c), ctypes.byref(p),
+                                            stream)
+            if rc != 0:
+                raise RuntimeError(f"tiled adjoint trace kernel launch "
+                                   f"failed: CUDA error {rc}")
+            tiled_trace_run.step_launches += 1
+        glue_passes(shape, state, seg, inv,
+                    magnet_field_fn(shape, state, plain=False), run,
+                    trace=trace)
+        return trace
     rc = _lib().titan_tiled_trace(
         ctypes.byref(c), trace.data_ptr(),
         torch.cuda.current_stream(trace.device).cuda_stream)
@@ -363,7 +429,11 @@ def _tiled_bwd_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
     a.fixed = _checked("fixed", inv["fixed"], (n,), kernel=kern)
     if shape.has_drag:
         a.drag = _checked("drag", inv["drag"], (n,), kernel=kern)
-    a.trace = _checked("trace", trace, (seg, 6, n), kernel=kern)
+    keep = magnet_args(a, shape, state, g, empty, kern)
+    binned = shape.has_magnets and bool(shape.magnet_binned)
+    if binned:          # the glue's transpose runs between the parts
+        a.mag = a.gmag = None
+    a.trace = _checked("trace", trace, (seg, a.np, n), kernel=kern)
     a.gpos_in = _checked("gpos", gpos, vec, kernel=kern)
     a.gvel_in = _checked("gvel", gvel, vec, kernel=kern)
     a.gacc_in = _checked("gacc", gacc, vec, kernel=kern)
@@ -383,19 +453,63 @@ def _tiled_bwd_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
         g.update(rem_g, rem_ok=inv["rem"]["ok"])
     gf_odd = scratch[5].data_ptr() if mega else None
 
-    rc = _lib().titan_tiled_bwd(ctypes.byref(a), int(mega), gf_odd,
-                                torch.cuda.current_stream(dev).cuda_stream)
-    del scratch     # freed on this stream: reused only by later work on it
-    if rc != 0:
-        raise RuntimeError(f"tiled adjoint backward kernel launch failed: "
-                           f"CUDA error {rc}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    passes = 2 if cfg.integrator is Integrator.RK2 else 1
+    if binned:
+        _glue_sweep(shape, state, a, g, scratch, trace,
+                    1.0 - inv["fixed"], stream)
+    else:
+        rc = _lib().titan_tiled_bwd(ctypes.byref(a), int(mega), gf_odd,
+                                    stream)
+        if rc != 0:
+            raise RuntimeError(f"tiled adjoint backward kernel launch "
+                               f"failed: CUDA error {rc}")
+        if shape.has_magnets:
+            tiled_bwd_run.mag_launches += seg * passes
+    del scratch, keep   # freed on this stream: reused only by later work
     if mega:
         tiled_bwd_run.mega_launches += 1
     else:
-        tiled_bwd_run.step_launches += seg * (
-            5 if cfg.integrator is Integrator.RK2 else 2)
+        tiled_bwd_run.step_launches += seg * (5 if passes == 2 else 2)
     g["pair_ok"] = inv["pair_ok"]
     return g
+
+
+def _glue_sweep(shape: SceneShape, state: SimState, a, g: dict, scratch,
+                trace, keep, stream):
+    """B7 of a binned magnet scene, split as ``build_tiled_bwd`` splits it
+    (:1182-1340): per reversed step the kernels' part (both phases; under
+    RK2 rk2b, the midpoint and pass 2), then the glue's vjp of that pass
+    (``glue_vjp``: its field cotangent is the pass's force cotangent gf on
+    movable masses, ``keep``) added to the pass's position cotangent (the
+    carry, or the midpoint's before pass 1 reads it), then under RK2 rk2a
+    (pass 1) and its vjp.  The trace gives each pass's positions."""
+    lib = _lib()
+    vjp = glue_vjp(shape, state)
+    rk2 = shape.config.integrator is Integrator.RK2
+    gf, gpc, pos_h = scratch[0], scratch[1], scratch[3]
+    g["mag"].zero_()
+
+    def call(fn, *args):
+        rc = fn(ctypes.byref(a), *args, stream)
+        if rc != 0:
+            raise RuntimeError(f"tiled adjoint backward kernel launch "
+                               f"failed: CUDA error {rc}")
+
+    def glue(pos, dst):
+        gp, g4 = vjp(pos, gf * keep)
+        dst.add_(gp)
+        g["mag"].add_(g4)
+
+    call(lib.titan_tiled_bwd_begin)
+    for t in range(a.seg - 1, -1, -1):
+        if rk2:
+            call(lib.titan_tiled_bwd_part, t, 1)      # rk2b
+            glue(pos_h, gpc)
+            call(lib.titan_tiled_bwd_part, t, 2)      # rk2a
+        else:
+            call(lib.titan_tiled_bwd_part, t, 0)
+        glue(trace[t, :3], g["pos"])
 
 
 def tiled_bwd_run(shape: SceneShape, state: SimState, trace, gpos, gvel,
@@ -405,7 +519,9 @@ def tiled_bwd_run(shape: SceneShape, state: SimState, trace, gpos, gvel,
     RK2 (B7); ``tiled_bwd_run_plain`` for state on the CPU (the same keys).
     ``inv`` is ``prep_tiled_inputs(shape, state)`` where the caller has it.
     ``tiled_bwd_run.mega_launches`` counts B8's launches,
-    ``.step_launches`` B7's (two per step, five for RK2)."""
+    ``.step_launches`` B7's (two per step, five for RK2), ``.mag_launches``
+    the magnet transpose's inside B7 (B5, one per force pass of an unbinned
+    magnet scene)."""
     dev = state.masses.pos.device
     if dev.type == "cpu":
         return tiled_bwd_run_plain(shape, state, trace, gpos, gvel, gacc,
@@ -421,6 +537,7 @@ def tiled_bwd_run(shape: SceneShape, state: SimState, trace, gpos, gvel,
 
 tiled_bwd_run.mega_launches = 0
 tiled_bwd_run.step_launches = 0
+tiled_bwd_run.mag_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,9 @@ kernel (``csrc/magnets.cu``) for an unbinned scene and the grid kernel
 (``csrc/magnets_grid.cu``) for every binned one (``step.magnet_route``),
 and the passes are launched one at a time from Python
 (``titan_fused_pass``); ``fused_chunk_plain`` takes the plain versions.
-Scenes without magnets keep one C call per chunk.
+Scenes without magnets keep one C call per chunk.  The adjoint's replay
+runs the same passes (``_magnet_passes`` with a trace), keeping each pass's
+constant force in the trace.
 
 Envelope (``fused_reject_reason``): f32, persistent external force.
 Unlike the TPU kernel there is no on-chip memory budget, so N and the
@@ -194,12 +196,14 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
     """Plain PyTorch version of the fused kernel: ``n_steps`` steps of the
     TPU kernel body (``pallas_step.py::_build_kernel``), sqrt + divide
     norms, on whatever device ``state`` lives on.  With a ``trace`` list,
-    each step's input (pos, vel) is appended to it: the plain version of
-    the adjoint's trace kernel (``ops/adjoint.py::trace_run_plain``).  A
-    magnet scene adds ``field(pos)`` to the constant force of every force
-    pass; ``field`` defaults to ``magnet_field_fn(shape, state, plain=True)``
-    (the grid kernel's plain version for a binned scene on the card, the
-    binned pass on the CPU, as in the JAX package off the TPU)."""
+    each step's input (pos, vel) is appended to it, and for a magnet scene
+    each force pass's constant force ``const_f + field`` after them (9 rows,
+    12 under RK2): the plain version of the adjoint's trace kernel
+    (``ops/adjoint.py::trace_run_plain``).  A magnet scene adds
+    ``field(pos)`` to the constant force of every force pass; ``field``
+    defaults to ``magnet_field_fn(shape, state, plain=True)`` (the grid
+    kernel's plain version for a binned scene on the card, the binned pass
+    on the CPU, as in the JAX package off the TPU)."""
     cfg = shape.config
     inv = prep_invariants(shape, state)
     if shape.has_magnets and field is None:
@@ -213,6 +217,7 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
     nc = cfg.normal_coeff
     caps = local_caps(shape)
     rem_flags = (shape.has_damping, shape.has_breathing, shape.has_actuated)
+    cfs = []           # the constant force of each pass of a step
 
     def compute_forces(pos, vel, t_now, rest, rem_rest):
         """(force, mutated velocity, rest, remainder rest) at (pos,
@@ -220,6 +225,7 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
         f_acc = inv["const_f"]
         if shape.has_magnets:
             f_acc = f_acc + field(pos)
+            cfs.append(f_acc)
         new_rest = []
         for fi, d in enumerate(shape.stencil_deltas):
             diff = torch.roll(pos, -d, dims=-1) - pos
@@ -291,8 +297,8 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
     pos, vel, acc = m.pos, m.vel, m.acc
     rest, rem = state.stencil.rest, state.springs.rest
     for step in range(n_steps):
-        if trace is not None:
-            trace.append(torch.cat([pos, vel]))
+        entry = [pos, vel]
+        cfs.clear()
         t_base = t0 + step * dt
         if cfg.integrator is Integrator.RK2:
             # the predictor and the corrector start from pass 1's mutated
@@ -320,6 +326,8 @@ def fused_chunk_plain(shape: SceneShape, state: SimState,
                     v2 = torch.where(vn > 1.0,
                                      v2 / torch.where(vn > 0, vn, 1.0), v2)
                 p2 = pos + v2 * dt
+        if trace is not None:
+            trace.append(torch.cat(entry + cfs))
         pos = torch.where(frozen, pos, p2)
         vel = torch.where(frozen, vel, v2)
         acc = torch.where(frozen, acc, new_acc)
@@ -506,14 +514,15 @@ def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
 
 
 class _PassArgs(ctypes.Structure):
-    """Mirror of ``struct PassArgs`` in ``csrc/fused_step.cu``: the buffers
-    of one force pass of the step kernel."""
+    """Mirror of ``struct PassArgs`` in ``csrc/step_body.cuh``: the buffers
+    of one force pass of the step kernel (and the replay's trace
+    entry)."""
 
     _fields_ = ([("step", ctypes.c_int), ("mode", ctypes.c_int)]
                 + [(f, ctypes.c_void_p) for f in (
                     "fpos", "fvel", "pos0", "vel0", "acc0", "rest_src",
                     "cforce", "pos_dst", "vel_dst", "acc_dst", "rest_dst",
-                    "vel_v1", "rem_src", "rem_dst")])
+                    "vel_v1", "rem_src", "rem_dst", "trace")])
 
 
 # the kernel's step modes (csrc/step_body.cuh enum Mode)
@@ -542,9 +551,16 @@ def _fused_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
     inv, pos_out, vel_out, acc_out, rest_out, rem_out = keep[:6]
     stream = torch.cuda.current_stream(pos_out.device).cuda_stream
     if shape.has_magnets:
+        def run(p):
+            rc = lib.titan_fused_pass(ctypes.byref(a), ctypes.byref(p),
+                                      stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"fused_step kernel launch failed: CUDA error {rc}")
+            fused_chunk.launches += 1
         pos_out, vel_out, acc_out, rest_out, rem_out = _magnet_passes(
-            lib, shape, state, n_steps, a, inv, stream,
-            field or magnet_field_fn(shape, state, plain=False))
+            shape, state, n_steps, inv,
+            field or magnet_field_fn(shape, state, plain=False), run)
     else:
         rc = lib.titan_fused_chunk(ctypes.byref(a), stream)
         if rc != 0:
@@ -556,12 +572,55 @@ def _fused_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
                          acc_out, rest_out, rem_out)
 
 
-def _magnet_passes(lib, shape, state, n_steps, a, inv, stream, field):
+def trace_rows(shape: SceneShape) -> int:
+    """Rows of an adjoint trace entry, the one place its layout is decided:
+    the step's input pos and vel (rows 0-5), then for a magnet scene each
+    force pass's constant force ``const_f + field`` (``cf_row``): 6, 9, or
+    12 under RK2 (the tiled adjoint's glue contract,
+    ``titan_tpu/ops/adjoint_tiled.py:513-546``).  The replays write it
+    (``_magnet_passes``, ``tiled_step.glue_passes`` and the plain chunks,
+    which append the passes' constant forces in pass order) and the sweeps
+    read it (``adjoint.sweep_plain``, ``csrc/adjoint_body.cuh``)."""
+    if not shape.has_magnets:
+        return 6
+    return 12 if shape.config.integrator is Integrator.RK2 else 9
+
+
+def cf_row(trace, step: int, slot: int):
+    """The view of force pass ``slot``'s constant force (1 is RK2's second
+    pass) in entry ``step`` of a trace [seg, trace_rows, N]."""
+    return trace[step, 6 + 3 * slot:9 + 3 * slot]
+
+
+def cf_rows(trace, step: int) -> list:
+    """Every force pass's constant force in entry ``step`` of a trace, in
+    pass order (none without magnets)."""
+    return [cf_row(trace, step, k) for k in range((trace.shape[1] - 6) // 3)]
+
+
+def pass_cforce(inv: dict, field, at, trace=None, step: int = 0,
+                slot: int = 0):
+    """A force pass's constant force ``const_f + field(at)``; with a trace,
+    written into its row (``cf_row``) and returned as that view."""
+    if trace is None:
+        return inv["const_f"] + field(at)
+    cf = cf_row(trace, step, slot)
+    torch.add(inv["const_f"], field(at), out=cf)
+    return cf
+
+
+def _magnet_passes(shape, state, n_steps, inv, field, run, trace=None):
     """``n_steps`` steps of a magnet scene, one force pass at a time: the
-    field at the pass's positions, then one step-kernel launch with the
-    constant force ``const_f + field``.  Every pass writes fresh buffers
-    (the remainder rest's start as a copy of the last, see _chunk_args).
-    Returns the final (pos, vel, acc, rest, remainder rest)."""
+    field at the pass's positions, then ``run(p)``, which launches one
+    pass of the step kernel (or of the adjoint's replay) with the
+    ``_PassArgs`` p, whose constant force is ``const_f + field``.  Every
+    pass writes fresh buffers (the remainder rest's start as a copy of the
+    last, see _chunk_args).  With ``trace`` ([n_steps, trace_rows, N]),
+    each pass's constant force is written into its row of the step's entry
+    (``pass_cforce``) and read from there, and the step's first pass
+    carries the entry, where the replay kernel writes the step's input
+    (pos, vel).  Returns the final
+    (pos, vel, acc, rest, remainder rest)."""
     m = state.masses
     rk2 = shape.config.integrator is Integrator.RK2
     mode = {Integrator.EULER: _EULER, Integrator.VERLET: _VERLET,
@@ -576,9 +635,11 @@ def _magnet_passes(lib, shape, state, n_steps, a, inv, stream, field):
     v1 = empty(vel) if rk2 and any(local_caps(shape)) else None
     p.vel_v1 = None if v1 is None else v1.data_ptr()
 
-    def launch(step, mode, fpos, fvel, dst):
+    def launch(step, mode, slot, fpos, fvel, dst):
         nonlocal rest, rem
-        cf = inv["const_f"] + field(fpos)
+        cf = pass_cforce(inv, field, fpos, trace, step, slot)
+        p.trace = (trace[step].data_ptr() if trace is not None and slot == 0
+                   else None)
         rest_dst = empty(rest) if shape.has_actuated else rest
         rem_dst = rem.clone() if rem_moves else rem
         if rem is not None:
@@ -590,20 +651,16 @@ def _magnet_passes(lib, shape, state, n_steps, a, inv, stream, field):
         p.cforce = cf.data_ptr()
         p.pos_dst, p.vel_dst = dst[0].data_ptr(), dst[1].data_ptr()
         p.acc_dst = dst[2].data_ptr() if len(dst) > 2 else None
-        rc = lib.titan_fused_pass(ctypes.byref(a), ctypes.byref(p), stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"fused_step kernel launch failed: CUDA error {rc}")
-        fused_chunk.launches += 1
+        run(p)
         rest, rem = rest_dst, rem_dst
 
     for s in range(n_steps):
         fpos, fvel = pos, vel
         if rk2:
             fpos, fvel = empty(pos), empty(vel)
-            launch(s, _RK2_HALF, pos, vel, (fpos, fvel))
+            launch(s, _RK2_HALF, 0, pos, vel, (fpos, fvel))
         out = (empty(pos), empty(vel), empty(acc))
-        launch(s, mode, fpos, fvel, out)
+        launch(s, mode, int(rk2), fpos, fvel, out)
         pos, vel, acc = out
     return pos, vel, acc, rest, rem
 

@@ -24,6 +24,15 @@ shell radius (``SceneShape.magnet_receivers``).
 CUDA kernel ``csrc/magnets.cu`` for state on the card, its plain version
 ``forces.magnet_forces`` for state on the CPU.  The dense-grid field kernel
 is in ``ops/magnets_grid.py``.
+
+The adjoints' magnet branch: the pairwise field's transpose for one force
+pass is the CUDA kernel ``csrc/magnets_adjoint.cuh`` (B5), which the
+adjoints' sweeps launch (``magnet_transpose`` launches it alone, for tests
+and timing); ``magnet_transpose_plain`` is its plain version and
+``pairwise_field_lanes`` the field, both in the kernels' summation order
+(each lane's partners in index order, then the shuffle tree), so that
+both kernels are bitwise their plain versions; ``binned_field_vjp`` is the
+binned pass's vjp, the tiled glue's transpose on a binned scene.
 """
 
 from __future__ import annotations
@@ -261,3 +270,185 @@ def pairwise_magnet_field(masses: MassState, cutoff: float,
 
 
 pairwise_magnet_field.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The pairwise field's transpose (csrc/magnets_adjoint.cuh) and the plain
+# versions in the kernels' summation order
+# --------------------------------------------------------------------------
+
+_LANES = 32
+
+
+def _lane_blocks(pos, prm, cutoff: float):
+    """Yield, for each block k of 32 partners (j = 32 k + lane), the pair
+    quantities of every mass i against them, [.., N, 32], as the kernels
+    compute them: d = p_i - p_j, |d|^2, dist, safe, max(|d|^2, 1e-12), the
+    shell overlap inter, the pair mask (both valid, i != j, dist < cutoff)
+    and the partners' columns j."""
+    n = pos.shape[1]
+    dev = pos.device
+    lane = torch.arange(_LANES, device=dev)
+    iota = torch.arange(n, device=dev)
+    valid = prm[4] != 0
+    for k in range(-(-n // _LANES)):
+        j = k * _LANES + lane
+        live = j < n
+        jc = torch.clamp(j, max=n - 1)
+        d = pos[:, :, None] - pos[:, jc][:, None, :]
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        pos_d = d2 > 0
+        # guarded: autograd through sqrt at 0 would give NaN
+        dist = torch.where(pos_d, torch.sqrt(torch.where(pos_d, d2, 1.0)),
+                           0.0)
+        ok = (live[None, :] & (iota[:, None] != j[None, :])
+              & valid[:, None] & valid[jc][None, :] & (dist < cutoff))
+        safe = torch.where(dist > 0, dist, 1.0)
+        md = torch.clamp(d2, min=1e-12)
+        inter = dist - (prm[0][:, None] + prm[0][jc][None, :])
+        yield jc, d, d2, dist, safe, md, inter, ok
+
+
+def _xor_tree(acc):
+    """The kernels' __shfl_xor_sync reduction of the last (lane) axis:
+    lane 0's sum."""
+    lane = torch.arange(_LANES, device=acc.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ off]
+    return acc[..., 0]
+
+
+def pairwise_field_lanes(pos, prm, cutoff: float):
+    """The pairwise field [3, N] at ``pos`` from the folded parameters
+    ``prm`` [5, N] (``pairwise_params``), in ``csrc/magnets.cu``'s
+    summation order (each lane's partners in index order, then the
+    shuffle tree), so that it equals the kernel bitwise; differentiable
+    (the fused adjoint's step math, ``ops/adjoint.py::_force``)."""
+    acc = pos.new_zeros((3, pos.shape[1], _LANES))
+    for jc, d, d2, dist, safe, md, inter, ok in _lane_blocks(pos, prm,
+                                                             cutoff):
+        shell = torch.where(inter < 0, torch.abs(inter) * prm[1][:, None],
+                            0.0)
+        attract = prm[3][jc][None, :] * prm[2][:, None] / md
+        coeff = (shell - attract) / safe
+        acc = torch.where(ok, acc + d * coeff, acc)
+    return _xor_tree(acc)
+
+
+def _pair_bar(d, d2, dist, safe, md, inter, stiff_r, maxf_r, scale_s, g):
+    """``magnets_adjoint.cuh::pair_bar``: (gd, ginter, gstiff, gmaxf,
+    gscale) of the receivers' field terms for their cotangent g."""
+    shell = torch.where(inter < 0, torch.abs(inter) * stiff_r, 0.0)
+    attract = scale_s * maxf_r / md
+    coeff = (shell - attract) / safe
+    gcoeff = d[0] * g[0] + d[1] * g[1] + d[2] * g[2]
+    gshell = gcoeff / safe
+    gattr = -gshell
+    gsafe = -(shell - attract) * gcoeff / (safe * safe)
+    ginter = torch.where(inter < 0, -stiff_r * gshell, 0.0)
+    gstiff = torch.where(inter < 0, -inter * gshell, 0.0)
+    gmaxf = gattr * scale_s / md
+    gscale = gattr * maxf_r / md
+    gdist2 = torch.where(d2 > 1e-12, -gattr * scale_s * maxf_r / (md * md),
+                         0.0)
+    gdist = ginter + torch.where(dist > 0, gsafe, 0.0)
+    gdist2 = gdist2 + torch.where(dist > 0, 0.5 * gdist / safe, 0.0)
+    gd = coeff * g + 2.0 * d * gdist2
+    return gd, ginter, gstiff, gmaxf, gscale
+
+
+def magnet_transpose_plain(pos, prm, fixed, gf, cutoff: float):
+    """Plain version of the pairwise field's transpose
+    (``csrc/magnets_adjoint.cuh``, ``titan_tpu/ops/adjoint.py:935-1017``)
+    for one force pass, in the kernel's summation order: the field's
+    cotangent is ``gf * (1 - fixed)``; each mass sums, per lane, its
+    receiver row (gpos += gd; its radius, stiffness and maxf gradients)
+    and its source column (gpos -= gd; its radius and scale gradients),
+    then the shuffle tree.  Returns (gpos [3, N], [4, N] gradients of
+    rad, stiffness, maxf, scale)."""
+    n = pos.shape[1]
+    fixed = fixed.reshape(n)
+    gfm = gf * (1.0 - fixed)
+    acc = pos.new_zeros((7, n, _LANES))
+    for jc, d, d2, dist, safe, md, inter, ok in _lane_blocks(pos, prm,
+                                                             cutoff):
+        r = _pair_bar(d, d2, dist, safe, md, inter, prm[1][:, None],
+                      prm[2][:, None], prm[3][jc][None, :], gfm[:, :, None])
+        s = _pair_bar(-d, d2, dist, safe, md, inter, prm[1][jc][None, :],
+                      prm[2][jc][None, :], prm[3][:, None],
+                      gfm[:, jc][:, None, :])
+        new = torch.cat([acc[:3] + r[0] - s[0],
+                         (acc[3] - r[1] - s[1])[None],
+                         (acc[4] + r[2])[None], (acc[5] + r[3])[None],
+                         (acc[6] + s[4])[None]])
+        acc = torch.where(ok, new, acc)
+    out = _xor_tree(acc)
+    return out[:3], out[3:]
+
+
+def magnet_transpose(pos, prm, fixed, gf, cutoff: float):
+    """One force pass's pairwise field transpose (B5) launched on its own,
+    a hook for tests and timing: the adjoints launch the kernel inside
+    their sweeps (``csrc/adjoint_body.cuh``), counted by
+    ``adjoint.bwd_run.mag_launches`` and
+    ``adjoint_tiled.tiled_bwd_run.mag_launches``.  The CUDA kernel of
+    ``csrc/magnets_adjoint.cuh`` for state on the card, bitwise
+    ``magnet_transpose_plain``, which runs for state on the CPU.  ``fixed``
+    [N] is 1 on frozen masses, ``gf`` [3, N] the pass's force cotangent.
+    Returns (gpos [3, N], [4, N]).  ``magnet_transpose.launches`` counts
+    this hook's launches only."""
+    if pos.device.type == "cpu":
+        return magnet_transpose_plain(pos, prm, fixed, gf, cutoff)
+    if pos.device.type != "cuda":
+        raise ValueError(f"magnet_transpose: state on {pos.device}")
+    from .. import _build
+    lib = _build.load("adjoint")
+    fn = lib.titan_magnet_transpose
+    fn.argtypes = [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 7
+    fn.restype = ctypes.c_int
+    n = pos.shape[1]
+    gpos = torch.zeros((3, n), dtype=torch.float32, device=pos.device)
+    gmag = torch.zeros((4, n), dtype=torch.float32, device=pos.device)
+    rc = fn(n, float(cutoff), _checked("pos", pos, (3, n)),
+            _checked("params", prm, (5, n)),
+            _checked("fixed", fixed.reshape(n), (n,)),
+            _checked("gf", gf, (3, n)), gpos.data_ptr(), gmag.data_ptr(),
+            torch.cuda.current_stream(pos.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"magnet transpose kernel launch failed: CUDA "
+                           f"error {rc}")
+    magnet_transpose.launches += 1
+    return gpos, gmag
+
+
+magnet_transpose.launches = 0
+
+
+def binned_field_vjp(masses: MassState, shape, pos, gfm,
+                     chunk_cells: int = 16384):
+    """The binned field's vjp (the tiled magnet glue's transpose on a
+    binned scene, as ``titan_tpu/ops/adjoint_tiled.py:1281-1305`` takes it
+    in XLA): autograd through ``binned_magnet_forces`` at ``pos`` for the
+    field's cotangent ``gfm`` (0 on frozen masses).  The grid kernel that
+    fed the forward computes the same candidates (sources of rank < C in
+    their cell), so this re-linearises its primal.  Returns (gpos [3, N],
+    [4, N] gradients of rad, stiffness, maxf, scale)."""
+    import dataclasses
+    a_cells, cap = shape.magnet_binned
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (
+            pos, masses.mag_rad, masses.mag_stiffness, masses.mag_maxf,
+            masses.mag_scale)]
+        mm = dataclasses.replace(
+            masses, pos=leaves[0], mag_rad=leaves[1],
+            mag_stiffness=leaves[2], mag_maxf=leaves[3],
+            mag_scale=leaves[4])
+        ridx = (magnet_receiver_idx(masses, shape.magnet_receivers)
+                if shape.magnet_receivers else None)
+        f = binned_magnet_forces(mm, shape.config.magnet_cutoff, a_cells,
+                                 cap, chunk_cells=chunk_cells,
+                                 receivers=shape.magnet_receivers, ridx=ridx)
+        grads = torch.autograd.grad(f, leaves, gfm, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, leaves)]
+    return grads[0], torch.stack(grads[1:])

@@ -265,10 +265,31 @@ def resident_bytes(shape: SceneShape) -> int:
     return 4 * n * (3 * 7 + fam + sc) + 4 * n * tmp + rem
 
 
+# The TPU fused kernel's cap on its in-VMEM pairwise magnet temporaries
+# (titan_tpu/ops/pallas_step.py:97-98)
+MAGNET_PAIR_BUDGET = 16 * 1024 * 1024
+
+
+def magnet_pair_bytes(shape: SceneShape) -> int:
+    """Bytes of the TPU fused kernel's pairwise magnet temporaries (a few
+    [N/128, 128, 128] f32 arrays, ``titan_tpu/ops/pallas_step.py:97``); 0
+    without magnets.  The card's field kernels have none: a route rule."""
+    if not shape.has_magnets:
+        return 0
+    return 4 * (shape.n_masses // 128) * 128 * 128 * 4
+
+
 def fits_fused(shape: SceneShape, nbytes: int) -> bool:
-    """The reference's rule for its fused kernels: the remainder selectors
-    within ``REM_SEL_BUDGET`` and ``nbytes`` (the residency of the fused
-    step or adjoint) under ``RESIDENT_BUDGET``."""
+    """The reference's rule for its fused kernels: a magnet scene within
+    ``magnet_pallas_max`` masses and its pairwise temporaries within
+    ``MAGNET_PAIR_BUDGET`` (``titan_tpu/ops/pallas_step.py:71-73``,
+    :97-98), the remainder selectors within ``REM_SEL_BUDGET`` and
+    ``nbytes`` (the residency of the fused step or adjoint) under
+    ``RESIDENT_BUDGET``."""
+    if shape.has_magnets and (
+            shape.n_masses > shape.config.magnet_pallas_max
+            or magnet_pair_bytes(shape) > MAGNET_PAIR_BUDGET):
+        return False
     return (remainder_selector_bytes(shape) <= REM_SEL_BUDGET
             and nbytes < RESIDENT_BUDGET)
 
@@ -279,11 +300,14 @@ def chunk_route(shape: SceneShape):
     kernels refused it (else None).  A scene takes the counterpart of the
     kernel it takes on a TPU (``titan_tpu/ops/step.py:212-230``): the
     fused step where it accepts the scene and the scene fits the
-    reference's rule (``fits_fused``: its remainder selectors and
-    ``resident_bytes``), else the tiled step where it accepts the scene,
-    else the fused step where it accepts the scene (its card kernel has no
-    size cap, so a large magnet lattice, or a remainder scene without
-    stencil families, stays on a kernel), else the eager loop."""
+    reference's rule (``fits_fused``: ``magnet_pallas_max`` and the
+    pairwise magnet temporaries, its remainder selectors and
+    ``resident_bytes``), else the tiled step where it accepts the scene (a
+    magnet lattice past ``magnet_pallas_max`` takes it with its per-pass
+    field glue, as on a TPU), else the fused step where it accepts the
+    scene (its card kernel has no size cap, so a scene without stencil
+    families, such as a spring-less magnet swarm, stays on a kernel), else
+    the eager loop."""
     from .fused_step import fused_reject_reason
     from .tiled_step import tiled_reject_reason
     r_fused = fused_reject_reason(shape)

@@ -32,8 +32,18 @@ take the families' closed-form ACTUATED rest, where the TPU's glue carries
 it step by step: the two agree to ~1e-7 relative.  As on the TPU, a scene
 with them takes no resident grid (``mega_seg``).
 
+Magnets.  As on the TPU, the field enters through the constant-force input
+as per-step glue (``pallas_tiled.py:1609-1700``): a magnet scene steps one
+force pass at a time from Python (``glue_passes``), each pass fed
+``const_f + field`` at its own positions, 0 on fixed masses, the RK2
+midpoint's evaluated between rk2a and rk2b.  On the card the field is the
+pairwise kernel (``csrc/magnets.cu``) for an unbinned scene and the grid
+kernel (``csrc/magnets_grid.cu``) for a binned one (``step.magnet_route``,
+the fused step's); ``tiled_chunk_plain`` takes their plain versions.  Glue
+scenes take no resident grid (``mega_seg``).
+
 Envelope (``tiled_reject_reason``): f32 Euler, Verlet or RK2, persistent
-external force, stencil families.  Magnet scenes are outside it.
+external force, stencil families.
 """
 
 from __future__ import annotations
@@ -47,7 +57,7 @@ from ..config import (ACTIVE_CONTRACT_THEN_EXPAND, ACTIVE_EXPAND_THEN_CONTRACT,
 from ..state import SceneShape, SimState
 from . import forces as F
 from .fused_step import (_LocalSlots, _Remainder, _checked, _finish_chunk,
-                         local_struct, remainder_struct)
+                         local_struct, pass_cforce, remainder_struct)
 from .forces import _safe_norm
 from .step import local_caps
 
@@ -102,9 +112,6 @@ def tiled_reject_reason(shape: SceneShape):
         return "no stencil spring families"
     if not cfg.persistent_extern_force:
         return "strict per-step extern_force mode"
-    if shape.has_magnets:
-        return ("magnet scenes run the fused step's per-pass field route "
-                "(the tiled magnet glue is not ported, ROADMAP B2)")
     if len(shape.stencil_deltas) > _MAX_FAMILIES:
         return (f"{len(shape.stencil_deltas)} stencil families > "
                 f"{_MAX_FAMILIES} (one bit each in the int32 existence mask)")
@@ -219,7 +226,8 @@ def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
     return inv
 
 
-def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
+def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float,
+            cf=None):
     """(force, mutated velocity) of every mass at (pos, vel), in the TPU
     body's order: families (``family_forces``, pallas_tiled.py:673-738),
     the constant force with the remainder springs' sum added to it (the
@@ -227,7 +235,8 @@ def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
     (``mass_tail`` :748).  Its norms are gradient-safe at 0
     (``forces._safe_norm``, the same values), so that autograd through the
     plain chunk stays finite: the tiled adjoint's tests hold its transpose
-    against that."""
+    against that.  ``cf`` is a magnet scene's constant force of the pass
+    (``const_f`` + the field), else ``inv["const_f"]``."""
     fp = inv["fparams"]
     nc = shape.config.normal_coeff
     fw = torch.zeros_like(pos)
@@ -255,7 +264,8 @@ def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
             mag = mag + axial * inv["damping"][fi]
         f = (mag * inv_ln) * diff
         fw = fw - f + torch.roll(f, d, dims=-1)
-    cf = inv["const_f"]
+    if cf is None:
+        cf = inv["const_f"]
     if "rem" in inv:
         R = inv["rem"]
         cf = cf + F.remainder_sum(
@@ -305,32 +315,46 @@ def _forces(shape: SceneShape, inv: dict, pos, vel, t_now, adv_base: float):
 
 
 def tiled_step_plain(shape: SceneShape, inv: dict, pos, vel, acc,
-                     step: int):
+                     step: int, field=None, cfs: list = None):
     """Step ``step`` of a chunk (its index from the chunk's start), plain:
     one force evaluation and the "single" integrate tail, or under RK2 the
     rk2a predictor and the rk2b corrector (``pallas_tiled.py:852-930``).
     The update reads the velocity the local constraints leave; under RK2
     the predictor and corrector start from pass 1's (vel1) and the position
     advances with pass 2's.  Frozen masses keep pos and vel (the midpoint
-    velocity of a frozen mass is vel1) and get acc 0.  Returns (pos, vel,
-    acc)."""
+    velocity of a frozen mass is vel1) and get acc 0.  A magnet scene's
+    pass takes the constant force ``const_f + field(pos)`` at its own
+    positions (the TPU's per-step glue, ``pallas_tiled.py:1609-1642``: at
+    the step's input, and under RK2 again at the midpoint), each appended
+    to ``cfs`` where given.  Returns (pos, vel, acc)."""
     cfg = shape.config
     dt, t0 = inv["scal"][0], inv["scal"][1]
     frozen, minv = inv["fixed"], inv["minv"]
     keep = 1.0 - frozen
+
+    def glue(p):
+        if field is None:
+            return None
+        cf = inv["const_f"] + field(p)
+        if cfs is not None:
+            cfs.append(cf)
+        return cf
+
     if cfg.integrator is Integrator.RK2:
         # rest advances once per force pass: 2 step, then 2 step + 1
-        f, v1 = _forces(shape, inv, pos, vel, t0 + step * dt, 2.0 * step)
+        f, v1 = _forces(shape, inv, pos, vel, t0 + step * dt, 2.0 * step,
+                        glue(pos))
         a1 = f * minv
         ph = (pos + 0.5 * v1 * dt) * keep + pos * frozen
         vh = (v1 + 0.5 * a1 * dt) * keep + v1 * frozen
         f, v2m = _forces(shape, inv, ph, vh, t0 + (step + 0.5) * dt,
-                         2.0 * step + 1.0)
+                         2.0 * step + 1.0, glue(ph))
         new_acc = f * minv
         v2 = (v1 + new_acc * dt) * keep + vel * frozen
         p2 = pos + v2m * dt * keep
         return p2, v2, new_acc * keep
-    f, vm = _forces(shape, inv, pos, vel, t0 + step * dt, float(step))
+    f, vm = _forces(shape, inv, pos, vel, t0 + step * dt, float(step),
+                    glue(pos))
     new_acc = f * minv
     if cfg.integrator is Integrator.VERLET:
         v2 = vm + 0.5 * (acc + new_acc) * dt
@@ -367,20 +391,29 @@ def finish_tiled_chunk(shape: SceneShape, state: SimState, inv: dict,
 
 
 def tiled_chunk_plain(shape: SceneShape, state: SimState,
-                      n_steps: int, trace: list = None) -> SimState:
+                      n_steps: int, trace: list = None,
+                      field=None) -> SimState:
     """Plain PyTorch version of the tiled chunk, on whatever device
     ``state`` lives on: each step ``tiled_step_plain`` at its index in the
     chunk, as the kernels' launches number them (resident-grid segments and
-    the per-step tail alike).  With a ``trace`` list, each step's input
-    (pos, vel) is appended to it as a [6, N] tensor (the tiled adjoint's
-    replay)."""
+    the per-step tail alike).  A magnet scene feeds ``field`` (default
+    ``fused_step.magnet_field_fn(shape, state, plain=True)``: the field
+    kernels' plain versions) into every pass's constant force.  With a
+    ``trace`` list, each step's input (pos, vel) is appended to it as a
+    [6, N] tensor, with a magnet scene's per-pass constant forces after it
+    ([9, N], [12, N] under RK2): the tiled adjoint's replay."""
+    from .fused_step import magnet_field_fn
     inv = prep_tiled_inputs(shape, state)
+    if shape.has_magnets and field is None:
+        field = magnet_field_fn(shape, state, plain=True)
     m = state.masses
     pos, vel, acc = m.pos, m.vel, m.acc
     for step in range(n_steps):
+        entry = [pos, vel]
+        pos, vel, acc = tiled_step_plain(shape, inv, pos, vel, acc, step,
+                                         field, entry)
         if trace is not None:
-            trace.append(torch.cat([pos, vel]))
-        pos, vel, acc = tiled_step_plain(shape, inv, pos, vel, acc, step)
+            trace.append(torch.cat(entry))
     return finish_tiled_chunk(shape, state, inv, n_steps, pos, vel, acc)
 
 
@@ -411,12 +444,30 @@ class _TiledChunk(ctypes.Structure):
                     "vel_half", "vel_v1")])
 
 
+class _TiledPass(ctypes.Structure):
+    """Mirror of ``struct TiledPass`` in ``csrc/tiled_chunk.cuh``: one
+    per-step launch of a magnet scene with its pass's constant force."""
+
+    _fields_ = ([("step", ctypes.c_int), ("mode", ctypes.c_int)]
+                + [(f, ctypes.c_void_p) for f in (
+                    "cforce", "pos", "vel", "acc", "pos0", "vel0", "pos_dst",
+                    "vel_dst", "acc_dst", "v1_dst", "v1", "entry")])
+
+
+# the per-step kernel's modes (csrc/tiled_body.cuh enum Mode)
+_EULER, _VERLET, _RK2A, _RK2B = 0, 1, 2, 3
+
+
 def _lib():
     from .. import _build
     lib = _build.load("tiled_step")
     lib.titan_tiled_chunk.argtypes = [ctypes.POINTER(_TiledChunk),
                                       ctypes.c_void_p]
     lib.titan_tiled_chunk.restype = ctypes.c_int
+    lib.titan_tiled_pass.argtypes = [ctypes.POINTER(_TiledChunk),
+                                     ctypes.POINTER(_TiledPass),
+                                     ctypes.c_void_p]
+    lib.titan_tiled_pass.restype = ctypes.c_int
     lib.titan_tiled_coop_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.titan_tiled_coop_blocks.restype = ctypes.c_int
     return lib
@@ -514,15 +565,89 @@ def launch_counts(shape: SceneShape, n_steps: int, k_seg: int):
     return n_seg, (n_steps - n_seg * k_seg) * per
 
 
+def glue_passes(shape: SceneShape, state: SimState, n_steps: int,
+                inv: dict, field, run, trace=None):
+    """``n_steps`` per-step launches of a magnet scene, one force pass at a
+    time (the TPU's per-step magnet glue, ``pallas_tiled.py:1609-1700``):
+    the field at the pass's positions (0 on fixed masses), then
+    ``run(p)``, which launches one pass (``_TiledPass`` p) of the tiled
+    step or of its replay with the constant force ``const_f + field``;
+    under RK2 the field is evaluated again at the midpoint, between rk2a
+    and rk2b.  With ``trace`` ([n_steps, trace_rows, N]), each pass's
+    constant force is written into its row of the step's entry
+    (``fused_step.pass_cforce``) and read from there, and the step's first pass carries the entry, where the
+    replay writes the step's input (pos, vel).  Returns the final (pos,
+    vel, acc)."""
+    m = state.masses
+    integ = shape.config.integrator
+    rk2 = integ is Integrator.RK2
+    empty = torch.empty_like
+    p = _TiledPass()
+    v1 = empty(m.vel) if rk2 and "lc" in inv else None
+    pos, vel, acc = m.pos, m.vel, m.acc
+
+    def cforce(step, slot, at):
+        return pass_cforce(inv, field, at, trace, step, slot)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    for s in range(n_steps):
+        p.step = s
+        p.entry = None if trace is None else trace[s].data_ptr()
+        p.pos0 = p.vel0 = p.v1 = p.v1_dst = None
+        fpos, fvel = pos, vel
+        if rk2:
+            ph, vh = empty(pos), empty(vel)
+            cf = cforce(s, 0, pos)
+            p.mode, p.cforce = _RK2A, cf.data_ptr()
+            p.pos, p.vel, p.acc = pos.data_ptr(), vel.data_ptr(), None
+            p.pos_dst, p.vel_dst, p.acc_dst = ph.data_ptr(), vh.data_ptr(), \
+                None
+            p.v1_dst = ptr(v1)
+            run(p)
+            p.entry, p.v1_dst, p.v1 = None, None, ptr(v1)
+            p.pos0, p.vel0 = pos.data_ptr(), vel.data_ptr()
+            fpos, fvel = ph, vh
+        out = (empty(pos), empty(vel), empty(acc))
+        cf = cforce(s, int(rk2), fpos)
+        p.mode = _RK2B if rk2 else (
+            _VERLET if integ is Integrator.VERLET else _EULER)
+        p.cforce = cf.data_ptr()
+        p.pos, p.vel, p.acc = fpos.data_ptr(), fvel.data_ptr(), acc.data_ptr()
+        p.pos_dst, p.vel_dst, p.acc_dst = (t.data_ptr() for t in out)
+        run(p)
+        pos, vel, acc = out
+    return pos, vel, acc
+
+
 def _tiled_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
-                      k_seg: int) -> SimState:
+                      k_seg: int, field=None) -> SimState:
     """The kernel chunk: ``n_steps // k_seg`` resident-grid launches, then
     one launch per remaining step (two for RK2); ``k_seg`` is 0 (one
-    launch per step throughout) or ``MEGA_SEG``."""
+    launch per step throughout) or ``MEGA_SEG``.  A magnet scene runs
+    ``glue_passes`` with ``field`` (default
+    ``fused_step.magnet_field_fn(shape, state, plain=False)``: the field
+    kernels)."""
     inv = prep_tiled_inputs(shape, state)
     c, out, scratch = chunk_struct(shape, state, n_steps, k_seg, inv)
     dev = state.masses.pos.device
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if shape.has_magnets:
+        from .fused_step import magnet_field_fn
+        lib = _lib()
+
+        def run(p):
+            rc = lib.titan_tiled_pass(ctypes.byref(c), ctypes.byref(p),
+                                      stream)
+            if rc != 0:
+                raise RuntimeError(f"tiled_step kernel launch failed: CUDA "
+                                   f"error {rc}")
+            tiled_chunk.step_launches += 1
+        out = glue_passes(shape, state, n_steps, inv,
+                          field or magnet_field_fn(shape, state, plain=False),
+                          run)
+        return finish_tiled_chunk(shape, state, inv, n_steps, *out)
     rc = _lib().titan_tiled_chunk(ctypes.byref(c), stream)
     if rc != 0:
         raise RuntimeError(f"tiled_step kernel launch failed: CUDA error {rc}")
