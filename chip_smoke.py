@@ -18,7 +18,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      __graft_entry__.entry(), each built with titan_tpu_torch.Simulation and
      run start -> wait -> getAll -> resume -> stop until the lattice has
      landed on its plane.  Each path must launch the kernel and run no eager
-     step and no tiled launch.  The landed state of each (in contact with its plane; the 20^3
+     step and no tiled launch.  Each scene's path through the step kernel
+     is printed (the plain-spring loop or the general body, registers,
+     co-resident blocks); a 13-family lattice must take the plain-spring
+     loop.  The landed state of each (in contact with its plane; the 20^3
      plane has friction) and the 43^3 scene's first 200 steps from its
      start are held against fused_chunk_plain over 200 steps;
   4. time each path's chunk with CUDA events from its landed state (kernel
@@ -89,7 +92,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      kernel); finite, nonzero position and mag_maxf gradients;
   m. build csrc/tiled_step.cu (the tiled step: per-step, resident-grid and
      resident-grid RK2 kernels) beside the others, all five nvcc started
-     together, with the co-resident block limit of the cooperative grids;
+     together, with the co-resident block limit of the cooperative grids
+     (the plain-spring Euler / Verlet grid's with its path, in phase o);
   n. hold the tiled kernels against tiled_chunk_plain over 100 steps,
      bitwise, on 12 scenes of 12,000 masses whose family offsets span more
      than a block (Euler with and without the clamp, Verlet, RK2, damping
@@ -97,7 +101,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      non-uniform rest, deleted masses), and a resident-grid segment (16
      steps) and two plus a tail (37) bitwise against per-step launches;
   o. the 100^3 stress config (bench.py with TITAN_BENCH_NX=100: 1,000,000
-     masses, 12,731,796 springs) through Simulation, start -> wait ->
+     masses, 12,731,796 springs) through Simulation (its resident grid's
+     path printed and held as in phase 3), start -> wait ->
      getAll -> resume at 4 breakpoints -> stop, every count set to 0 just
      before and read just after: it must take the tiled route, its
      launches must be n // 16 resident-grid and n % 16 per-step launches
@@ -630,7 +635,8 @@ def time_path(name, shape, state):
           + ("not measured (no device time recorded)" if kern_us is None
              else f"fused_step_kernel {kern_us:.3f} us/launch on the "
                   f"device, {100 * kern_us / (ms * 1e3):.1f}% of the "
-                  f"event-timed step"))
+                  f"event-timed step; launch gap (event-timed step minus "
+                  f"device time) {ms * 1e3 - kern_us:.3f} us/step"))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -648,6 +654,35 @@ def print_coop_blocks(titan):
               + ("" if integ is titan.Integrator.RK2 else
                  "; resident-grid backward "
                  f"{adjoint_tiled.coop_blocks('bwd', integ)}"))
+
+
+def report_path(name, shape, route):
+    """Print which family loop the kernel that `route` ("fused" or "mega")
+    runs on `shape` takes (csrc/step_body.cuh::plain_family_sum or the
+    general body), with the plain-spring kernel's registers a thread and
+    co-resident blocks; a lattice main path (13 families) must take the
+    plain-spring loop."""
+    from titan_tpu_torch.ops import fused_step, tiled_step
+    plain = fused_step.takes_plain_spring_path(shape)
+    if route == "fused":
+        what = "fused_step_kernel"
+    else:
+        what = f"tiled_mega_kernel ({shape.config.integrator.name})"
+    if len(shape.stencil_deltas) == 13:
+        check(plain, f"{name}: {what} does not take the plain-spring loop")
+    if not plain:
+        print(f"path {name}, {what}: the general body")
+        return
+    if route == "fused":
+        regs, per_sm = fused_step.kernel_info(shape.has_remainder)
+        occ = f"{per_sm} co-resident blocks of 128 threads an SM"
+    else:
+        integ = shape.config.integrator
+        regs = tiled_step.mega_regs(integ, plain=True)
+        occ = (f"{tiled_step.coop_blocks(integ, plain=True)} co-resident "
+               "blocks of 512 threads (the cooperative grid)")
+    print(f"path {name}, {what}: the plain-spring loop, {regs} registers a "
+          f"thread, {occ}")
 
 
 def build_kernels(names):
@@ -1905,7 +1940,7 @@ def tiled_small_scenes(titan):
         err, _ = tiled_vs_plain(shape, state, 100, f"tiled {variant}", bad)
         worst = max(worst, err)
         if variant in ("euler", "verlet", "rk2", "actuated", "breathing",
-                       "damping_friction"):
+                       "damping_friction", "deleted"):
             mega_vs_steps(shape, state, f"tiled {variant}", bad)
     check(not bad, "; ".join(bad))
     return worst
@@ -2043,6 +2078,7 @@ def drive_stress(titan, name):
         check(n_springs == st.n_springs, f"{name}: springs lost in the "
               "stencil families")
         check(shape.stencil_uniform[0], f"{name}: k not uniform")
+        report_path(name, shape, "mega")
         for k, t in enumerate(STRESS_WAITS):
             sim.wait(t)
             sim.getAll()
@@ -4554,6 +4590,7 @@ def main() -> int:
         landed.append((name, shape, state))
         check(not shape.has_remainder and len(shape.stencil_deltas) == 13,
               f"{name}: the scene did not bucket into 13 families")
+        report_path(name, shape, "fused")
         err, _ = kernel_vs_plain(shape, state, 200, f"{name} landed")
         if nx == 43:
             sim = make(titan)

@@ -14,7 +14,12 @@ the fused adjoint's backward over a 20-step trace from there; its 100^3
 stress scene through the tiled chunk (one launch per step, 200 steps; and
 320 steps as 20 resident-grid launches) and the tiled adjoint's backward
 over a 16-step trace, per-step launches (B7) and one resident-grid launch
-(B8).  Where the checkout's chip_smoke.py has ``local_scene``, also the
+(B8), the RK2 chunk (200 steps: 12 resident-grid launches and a tail),
+the fused adjoint's trace replay at 43^3 (20 steps) and the tiled
+adjoint's replay at 100^3 (one resident-grid launch of 16 steps), and
+each replay kernel's device time per launch (torch.profiler over 200
+steps at 43^3 and four 16-step launches at 100^3).
+Where the checkout's chip_smoke.py has ``local_scene``, also the
 fused backward on its 43^3 local scene (200 steps from rest, then a
 20-step trace) and B7 and B8 on its 100^3 local scene (a 16-step trace
 from t = 0; not with --no-local).  Where it has ``add_links``, also its
@@ -55,6 +60,11 @@ def one(root: str, local: bool) -> None:
     state = fused_step.fused_chunk(shape, sim._state, 2000)
     out["fused_43_us_per_step"] = 1e3 * median_ms(
         lambda k: fused_step.fused_chunk(shape, state, k), 5000)
+    out["fused_trace_43_us_per_step"] = 1e3 * median_ms(
+        lambda k: adjoint.trace_run(shape, state, k), 20)
+    out["fused_trace_43_device_us_per_launch"] = cs.profile_us(
+        lambda: adjoint.trace_run(shape, state, 200),
+        ["adjoint_trace_kernel"]).get("adjoint_trace_kernel")
     trace = adjoint.trace_run(shape, state, 20)
     cts = cs.seeded_cotangents(shape.n_masses, trace.device)
     out["fused_bwd_43_us_per_step"] = 1e3 * median_ms(
@@ -69,7 +79,15 @@ def one(root: str, local: bool) -> None:
         lambda k: tiled_step._tiled_chunk_cuda(shape, state, k, 0), 200)
     out["tiled_100_mega_us_per_step"] = 1e3 * median_ms(
         lambda k: tiled_step.tiled_chunk(shape, state, k), 320)
+    rk2 = cs.integrator_shape(shape, titan.Integrator.RK2)
+    out["tiled_100_rk2_us_per_step"] = 1e3 * median_ms(
+        lambda k: tiled_step.tiled_chunk(rk2, state, k), 200)
     inv = tiled_step.prep_tiled_inputs(shape, state)
+    out["tiled_trace_100_mega_us_per_step"] = 1e3 * median_ms(
+        lambda k: adjoint_tiled.tiled_trace_run(shape, state, k, inv), 16)
+    out["tiled_trace_100_device_us_per_launch"] = cs.profile_us(
+        lambda: adjoint_tiled.tiled_trace_run(shape, state, 64, inv),
+        ["tiled_mega_kernel"]).get("tiled_mega_kernel")
     trace = adjoint_tiled.tiled_trace_run(shape, state, 16, inv)
     cts = cs.seeded_cotangents(shape.n_masses, trace.device)
     for key, mega in (("b7", False), ("b8", True)):

@@ -9,7 +9,9 @@
 // set out at the top of csrc/fused_step.cu.  The non-spring part of a force
 // evaluation (global planes and balls, per-mass local constraints, drag) is
 // contact_and_drag, which the tiled step (csrc/tiled_body.cuh) and the
-// adjoints' recompute (csrc/adjoint_body.cuh) call too.
+// adjoints' recompute (csrc/adjoint_body.cuh) call too.  The plain-spring
+// loop (plain_family_sum) is here too: the fused step and the tiled
+// resident grid both run it.
 
 #ifndef TITAN_STEP_BODY_CUH_
 #define TITAN_STEP_BODY_CUH_
@@ -74,6 +76,10 @@ struct StepArgs {
   const float* minv;     // [N]
   const float* fixed;    // [N] 1 = frozen (fixed or invalid), else 0
   const float* k;        // [F, N] validity-folded
+  // family-uniform k (the plain-spring path): kscal[f] times bit f of
+  // bits[m] is slot (f, m)'s k, the k plane's value; null off that path
+  const float* kscal;    // [F]
+  const int* bits;       // [N]
   const float* damping;  // [F, N] validity-folded
   const float* bsign;    // [F, N] -0.2 / +0.2 / 0 breathing sign
   const float* bomega;   // [F, N]
@@ -428,61 +434,37 @@ __device__ __forceinline__ float3 remainder_forces(const Remainder& r, int i,
   return acc;
 }
 
-// One force evaluation and update of mass i.  With a non-null `trace`
-// (the adjoint's replay), the state the forces are evaluated at is also
-// written there as [pos (3 N); vel (3 N)].  REM compiles the remainder
-// call in, for a scene with remainder springs: out of line behind a null
-// check, its call site alone cost the other scenes' steps 2.4% (PERF.md
-// section 6).
-template <bool REM>
-__device__ __forceinline__ void step_body(const StepArgs& a, int mode,
-                                          float* trace) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = a.n;
-  if (i >= n) return;
+// The step's dt and its time t = t0 + step * dt (+ 0.5 dt), rounded as the
+// plain version rounds them.
+struct StepClock {
+  float dt, t;
+};
+__device__ __forceinline__ StepClock step_clock(const StepArgs& a) {
   const float dt = a.scal[0];
-  // t = t0 + step * dt (+ 0.5 dt), rounded as the plain version rounds it
   const float t_base = __fadd_rn(a.scal[1], __fmul_rn((float)a.step, dt));
-  const float t = __fadd_rn(t_base, __fmul_rn(a.half, dt));
-  const float3 zero = make_float3(0.f, 0.f, 0.f);
+  return StepClock{dt, __fadd_rn(t_base, __fmul_rn(a.half, dt))};
+}
 
-  const float3 p = ld3(a.fpos, i, n);
-  float3 v = ld3(a.fvel, i, n);
-  if (trace != nullptr) {
-    st3(trace, i, n, p);
-    st3(trace + 3 * static_cast<size_t>(n), i, n, v);
-  }
-  float3 f = ld3(a.cforce, i, n);
+// f after a family's two springs: "- left + right" (the TPU kernel's
+// f_acc - f + roll(f, d)), each only where its partner exists.
+__device__ __forceinline__ float3 add_pair(float3 f, float3 fl, bool jin,
+                                           float3 fr, bool lin) {
+  if (jin) f = make_float3(f.x - fl.x, f.y - fl.y, f.z - fl.z);
+  if (lin) f = make_float3(f.x + fr.x, f.y + fr.y, f.z + fr.z);
+  return f;
+}
 
-  for (int fi = 0; fi < a.nf; ++fi) {
-    const int d = a.deltas[fi];
-    const int base = fi * n;
-    // left spring: slot (fi, i), partner i + d; this thread owns its rest
-    const int s = base + i;
-    const float rest_l = a.has_actuated ? advanced_rest(a, s, dt)
-                                        : a.rest_src[s];
-    if (a.has_actuated) a.rest_dst[s] = rest_l;
-    const int j = i + d;
-    if (j >= 0 && j < n) {
-      const float3 vj = a.has_damping ? ld3(a.fvel, j, n) : zero;
-      const float3 fs = spring_force(a, s, rest_l, p, v, ld3(a.fpos, j, n),
-                                     vj, t);
-      f = make_float3(f.x - fs.x, f.y - fs.y, f.z - fs.z);
-    }
-    // right spring: slot (fi, i - d), whose left endpoint is i - d
-    const int l = i - d;
-    if (l >= 0 && l < n) {
-      const int sr = base + l;
-      const float rest_r = a.has_actuated ? advanced_rest(a, sr, dt)
-                                          : a.rest_src[sr];
-      const float3 vl = a.has_damping ? ld3(a.fvel, l, n) : zero;
-      const float3 fs = spring_force(a, sr, rest_r, ld3(a.fpos, l, n), vl, p,
-                                     v, t);
-      f = make_float3(f.x + fs.x, f.y + fs.y, f.z + fs.z);
-    }
-  }
+// The rest of mass i's step once the families are summed into f: the
+// remainder springs (REM), contact and drag, the update and its stores.
+// v is the velocity the force pass started from.
+template <bool REM>
+__device__ __forceinline__ void step_tail(const StepArgs& a, int mode, int i,
+                                          StepClock c, float3 p, float3 v,
+                                          float3 f) {
+  const int n = a.n;
+  const float dt = c.dt;
   if (REM) {
-    f = add3(f, remainder_forces(a.rem, i, n, a.fpos, a.fvel, t, dt, 0.f));
+    f = add3(f, remainder_forces(a.rem, i, n, a.fpos, a.fvel, c.t, dt, 0.f));
   }
 
   // from here on v is the velocity the local constraints leave
@@ -537,6 +519,113 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int mode,
   st3(a.acc_dst, i, n, acc);
 }
 
+// One force evaluation and update of this thread's mass, one thread per
+// mass, its partners read from device memory: the adjoint's replay
+// (csrc/adjoint.cu) and the fused step of a scene off the plain-spring
+// path.
+// With a non-null `trace` (the replay), the state the forces are evaluated
+// at is also written there as [pos (3 N); vel (3 N)].  REM compiles the
+// remainder call in, for a scene with remainder springs: out of line behind
+// a null check, its call site alone cost the other scenes' steps 2.4%
+// (PERF.md section 6).
+template <bool REM>
+__device__ __forceinline__ void step_body(const StepArgs& a, int mode,
+                                          float* trace) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = a.n;
+  if (i >= n) return;
+  const StepClock c = step_clock(a);
+  const float3 p = ld3(a.fpos, i, n);
+  const float3 v = ld3(a.fvel, i, n);
+  if (trace != nullptr) {
+    st3(trace, i, n, p);
+    st3(trace + 3 * static_cast<size_t>(n), i, n, v);
+  }
+  const float3 zero = make_float3(0.f, 0.f, 0.f);
+  float3 f = ld3(a.cforce, i, n);
+  for (int fi = 0; fi < a.nf; ++fi) {
+    const int d = a.deltas[fi];
+    const int base = fi * n;
+    // left spring: slot (fi, i), partner i + d; this thread owns its rest
+    const int s = base + i;
+    const float rest_l = a.has_actuated ? advanced_rest(a, s, c.dt)
+                                        : a.rest_src[s];
+    if (a.has_actuated) a.rest_dst[s] = rest_l;
+    const int j = i + d;
+    if (j >= 0 && j < n) {
+      const float3 vj = a.has_damping ? ld3(a.fvel, j, n) : zero;
+      const float3 fs = spring_force(a, s, rest_l, p, v, ld3(a.fpos, j, n),
+                                     vj, c.t);
+      f = make_float3(f.x - fs.x, f.y - fs.y, f.z - fs.z);
+    }
+    // right spring: slot (fi, i - d), whose left endpoint is i - d
+    const int l = i - d;
+    if (l >= 0 && l < n) {
+      const int sr = base + l;
+      const float rest_r = a.has_actuated ? advanced_rest(a, sr, c.dt)
+                                          : a.rest_src[sr];
+      const float3 vl = a.has_damping ? ld3(a.fvel, l, n) : zero;
+      const float3 fs = spring_force(a, sr, rest_r, ld3(a.fpos, l, n), vl, p,
+                                     v, c.t);
+      f = make_float3(f.x + fs.x, f.y + fs.y, f.z + fs.z);
+    }
+  }
+  step_tail<REM>(a, mode, i, c, p, v, f);
+}
+
+// A plain spring (no damping, breathing or actuation) of stiffness k and
+// rest `rest` from (pl) to (pr): its force on the right endpoint, in
+// spring_eval's and csrc/tiled_body.cuh::tiled_spring's operation order.
+__device__ __forceinline__ float3 plain_spring(float k, float rest, float3 pl,
+                                              float3 pr) {
+  const float3 diff = sub3(pr, pl);
+  const float d2 = dot3(diff, diff);
+  const float ln = d2 > 0.f ? sqrtf(d2) : 0.f;
+  const float inv = ln > 0.f ? 1.f / ln : 0.f;
+  const float cm = k * (rest - ln);
+  return mul3(diff, cm * inv);
+}
+
+// The plain-spring loop: f after "- left + right" of every family, in
+// family order, for mass i at p, its partners i + d and i - d read from
+// pos and bits.  The scene's springs are plain (no damping, breathing or
+// actuation) and k is kscal[f] times bit f of the spring's left endpoint's
+// existence word; rest is rest_plane[f N + m] where there is a plane, else
+// rest_scalar[f].  Each spring is evaluated whether or not its partner
+// exists (at a partner index clamped to i, where the spring has length 0)
+// and added only where it does, so that the loop has no branch and its
+// loads do not wait on one.
+__device__ __forceinline__ float3 plain_family_sum(
+    const int* deltas, const float* __restrict__ pos,
+    const int* __restrict__ bits, int i, int n, int nf, const float* kscal,
+    const float* rest_plane, const float* rest_scalar, float3 p, float3 f) {
+  const int word = bits[i];
+  for (int fi = 0; fi < nf; ++fi) {
+    const int d = deltas[fi];
+    const bool jin = i + d >= 0 && i + d < n;
+    const bool lin = i - d >= 0 && i - d < n;
+    const int j = jin ? i + d : i;
+    const int l = lin ? i - d : i;
+    float rl, rr;
+    if (rest_plane != nullptr) {
+      const float* row = rest_plane + static_cast<size_t>(fi) * n;
+      rl = row[i];
+      rr = row[l];
+    } else {
+      rl = rr = rest_scalar[fi];
+    }
+    const float k = kscal[fi];
+    const float3 fl = plain_spring(
+        __fmul_rn(k, static_cast<float>((word >> fi) & 1)), rl, p,
+        ld3(pos, j, n));
+    const float3 fr = plain_spring(
+        __fmul_rn(k, static_cast<float>((bits[l] >> fi) & 1)), rr,
+        ld3(pos, l, n), p);
+    f = add_pair(f, fl, jin, fr, lin);
+  }
+  return f;
+}
+
 }  // namespace titan
 
 // Host-side arguments of one chunk; field order matches the ctypes
@@ -578,6 +667,10 @@ struct ChunkArgs {
   float* rem_tmp;
   titan::LocalSlots local;
   titan::Remainder rem;  // rem.rest_src: the chunk's input remainder rest
+  // [F] family-uniform k and [N] existence bits: set for the step
+  // kernel's own launches of a scene on the plain-spring path, else null
+  const float* kscal;
+  const int* bits;
 };
 
 namespace titan {
@@ -605,6 +698,8 @@ inline StepArgs step_args(const ChunkArgs* c) {
   a.minv = c->minv;
   a.fixed = c->fixed;
   a.k = c->k;
+  a.kscal = c->kscal;
+  a.bits = c->bits;
   a.damping = c->damping;
   a.bsign = c->bsign;
   a.bomega = c->bomega;

@@ -205,7 +205,7 @@ extern "C" int titan_tiled_adjoint_coop_blocks(int kind, int integrator,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
   const void* entry =
-      kind == 0 ? titan_tiled::mega_entry<true>(integrator)
+      kind == 0 ? titan_tiled::mega_entry<false, true>(integrator)
                 : reinterpret_cast<void*>(tiled_megabwd_kernel);
   return titan_tiled::coop_blocks_of(entry, kThreads, device);
 }

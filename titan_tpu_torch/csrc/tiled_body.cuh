@@ -121,8 +121,38 @@ __device__ __forceinline__ float3 tiled_spring(const TiledArgs& a, int fi,
   return mul3(diff, mag * inv);
 }
 
-// The force on mass i at state (pos, vel): per family "- left + right"
-// from zero (the TPU's fw - f + roll_scatter(f, d)), then the constant
+// The family sum "- left + right" from zero of mass i at (p, v), its
+// partners read from device memory (pos, vel).
+__device__ __forceinline__ float3 tiled_families(const TiledArgs& a, int i,
+                                                 const float* pos,
+                                                 const float* vel, float t,
+                                                 float adv_base, float3 p,
+                                                 float3 v) {
+  const int n = a.n;
+  const float3 zero = make_float3(0.f, 0.f, 0.f);
+  float3 fw = zero;
+  for (int fi = 0; fi < a.nf; ++fi) {
+    const int d = a.deltas[fi];
+    const int j = i + d;
+    if (j >= 0 && j < n) {
+      const float3 vj = a.has_damping ? ld3(vel, j, n) : zero;
+      fw = sub3(fw, tiled_spring(a, fi, i, p, v, ld3(pos, j, n), vj, t,
+                                 adv_base));
+    }
+    const int l = i - d;
+    if (l >= 0 && l < n) {
+      const float3 vl = a.has_damping ? ld3(vel, l, n) : zero;
+      fw = add3(fw, tiled_spring(a, fi, l, ld3(pos, l, n), vl, p, v, t,
+                                 adv_base));
+    }
+  }
+  return fw;
+}
+
+// The force on mass i at state (pos, vel), at its position p and velocity
+// v, given the family sum fw: per family "- left + right" from zero (the
+// TPU's fw - f + roll_scatter(f, d); tiled_families, or the plain-spring
+// loop, step_body.cuh::plain_family_sum), then the constant
 // force (f_acc = fw + const_f, pallas_tiled.py:740) with the remainder
 // springs' sum added to it (const_f + remainder: the TPU feeds them in as
 // per-step glue through its constant-force input, pallas_tiled.py:1609-
@@ -141,27 +171,10 @@ template <bool REM>
 __device__ __forceinline__ float3 tiled_force(const TiledArgs& a, int i,
                                               const float* pos,
                                               const float* vel, float t,
-                                              float adv_base, float3& vm) {
+                                              float adv_base, float3 p,
+                                              float3 v, float3 fw,
+                                              float3& vm) {
   const int n = a.n;
-  const float3 zero = make_float3(0.f, 0.f, 0.f);
-  const float3 p = ld3(pos, i, n);
-  const float3 v = ld3(vel, i, n);
-  float3 fw = zero;
-  for (int fi = 0; fi < a.nf; ++fi) {
-    const int d = a.deltas[fi];
-    const int j = i + d;
-    if (j >= 0 && j < n) {
-      const float3 vj = a.has_damping ? ld3(vel, j, n) : zero;
-      fw = sub3(fw, tiled_spring(a, fi, i, p, v, ld3(pos, j, n), vj, t,
-                                 adv_base));
-    }
-    const int l = i - d;
-    if (l >= 0 && l < n) {
-      const float3 vl = a.has_damping ? ld3(vel, l, n) : zero;
-      fw = add3(fw, tiled_spring(a, fi, l, ld3(pos, l, n), vl, p, v, t,
-                                 adv_base));
-    }
-  }
   float3 cf = ld3(a.cforce, i, n);
   if (REM) {
     cf = add3(cf, titan::remainder_forces(a.rem, i, n, pos, vel, t,
@@ -186,9 +199,11 @@ __device__ __forceinline__ float3 blend3(float3 x, float keep, float3 y,
 // + 1 under RK2, whose rest advances once per force pass).  The update
 // reads the velocity the local constraints leave (vm); frozen masses keep
 // the pass's input velocity, except at the RK2 midpoint, which keeps vm.
-template <int MODE, bool REM = false>
-__device__ __forceinline__ void tiled_mass(const TiledArgs& a,
-                                           const StepIO& io, int i) {
+// p is the mass's position, families(t, adv_base, v) its family sum.
+template <int MODE, bool REM, class Families>
+__device__ __forceinline__ void tiled_mass_with(const TiledArgs& a,
+                                                const StepIO& io, int i,
+                                                float3 p, Families families) {
   const int n = a.n;
   const float dt = a.scal[0];
   const float fstep = static_cast<float>(io.step);
@@ -200,10 +215,10 @@ __device__ __forceinline__ void tiled_mass(const TiledArgs& a,
     t = __fadd_rn(a.scal[1], __fmul_rn(fstep, dt));
     adv_base = MODE == kRk2a ? __fmul_rn(2.f, fstep) : fstep;
   }
-  float3 vm;
-  const float3 f = tiled_force<REM>(a, i, io.pos, io.vel, t, adv_base, vm);
-  const float3 p = ld3(io.pos, i, n);
   const float3 v = ld3(io.vel, i, n);
+  float3 vm;
+  const float3 f = tiled_force<REM>(a, i, io.pos, io.vel, t, adv_base, p, v,
+                                    families(t, adv_base, v), vm);
   const float frozen = a.fixed[i];
   const float keep = 1.f - frozen;
   const float3 acc = mul3(f, a.minv[i]);
@@ -253,6 +268,19 @@ __device__ __forceinline__ void tiled_mass(const TiledArgs& a,
   st3(io.vel_dst, i, n, v2);
   // frozen masses get acc 0 here; the chunk restores their old acc
   if (io.acc_dst != nullptr) st3(io.acc_dst, i, n, mul3(acc, keep));
+}
+
+// tiled_mass_with the family sum from device memory: the per-step kernels,
+// the replay and megark2, and the resident grid of a scene off the
+// plain-spring path.
+template <int MODE, bool REM = false>
+__device__ __forceinline__ void tiled_mass(const TiledArgs& a,
+                                           const StepIO& io, int i) {
+  const float3 p = ld3(io.pos, i, a.n);
+  tiled_mass_with<MODE, REM>(
+      a, io, i, p, [&](float t, float adv_base, float3 v) {
+        return tiled_families(a, i, io.pos, io.vel, t, adv_base, p, v);
+      });
 }
 
 }  // namespace titan_tiled

@@ -5,6 +5,12 @@
 // step computes, and why it is laid out this way, is set out at the top of
 // csrc/tiled_step.cu.
 //
+// The Euler / Verlet resident grid of the forward (tiled_mega_kernel<MODE,
+// true, false>) runs the plain-spring loop (step_body.cuh::
+// plain_family_sum) where the host marks the scene's springs plain
+// (TiledChunk::plain_springs); every other kernel here runs the general
+// family loop (tiled_body.cuh::tiled_families).
+//
 // TRACE = true: before each step, each mass's input (pos, vel) of that step
 // is also written to the trace, [steps, 6, N] (pos rows, then vel rows), as
 // csrc/adjoint.cu's trace.  The step's own arithmetic is tiled_mass either
@@ -25,6 +31,9 @@ namespace titan_tiled {
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
+// the plain-spring resident grid's block (chosen on an H100: 256 threads
+// ran 2-3% slower at 100^3, PERF.md section 6)
+constexpr int kPlainThreads = 512;
 
 // The three state buffers of one side of the ping-pong.
 struct State3 {
@@ -74,14 +83,24 @@ cudaError_t launch_step(int blocks, cudaStream_t st, const TiledArgs& a,
 // k_seg Euler or Verlet steps, steps step0 .. step0 + k_seg - 1 of the
 // chunk.  Step s reads `in` (s = 0), B (s odd) or A (s even, s > 0) and
 // writes the other buffer.  Euler reads no acc and writes it on the last
-// step only; Verlet reads and writes it every step.  With TRACE, step s
-// writes its input to entry s of `trace` (the segment's first entry).
-template <int MODE, bool TRACE>
-__global__ void tiled_mega_kernel(TiledArgs a, int step0, int k_seg,
-                                  State3 in, State3 buf_a, State3 buf_b,
-                                  float* trace) {
+// step only; Verlet reads and writes it every step.  With TRACE (the tiled
+// adjoint's replay), step s also writes its input to entry s of `trace`
+// (the segment's first entry).
+//
+// PLAIN (the forward of a scene whose springs are plain and whose k rides
+// the existence bits): the family sum is the plain-spring loop, run at
+// kPlainThreads threads a block, two blocks an SM, so at most 64 registers
+// a thread.  Otherwise the general body at kThreads.  Either way one
+// thread per mass, grid-striding over the masses.
+template <int MODE, bool PLAIN, bool TRACE>
+__global__ void __launch_bounds__(PLAIN ? kPlainThreads : kThreads,
+                                  PLAIN ? 2 : 1)
+    tiled_mega_kernel(TiledArgs a, int step0, int k_seg, State3 in,
+                      State3 buf_a, State3 buf_b, float* trace) {
+  static_assert(!(PLAIN && TRACE), "the replay keeps the general body");
   cg::grid_group grid = cg::this_grid();
-  const int stride = gridDim.x * blockDim.x;
+  const int n = a.n;
+  const int t = static_cast<int>(threadIdx.x);
   for (int s = 0; s < k_seg; ++s) {
     const State3 src = s == 0 ? in : (s % 2 ? buf_b : buf_a);
     const State3 dst = s % 2 ? buf_a : buf_b;
@@ -93,11 +112,20 @@ __global__ void tiled_mega_kernel(TiledArgs a, int step0, int k_seg,
     io.pos_dst = dst.pos;
     io.vel_dst = dst.vel;
     io.acc_dst = (MODE == kVerlet || s == k_seg - 1) ? dst.acc : nullptr;
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
-      if (TRACE) {
-        trace_store(trace_entry(trace, s, a.n), io.pos, io.vel, i, a.n);
+    const int stride = gridDim.x * blockDim.x;
+    for (int i = blockIdx.x * blockDim.x + t; i < n; i += stride) {
+      if constexpr (PLAIN) {
+        const float3 p = ld3(io.pos, i, n);
+        tiled_mass_with<MODE, false>(
+            a, io, i, p, [&](float, float, float3) {
+              return titan::plain_family_sum(
+                  a.deltas, io.pos, a.bits, i, n, a.nf, a.fparams, a.rest,
+                  a.fparams + a.nf, p, make_float3(0.f, 0.f, 0.f));
+            });
+      } else {
+        if (TRACE) trace_store(trace_entry(trace, s, n), io.pos, io.vel, i, n);
+        tiled_mass<MODE>(a, io, i);
       }
-      tiled_mass<MODE>(a, io, i);
     }
     grid.sync();
   }
@@ -146,15 +174,17 @@ __global__ void tiled_megark2_kernel(TiledArgs a, int step0, int k_seg,
   }
 }
 
-template <bool TRACE>
+// The resident-grid kernel of `integrator` (PLAIN: the plain-spring Euler
+// / Verlet grid).
+template <bool PLAIN, bool TRACE>
 void* mega_entry(int integrator) {
   if (integrator == 2) {
     return reinterpret_cast<void*>(tiled_megark2_kernel<TRACE>);
   }
   if (integrator == 1) {
-    return reinterpret_cast<void*>(tiled_mega_kernel<kVerlet, TRACE>);
+    return reinterpret_cast<void*>(tiled_mega_kernel<kVerlet, PLAIN, TRACE>);
   }
-  return reinterpret_cast<void*>(tiled_mega_kernel<kEuler, TRACE>);
+  return reinterpret_cast<void*>(tiled_mega_kernel<kEuler, PLAIN, TRACE>);
 }
 
 // Blocks of `threads` that can be resident at once on `device` for the
@@ -193,6 +223,8 @@ struct TiledChunk {
   float* pos_half;  // RK2 only
   float* vel_half;
   float* vel_v1;    // RK2 with local constraints: pass 1's mutated velocity
+  int plain_springs;  // 1: the Euler / Verlet grid runs the plain-spring
+                      // loop (TiledArgs::bits carries k)
 };
 
 namespace titan_tiled {
@@ -223,10 +255,17 @@ int enqueue_tiled_chunk(const TiledChunk* c, float* trace, void* stream) {
     // write: out for an even tail, tmp for an odd one
     State3 buf_a = tail % 2 == 0 ? out : tmp;
     State3 buf_b = tail % 2 == 0 ? tmp : out;
-    void* entry_fn = mega_entry<TRACE>(c->integrator);
-    const int limit = coop_blocks_of(entry_fn, kThreads, c->device);
+    // the forward's Euler / Verlet grid of a plain-spring scene runs the
+    // plain-spring loop; the replay and megark2 the general body
+    const bool plain = !TRACE && !rk2 && c->plain_springs;
+    void* entry_fn = mega_entry<false, TRACE>(c->integrator);
+    if constexpr (!TRACE) {
+      if (plain) entry_fn = mega_entry<true, false>(c->integrator);
+    }
+    const int threads = plain ? kPlainThreads : kThreads;
+    const int limit = coop_blocks_of(entry_fn, threads, c->device);
     if (limit <= 0) return limit < 0 ? -limit : cudaErrorNotSupported;
-    const int want = (a.n + kThreads - 1) / kThreads;
+    const int want = (a.n + threads - 1) / threads;
     const int blocks = want < limit ? want : limit;
     TiledArgs args = a;
     int k_seg = c->k_seg;
@@ -240,7 +279,7 @@ int enqueue_tiled_chunk(const TiledChunk* c, float* trace, void* stream) {
       void* params_rk[] = {&args, &step0, &k_seg, &cur, &buf_a, &buf_b,
                            &ph,   &vh,    &v1,    &tr};
       err = cudaLaunchCooperativeKernel(entry_fn, dim3(blocks),
-                                        dim3(kThreads),
+                                        dim3(threads),
                                         rk2 ? params_rk : params_ee, 0, st);
       if (err != cudaSuccess) return static_cast<int>(err);
       cur = buf_a;

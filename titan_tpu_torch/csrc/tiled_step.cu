@@ -43,31 +43,51 @@
 // 2 x 10,101 masses x 12 B of pos, exceed a block's 227 KB of shared
 // memory).  Here one thread owns one mass and gathers both incident
 // springs of each family, as csrc/fused_step.cu does: deterministic, no
-// atomics.  A block's partners at +-d are contiguous runs of masses, so
-// their loads coalesce.
+// atomics.
 //
 // Resident-grid launches.  The TPU's mega mode advances k_seg steps in one
 // pallas_call over two parity buffers, relying on its grid running in
 // sequence.  GPU blocks run concurrently, so tiled_mega_kernel and
 // tiled_megark2_kernel are persistent cooperative kernels
 // (cudaLaunchCooperativeKernel, grid no larger than the co-resident
-// blocks) that grid-stride over the masses and pass a grid barrier
-// (cooperative_groups::this_grid().sync()) after every step, and after
-// the RK2 predictor too: the barrier is what makes each step read the
-// whole previous step.  State ping-pongs between two buffers; step 0 reads
-// the segment's input, and with k_seg even the last step lands in buffer
-// A.  A mass's per-step arithmetic is tiled_mass (csrc/tiled_body.cuh) in
-// every mode, so a mega segment is bitwise its k_seg per-step launches.
-// The kernels and their launch loop live in csrc/tiled_chunk.cuh, which
-// csrc/tiled_adjoint.cu instantiates again with trace stores for the
-// tiled adjoint's replay.
+// blocks) that pass a grid barrier (cooperative_groups::this_grid().sync())
+// after every step, and after the RK2 predictor too: the barrier is what
+// makes each step read the whole previous step.  State ping-pongs between
+// two buffers; step 0 reads the segment's input, and with k_seg even the
+// last step lands in buffer A.  A mass's per-step arithmetic is tiled_mass
+// (csrc/tiled_body.cuh) in every mode, so a mega segment is bitwise its
+// k_seg per-step launches.  The kernels and their launch loop live in
+// csrc/tiled_chunk.cuh, which csrc/tiled_adjoint.cu instantiates again
+// with trace stores for the tiled adjoint's replay.
+//
+// The Euler / Verlet grid's plain-spring path (tiled_mega_kernel<MODE,
+// true, false>: a scene whose springs are plain and whose k rides the
+// existence bits, as the 100^3 stress config).  Each thread sums its
+// families with the fused step's plain-spring loop (step_body.cuh::
+// plain_family_sum: no per-spring feature branch, partner indices clamped
+// into [0, N) so that no load waits on a branch) before tiled_mass's tail,
+// at 512 threads a block, two blocks an SM (at most 64 registers a thread).
+// Other scenes, the per-step launches, megark2 and the replay keep the
+// general body; both loops do the same arithmetic in the same order, so
+// every mode stays bitwise the others.
 //
 // Bound.  Per step a launch reads pos (and vel, acc) and the mask, and
 // writes the new state: ~84 MB at 100^3, ~25 us at 3.35 TB/s, against the
 // fused kernel's k and rest planes on top (~184 MB).  What a chunk must
 // move is its inputs once and its outputs once, so its least time per step
 // is the arithmetic (22 operations per spring, 25 per mass at 67 TFLOP/s
-// f32).  Nothing here stages partners in shared memory yet.
+// f32).  The kernels issue far more instructions than that (IEEE sqrt and
+// divide, each spring evaluated by both endpoints): the general grid was
+// instruction-bound and no faster per step than per-step launches; the
+// plain-spring loop runs a 100^3 step in ~3/5 of a per-step launch's time
+// on an H100 (PERF.md section 6, PR 9).  Measured and dropped: each block
+// copying its tile's partner windows of pos and existence bits into shared
+// memory (cp.async, double-buffered) before the same loop, 12-15% slower
+// than reading them from device memory; staging the tile's 26 rest runs as
+// well, slower still.
+// Next steps: the per-step launches (row 2, and the link scenes that take
+// only them) on the plain-spring loop; each spring evaluated once where
+// both its endpoints are in one block.
 //
 // Rounding.  Built with -fmad=false and without --use_fast_math, as
 // fused_step.cu, so that it agrees bitwise with its plain version.
@@ -78,14 +98,19 @@
 #include "tiled_chunk.cuh"
 
 // The co-resident block limit of the resident-grid kernel for
-// `integrator` on `device` (the largest grid a cooperative launch takes),
-// or a negated cudaError_t.
-extern "C" int titan_tiled_coop_blocks(int integrator, int device) {
+// `integrator` on `device` (the largest grid a cooperative launch takes;
+// plain: the plain-spring Euler / Verlet grid at its block size), or a
+// negated cudaError_t.
+extern "C" int titan_tiled_coop_blocks(int integrator, int device,
+                                       int plain) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  return titan_tiled::coop_blocks_of(
-      titan_tiled::mega_entry<false>(integrator), titan_tiled::kThreads,
-      device);
+  return plain ? titan_tiled::coop_blocks_of(
+                     titan_tiled::mega_entry<true, false>(integrator),
+                     titan_tiled::kPlainThreads, device)
+               : titan_tiled::coop_blocks_of(
+                     titan_tiled::mega_entry<false, false>(integrator),
+                     titan_tiled::kThreads, device);
 }
 
 // Enqueue c->n_steps steps on `stream`: n_steps / k_seg resident-grid
@@ -102,4 +127,16 @@ extern "C" int titan_tiled_pass(const TiledChunk* c,
                                 const titan_tiled::TiledPass* p,
                                 void* stream) {
   return titan_tiled::enqueue_tiled_pass<false>(c, p, stream);
+}
+
+// The registers a thread of the resident-grid kernel for `integrator`
+// (plain: the plain-spring Euler / Verlet grid).  Returns 0 or the CUDA
+// error.
+extern "C" int titan_tiled_mega_regs(int integrator, int plain, int* regs) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &attr, plain ? titan_tiled::mega_entry<true, false>(integrator)
+                   : titan_tiled::mega_entry<false, false>(integrator));
+  if (err == cudaSuccess) *regs = attr.numRegs;
+  return static_cast<int>(err);
 }

@@ -67,6 +67,66 @@ from .step import chunk_ridx, local_caps, magnet_pass, magnet_route
 
 _INTEGRATOR_CODE = {Integrator.EULER: 0, Integrator.VERLET: 1,
                     Integrator.RK2: 2}
+# rows of the family-scalar table (pallas_tiled.py:1416-1422)
+SCALAR_ROWS = ("k", "rest", "damping", "type", "omega")
+# the existence bitmask is one int32 per mass (csrc/tiled_body.cuh)
+MAX_BIT_FAMILIES = 32
+
+
+def k_rides_bits(shape: SceneShape) -> bool:
+    """Whether the kernels take k as one scalar per family times bit f of
+    an int32 existence mask per mass (``family_scalars``,
+    ``existence_bits``), in place of the [F, N] k plane: where k is uniform
+    within every family (``SceneShape.stencil_uniform``, which a
+    uniform-breaking edit clears) and the families fit the mask's bits.
+    The tiled step's plan and the fused step share this test."""
+    return bool(shape.stencil_uniform[0]) and \
+        len(shape.stencil_deltas) <= MAX_BIT_FAMILIES
+
+
+def family_scalars(shape: SceneShape, state: SimState,
+                   rows=SCALAR_ROWS) -> torch.Tensor:
+    """The family scalars [len(rows), F] f32 (of ``SCALAR_ROWS``: k, rest,
+    damping, breathing sign and frequency), each taken from its family's
+    first masked lane where that field is uniform within every family,
+    else 0 (``pallas_tiled.py::prep_flat_inputs``)."""
+    st = state.stencil
+    f32 = torch.float32
+    uniform = dict(zip(SCALAR_ROWS, shape.stencil_uniform))
+    # a family without springs reads lane 0: harmless, its k is 0 there
+    lane0 = torch.argmax(st.mask.to(torch.uint8), dim=1)[:, None]
+    nf = len(shape.stencil_deltas)
+
+    def field(name):
+        if name != "type":
+            return dict(k=st.k, rest=st.rest, damping=st.damping,
+                        omega=st.omega)[name]
+        return torch.where(
+            st.type == ACTIVE_CONTRACT_THEN_EXPAND, -0.2,
+            torch.where(st.type == ACTIVE_EXPAND_THEN_CONTRACT, 0.2,
+                        0.0)).to(f32)
+    return torch.stack([
+        torch.gather(field(f), 1, lane0)[:, 0].to(f32) if uniform[f]
+        else torch.zeros(nf, dtype=f32, device=st.k.device)
+        for f in rows]).contiguous()
+
+
+def existence_bits(pair_ok: torch.Tensor) -> torch.Tensor:
+    """The int32 existence mask [N]: bit f of mass m is set where the
+    spring (f, m) exists between two valid masses (``pair_ok`` [F, N]);
+    the bits are distinct, so their sum is their union."""
+    shifts = torch.arange(pair_ok.shape[0], dtype=torch.int32,
+                          device=pair_ok.device)[:, None]
+    return torch.sum(pair_ok.to(torch.int32) << shifts, dim=0,
+                     dtype=torch.int32)
+
+
+def bits_k(shape: SceneShape, state: SimState, inv: dict) -> tuple:
+    """The plain-spring path's k: (``kscal`` [F], ``bits`` [N]), whose
+    kscal[f] x bit f of bits[m] is ``inv["k_eff"][f, m]`` bit for bit
+    where ``k_rides_bits``; the tiled prep's scalars and bits."""
+    return (family_scalars(shape, state, ("k",))[0].contiguous(),
+            existence_bits(inv["pair_ok"]))
 
 
 def fused_reject_reason(shape: SceneShape):
@@ -412,7 +472,19 @@ class _ChunkArgs(ctypes.Structure):
             "vel_out", "acc_out", "pos_tmp", "vel_tmp", "acc_tmp",
             "pos_half", "vel_half", "vel_v1", "rest_out", "rest_tmp",
             "rem_out", "rem_tmp")]
-        + [("local", _LocalSlots), ("rem", _Remainder)])
+        + [("local", _LocalSlots), ("rem", _Remainder)]
+        + [("kscal", ctypes.c_void_p), ("bits", ctypes.c_void_p)])
+
+
+def takes_plain_spring_path(shape: SceneShape) -> bool:
+    """Whether the fused step and the Euler / Verlet resident grid sum
+    this scene's families with their plain-spring loop
+    (``csrc/step_body.cuh::plain_family_sum``): stencil families whose
+    springs are plain (no damping, breathing or actuation) and whose k
+    rides the existence bits (``k_rides_bits``).  Other scenes take the
+    kernels' general body."""
+    return bool(shape.stencil_deltas) and k_rides_bits(shape) and not (
+        shape.has_damping or shape.has_breathing or shape.has_actuated)
 
 
 def _checked(name, t, shape, dtype=torch.float32, kernel="fused"):
@@ -437,12 +509,15 @@ def deltas_on(deltas: tuple, device: torch.device) -> torch.Tensor:
 
 
 def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
-                inv: dict = None):
+                inv: dict = None, plain_springs: bool = False):
     """(``_ChunkArgs``, what it points into) for ``n_steps`` steps of the
     step kernel from ``state``; the second item holds every tensor the
     launch reads or writes, starting with the invariants and the outputs
     pos, vel, acc and rest.  ``inv`` is ``prep_invariants(shape, state)``
-    where the caller has it already."""
+    where the caller has it already.  ``plain_springs``: the step kernel's
+    own launches, which take the plain-spring path where the scene does
+    (``takes_plain_spring_path``; its k as ``bits_k``); the adjoint's
+    replay passes False."""
     cfg = shape.config
     m = state.masses
     dev = m.pos.device
@@ -497,6 +572,10 @@ def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
         a.arate = _checked("arate", inv["arate"], fam)
         a.abound = _checked("abound", inv["abound"], fam)
     a.drag = _checked("drag", m.drag, (n,))
+    if plain_springs and takes_plain_spring_path(shape):
+        inv["kscal"], inv["bits"] = bits_k(shape, state, inv)
+        a.kscal = _checked("kscal", inv["kscal"], (nf,))
+        a.bits = _checked("bits", inv["bits"], (n,), torch.int32)
     a.pos_out, a.vel_out, a.acc_out = (t.data_ptr()
                                        for t in (pos_out, vel_out, acc_out))
     (a.pos_tmp, a.vel_tmp, a.acc_tmp, a.pos_half,
@@ -539,7 +618,21 @@ def _lib():
                                      ctypes.POINTER(_PassArgs),
                                      ctypes.c_void_p]
     lib.titan_fused_pass.restype = ctypes.c_int
+    lib.titan_fused_kernel_info.argtypes = [ctypes.c_int] + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.titan_fused_kernel_info.restype = ctypes.c_int
     return lib
+
+
+def kernel_info(rem: bool = False) -> tuple:
+    """(registers a thread, co-resident blocks an SM) of the plain-spring
+    step kernel (its REM instantiation with ``rem``) at its block size."""
+    regs, per_sm = ctypes.c_int(), ctypes.c_int()
+    rc = _lib().titan_fused_kernel_info(int(rem), ctypes.byref(regs),
+                                        ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"fused_step kernel_info: CUDA error {rc}")
+    return regs.value, per_sm.value
 
 
 def _fused_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
@@ -547,7 +640,7 @@ def _fused_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
     """The kernel chunk.  A magnet scene runs ``_magnet_passes`` with
     ``field`` (default ``magnet_field_fn(shape, state, plain=False)``)."""
     lib = _lib()
-    a, keep = _chunk_args(shape, state, n_steps)
+    a, keep = _chunk_args(shape, state, n_steps, plain_springs=True)
     inv, pos_out, vel_out, acc_out, rest_out, rem_out = keep[:6]
     stream = torch.cuda.current_stream(pos_out.device).cuda_stream
     if shape.has_magnets:

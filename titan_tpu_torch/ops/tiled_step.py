@@ -56,8 +56,11 @@ from ..config import (ACTIVE_CONTRACT_THEN_EXPAND, ACTIVE_EXPAND_THEN_CONTRACT,
                       ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator)
 from ..state import SceneShape, SimState
 from . import forces as F
-from .fused_step import (_LocalSlots, _Remainder, _checked, _finish_chunk,
-                         local_struct, pass_cforce, remainder_struct)
+from .fused_step import (MAX_BIT_FAMILIES, _LocalSlots, _Remainder,
+                         _checked, _finish_chunk, existence_bits,
+                         family_scalars, k_rides_bits, local_struct,
+                         pass_cforce, remainder_struct,
+                         takes_plain_spring_path)
 from .forces import _safe_norm
 from .step import local_caps
 
@@ -67,11 +70,9 @@ from .step import local_caps
 MEGA_SEG = 16
 
 # the existence bitmask is one int32 per mass (csrc/tiled_body.cuh)
-_MAX_FAMILIES = 32
+_MAX_FAMILIES = MAX_BIT_FAMILIES
 _INTEGRATOR_CODE = {Integrator.EULER: 0, Integrator.VERLET: 1,
                     Integrator.RK2: 2}
-# rows of the family-scalar table (pallas_tiled.py:1416-1422)
-_SCALAR_ROWS = ("k", "rest", "damping", "type", "omega")
 
 
 def _plan(shape: SceneShape) -> tuple:
@@ -82,9 +83,9 @@ def _plan(shape: SceneShape) -> tuple:
     the scene is actuated (rest is state there), with the closed-form
     actuation inputs beside it; damping is always a plane, zero where no
     spring exists, because a scalar would damp missing springs too."""
-    u_k, u_rest, _, u_type, u_omega = shape.stencil_uniform
+    _, u_rest, _, u_type, u_omega = shape.stencil_uniform
     planes = []
-    if not u_k:
+    if not k_rides_bits(shape):
         planes.append("k")
     if not u_rest or shape.has_actuated:
         planes.append("rest")
@@ -157,24 +158,11 @@ def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
             pair_ok[fi] & m.valid & torch.roll(m.valid, -d, dims=-1)
             for fi, d in enumerate(deltas)])
     styp = st.type
-    bsign = torch.where(
-        styp == ACTIVE_CONTRACT_THEN_EXPAND, -0.2,
-        torch.where(styp == ACTIVE_EXPAND_THEN_CONTRACT, 0.2, 0.0)).to(f32)
-    fields = dict(k=st.k, rest=st.rest, damping=st.damping, type=bsign,
-                  omega=st.omega)
-    # a family without springs reads lane 0: harmless, its k is 0 there
-    lane0 = torch.argmax(st.mask.to(torch.uint8), dim=1)[:, None]
-    fparams = torch.stack([
-        torch.gather(fields[f], 1, lane0)[:, 0].to(f32) if uniform
-        else torch.zeros(len(deltas), dtype=f32, device=dev)
-        for f, uniform in zip(_SCALAR_ROWS, shape.stencil_uniform)])
-    inv = dict(fparams=fparams.contiguous(), pair_ok=pair_ok)
+    fparams = family_scalars(shape, state)
+    inv = dict(fparams=fparams, pair_ok=pair_ok)
     plan = _plan(shape)
     if "k" not in plan:
-        bits = torch.zeros(shape.n_masses, dtype=torch.int32, device=dev)
-        for fi in range(len(deltas)):
-            bits = bits | (pair_ok[fi].to(torch.int32) << fi)
-        inv["bits"] = bits
+        inv["bits"] = existence_bits(pair_ok)
     else:
         inv["k"] = torch.where(pair_ok, st.k, 0.0).to(f32)
     if "rest" in plan:
@@ -196,7 +184,10 @@ def prep_tiled_inputs(shape: SceneShape, state: SimState) -> dict:
     if "damping" in plan:
         inv["damping"] = torch.where(pair_ok, st.damping, 0.0).to(f32)
     if "bsign" in plan:
-        inv["bsign"] = bsign
+        inv["bsign"] = torch.where(
+            styp == ACTIVE_CONTRACT_THEN_EXPAND, -0.2,
+            torch.where(styp == ACTIVE_EXPAND_THEN_CONTRACT, 0.2,
+                        0.0)).to(f32)
     if "bomega" in plan:
         inv["bomega"] = st.omega.to(f32)
     move = m.valid & ~m.fixed
@@ -441,7 +432,8 @@ class _TiledChunk(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in (
                     "pos_in", "vel_in", "acc_in", "pos_out", "vel_out",
                     "acc_out", "pos_tmp", "vel_tmp", "acc_tmp", "pos_half",
-                    "vel_half", "vel_v1")])
+                    "vel_half", "vel_v1")]
+                + [("plain_springs", ctypes.c_int)])
 
 
 class _TiledPass(ctypes.Structure):
@@ -468,18 +460,36 @@ def _lib():
                                      ctypes.POINTER(_TiledPass),
                                      ctypes.c_void_p]
     lib.titan_tiled_pass.restype = ctypes.c_int
-    lib.titan_tiled_coop_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.titan_tiled_coop_blocks.argtypes = [ctypes.c_int] * 3
     lib.titan_tiled_coop_blocks.restype = ctypes.c_int
+    lib.titan_tiled_mega_regs.argtypes = [ctypes.c_int, ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
+    lib.titan_tiled_mega_regs.restype = ctypes.c_int
     return lib
 
 
-def coop_blocks(integrator: Integrator, device=None) -> int:
+def mega_regs(integrator: Integrator, plain: bool = False) -> int:
+    """Registers a thread of the resident-grid kernel ``integrator``
+    launches (``plain``: the plain-spring Euler / Verlet grid)."""
+    regs = ctypes.c_int()
+    rc = _lib().titan_tiled_mega_regs(_INTEGRATOR_CODE[integrator],
+                                      int(plain), ctypes.byref(regs))
+    if rc != 0:
+        raise RuntimeError(f"tiled_step mega_regs: CUDA error {rc}")
+    return regs.value
+
+
+def coop_blocks(integrator: Integrator, device=None,
+                plain: bool = False) -> int:
     """The co-resident block limit of the resident-grid kernel that
-    ``integrator`` launches: the largest grid a cooperative launch takes."""
+    ``integrator`` launches: the largest grid a cooperative launch takes
+    (``plain``: the plain-spring Euler / Verlet grid, 512 threads a block;
+    else 256)."""
     dev = torch.device("cuda", device if device is not None
                        else torch.cuda.current_device())
-    got = _lib().titan_tiled_coop_blocks(_INTEGRATOR_CODE[integrator],
-                                         dev.index)
+    got = _lib().titan_tiled_coop_blocks(
+        _INTEGRATOR_CODE[integrator], dev.index,
+        int(plain and integrator is not Integrator.RK2))
     if got <= 0:
         raise RuntimeError(f"tiled_step: cooperative launch unavailable on "
                            f"{dev} (CUDA error {-got})")
@@ -553,6 +563,8 @@ def chunk_struct(shape: SceneShape, state: SimState, n_steps: int,
     c.pos_tmp, c.vel_tmp, c.acc_tmp = (t.data_ptr() for t in tmp)
     c.pos_half, c.vel_half, c.vel_v1 = (None if t is None else t.data_ptr()
                                         for t in half)
+    c.plain_springs = int(bool(k_seg) and not rk2
+                          and takes_plain_spring_path(shape))
     return c, out, tmp + half
 
 
