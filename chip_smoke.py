@@ -119,13 +119,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   q. build csrc/tiled_adjoint.cu (the tiled adjoint's trace replay and
      backward kernels) beside the others, all six nvcc started together,
      and print the co-resident block limit of its resident-grid kernels
-     (the replay's, the backward's);
+     (the replay's, the backward's general and plain-spring ones);
   r. on the 12 tiled scenes: the trace replay over 37 steps (two
      resident-grid segments and a tail) bitwise tiled_trace_run_plain and
      its last entry bitwise the kernel chunk's state; the per-step
      backward on 20 of those entries against tiled_bwd_run_plain, bitwise
      for Euler and Verlet, within TOL_BWD_ELEM per element for RK2; the
-     resident-grid backward (Euler, Verlet) bitwise the per-step launches;
+     resident-grid backward (Euler, Verlet) bitwise the per-step launches.
+     The damped, actuated, breathing and non-uniform-k scenes must take
+     the backward's general body, the others its plain-spring loop, and
+     every launch must have run the path its scene takes
+     (tiled_bwd_run.plain_launches); each check prints the path;
   s. the 100^3 gradient path from phase o's landed state, under Euler,
      Verlet and RK2: diff.grad_rollout over 200 steps with the default
      segment (50) and torch.autograd.grad over pos, vel, k, rest, m,
@@ -133,7 +137,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      after.  The route must be the tiled adjoint, the forward, replay and
      backward launches exactly what the segments give, with no fused
      launch, no fused-adjoint launch and no eager step, and every gradient
-     finite.  Then phase r's checks from that state; then the tiled
+     finite.  The backward's path is printed with the registers, local
+     bytes and co-resident blocks of each kernel it launches (B8, or B7's
+     two or three), and every backward launch must have taken the
+     plain-spring loop (as on every tiled gradient path of a 13-family
+     lattice: + local, + links, the soak glue).  Then phase r's checks from that state; then the tiled
      adjoint against the fused adjoint over 32 steps: both backward sweeps
      bitwise on one trace, the two forwards compared, and the gradients
      within TOL_GRAD_CROSS (Verlet) and TOL_GRAD_CROSS_CLAMP (Euler with
@@ -643,17 +651,22 @@ def time_path(name, shape, state):
 def print_coop_blocks(titan):
     """The co-resident block limit (the largest cooperative grid) of every
     resident-grid kernel: the tiled step's, the tiled adjoint replay's and
-    the tiled adjoint's backward (Euler and Verlet)."""
+    the tiled adjoint's backward (Euler and Verlet; general and
+    plain-spring)."""
     from titan_tpu_torch.ops import adjoint_tiled, tiled_step
     for integ in (titan.Integrator.EULER, titan.Integrator.VERLET,
                   titan.Integrator.RK2):
+        b8 = adjoint_tiled.bwd_kernel_info("B8", True)["threads"]
         print(f"tiled resident-grid kernel ({integ.name}): "
               f"{tiled_step.coop_blocks(integ)} co-resident blocks of 256 "
               "threads (the largest cooperative grid); its trace replay "
               f"{adjoint_tiled.coop_blocks('trace', integ)}"
               + ("" if integ is titan.Integrator.RK2 else
                  "; resident-grid backward "
-                 f"{adjoint_tiled.coop_blocks('bwd', integ)}"))
+                 f"{adjoint_tiled.coop_blocks('bwd', integ)}, its "
+                 "plain-spring instantiation "
+                 f"{adjoint_tiled.coop_blocks('bwd', integ, plain=True)} "
+                 f"of {b8} threads"))
 
 
 def report_path(name, shape, route):
@@ -1781,6 +1794,11 @@ STRESS_NX, STRESS_WAITS = 100, (1.0, 1.0, 1.5)
 TILED_VARIANTS = ("euler", "clamp_off", "verlet", "rk2", "damping_friction",
                   "actuated", "breathing", "drag", "ball", "nonuniform_k",
                   "nonuniform_rest", "deleted")
+# the scenes of TILED_VARIANTS whose tiled backward keeps the general body
+# (damped, actuated, breathing or non-uniform k); the others take the
+# plain-spring loop
+GENERAL_BWD_VARIANTS = ("damping_friction", "actuated", "breathing",
+                        "nonuniform_k")
 
 
 def tiled_counters():
@@ -2363,6 +2381,64 @@ def read_adjoint_counts():
             for k, (obj, attr) in adjoint_counters().items()}
 
 
+def bwd_path(shape):
+    """"plain" where the tiled adjoint's backward kernels (B7, B8) run the
+    plain-spring loop on `shape` (adjoint_body.cuh::plain_family_sum and
+    plain_family_transpose; fused_step.takes_plain_spring_path), else
+    "general"."""
+    from titan_tpu_torch.ops import fused_step
+    return "plain" if fused_step.takes_plain_spring_path(shape) else \
+        "general"
+
+
+def check_bwd_path(name, shape, launches):
+    """The `launches` B7 and B8 launches since tiled_bwd_run.plain_launches
+    was zeroed must all have run the plain-spring loop where `shape` takes
+    it, and none where it does not."""
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    took = at.tiled_bwd_run.plain_launches
+    want = launches if bwd_path(shape) == "plain" else 0
+    check(took == want, f"{name}: {took} of {launches} backward launches "
+          f"took the plain-spring loop, the {bwd_path(shape)} path gives "
+          f"{want}")
+
+
+def report_bwd_path(name, shape):
+    """Print the path of the tiled adjoint's backward on `shape` (bwd_path)
+    and, for each kernel the gradient path launches (B8 where
+    mega_adjoint_ok, else B7's force and spring kernels and under RK2 its
+    midpoint kernel), its threads a block, registers and local-memory
+    bytes a thread and co-resident blocks an SM (B8: and its cooperative
+    grid).  A lattice main path (13 families) must take the plain-spring
+    loop."""
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    path = bwd_path(shape)
+    if len(shape.stencil_deltas) == 13:
+        check(path == "plain", f"{name}: the tiled backward does not take "
+              "the plain-spring loop")
+    integ = shape.config.integrator
+    if at.mega_adjoint_ok(shape):
+        names = ("B8",)
+    else:
+        names = ("force", "spring") + (("mid",) if integ.name == "RK2"
+                                        else ())
+    parts = []
+    for k in names:
+        i = at.bwd_kernel_info(k, path == "plain",
+                               shape.has_remainder and k != "B8")
+        what = ("tiled_megabwd_kernel" if k == "B8"
+                else f"bwd_{k}_kernel<TiledBwdArgs>")
+        grid = (f", {at.coop_blocks('bwd', integ, plain=path == 'plain')} "
+                "co-resident blocks in all" if k == "B8" else "")
+        parts.append(f"{what} {i['threads']} threads a block, "
+                     f"{i['registers']} registers and {i['local_bytes']} B "
+                     f"of local memory a thread, {i['blocks_per_sm']} "
+                     f"blocks an SM{grid}")
+    print(f"path {name}, tiled backward: "
+          + ("the plain-spring loop" if path == "plain" else
+             "the general body") + "; " + "; ".join(parts))
+
+
 def bwd_diffs(got, ref, rk2):
     """A backward kernel's gradients against its plain version's: (max
     |d|, {key: error}, bitwise, failures).  Euler and Verlet must agree
@@ -2418,14 +2494,17 @@ def tiled_adjoint_vs_plain(shape, state, label, bad):
     trace = trace[:BWD_STEPS]
     inv = tiled_step.prep_tiled_inputs(shape, state)
     cts = seeded_cotangents(shape.n_masses, trace.device)
+    at.tiled_bwd_run.plain_launches = 0
     b7 = at._tiled_bwd_cuda(shape, state, trace, *cts, inv, mega=False)
+    check_bwd_path(label, shape, BWD_STEPS * (5 if rk2 else 2))
     ref = at.tiled_bwd_run_plain(shape, state, trace, *cts, inv)
     torch.cuda.synchronize()
     abs_err, rel, bitwise, fails = bwd_diffs(b7, ref, rk2)
     kind = "per element" if rk2 else "max |d| / max |plain|"
     print(f"tiled adjoint vs plain [{label}]: trace ({TRACE_STEPS} steps) "
           + ("bitwise" if same else f"DIFFERS ({dtr:.3e})")
-          + f"; per-step backward ({BWD_STEPS} steps) "
+          + f"; per-step backward ({BWD_STEPS} steps, {bwd_path(shape)} "
+          "path) "
           + ("bitwise" if bitwise else kind + ": " + ", ".join(
               f"{k} {v:.2e}" for k, v in rel.items()))
           + (f"  FAIL {fails}" if fails else ""))
@@ -2433,13 +2512,15 @@ def tiled_adjoint_vs_plain(shape, state, label, bad):
         bad.append(f"{label}: per-step backward kernels disagree with "
                    f"tiled_bwd_run_plain: {fails}")
     if at.mega_adjoint_ok(shape):
+        at.tiled_bwd_run.plain_launches = 0
         b8 = at._tiled_bwd_cuda(shape, state, trace, *cts, inv, mega=True)
+        check_bwd_path(label, shape, 1)
         torch.cuda.synchronize()
         diff = [k for k in ref if k != "pair_ok"
                 and not torch.equal(b8[k], b7[k])]
         print(f"tiled adjoint resident-grid backward vs per-step launches "
-              f"[{label}]: " + ("bitwise" if not diff else f"DIFFER in "
-                                f"{diff}"))
+              f"[{label}, {bwd_path(shape)} path]: "
+              + ("bitwise" if not diff else f"DIFFER in {diff}"))
         if diff:
             bad.append(f"{label}: the resident-grid backward differs from "
                        f"the per-step launches in {diff}")
@@ -2453,6 +2534,9 @@ def tiled_adjoint_small_scenes(titan):
     bad, worst = [], {False: [0.0] * 3, True: [0.0] * 3}
     for variant in TILED_VARIANTS:
         shape, state = tiled_variant_scene(titan, variant)
+        want = "general" if variant in GENERAL_BWD_VARIANTS else "plain"
+        check(bwd_path(shape) == want, f"tiled {variant}: the backward "
+              f"takes the {bwd_path(shape)} path, not the {want} one")
         e = tiled_adjoint_vs_plain(shape, state, f"tiled {variant}", bad)
         rk2 = shape.config.integrator.name == "RK2"
         worst[rk2] = [max(w, x) for w, x in zip(worst[rk2], e[:3])]
@@ -2489,10 +2573,13 @@ def tiled_grad_path(name, shape, state, n_steps=GRAD_STEPS):
     segments give, the gradients finite.  Returns the counts."""
     import torch
     from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import adjoint_tiled as at
     check(diff.grad_route(shape) == ("tiled_adjoint", None),
           f"{name}: gradient route {diff.grad_route(shape)}")
+    report_bwd_path(name, shape)
     seg, want = expected_grad_counts(shape, n_steps)
     zero_adjoint_counts()
+    at.tiled_bwd_run.plain_launches = 0
     t0 = time.perf_counter()
     loss, grads = run_grad(shape, state, diff.grad_rollout, n_steps)
     wall = time.perf_counter() - t0
@@ -2501,6 +2588,7 @@ def tiled_grad_path(name, shape, state, n_steps=GRAD_STEPS):
           + ", ".join(f"{k} {v}" for k, v in got.items())
           + f"; {wall:.3f} s wall (first call)")
     check(got == want, f"{name}: counts {got}, the segments give {want}")
+    check_bwd_path(name, shape, got["bwd_mega"] + got["bwd_step"])
     for nm, g in zip(GRAD_NAMES, grads):
         check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
               "not finite")
@@ -2832,7 +2920,8 @@ def time_tiled_adjoint(name, shape, state):
               f"bound; plain {plain * 1e3:.1f} us/launch")
         out[g] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
                       fwd_bwd_ms_per_step=new_ms,
-                      fused_adjoint_ms_per_step=old_ms)
+                      fused_adjoint_ms_per_step=old_ms,
+                      **({"path": bwd_path(shape)} if kind == "bwd" else {}))
     if not rk2 and shape.config.integrator.name == "EULER":
         profile_grad_path(name, shape, state, segment=None)
     return out
@@ -3586,6 +3675,7 @@ def rem_grad_path(name, shape, state, segment, route):
     gradient nonzero.  Returns the counts."""
     import torch
     from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import adjoint_tiled as at
     check(diff.grad_route(shape) == (route, None),
           f"{name}: gradient route {diff.grad_route(shape)}")
     rk2 = shape.config.integrator.name == "RK2"
@@ -3598,9 +3688,11 @@ def rem_grad_path(name, shape, state, segment, route):
     else:
         seg, want = expected_grad_counts(shape, GRAD_STEPS)
         check(seg == segment, f"{name}: default segment {seg}")
+        report_bwd_path(name, shape)
     leaves, st = rem_grad_leaves(state)
     w = grad_loss_weights(state)
     zero_adjoint_counts()
+    at.tiled_bwd_run.plain_launches = 0
     t0 = time.perf_counter()
     out = diff.grad_rollout(shape, st, GRAD_STEPS, segment=segment)
     loss = torch.sum(out.masses.pos * w[0]) + torch.sum(out.masses.vel * w[1])
@@ -3612,6 +3704,7 @@ def rem_grad_path(name, shape, state, segment, route):
           f"{segment}: " + ", ".join(f"{k} {v}" for k, v in got.items())
           + f"; {wall:.3f} s wall (first call)")
     check(got == want, f"{name}: counts {got}, the segments give {want}")
+    check_bwd_path(name, shape, got["bwd_mega"] + got["bwd_step"])
     for nm, g in zip(REM_GRAD_NAMES, grads):
         check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
               "not finite")
@@ -4157,11 +4250,15 @@ def mag_grad_path(name, shape, state, n_steps, segment, route,
     from titan_tpu_torch import diff
     check(diff.grad_route(shape) == (route, None),
           f"{name}: gradient route {diff.grad_route(shape)}")
+    from titan_tpu_torch.ops import adjoint_tiled as at
     want = mag_grad_counts(shape, n_steps, route)
+    if route != "adjoint":
+        report_bwd_path(name, shape)
     leaves, st = mag_grad_leaves(state, spring_k)
     w = grad_loss_weights(state)
     torch.cuda.synchronize()
     zero_mag_counts()
+    at.tiled_bwd_run.plain_launches = 0
     t0 = time.perf_counter()
     out = diff.grad_rollout(shape, st, n_steps, segment=segment)
     loss = torch.sum(out.masses.pos * w[0]) + torch.sum(out.masses.vel * w[1])
@@ -4173,6 +4270,7 @@ def mag_grad_path(name, shape, state, n_steps, segment, route,
           f"{segment}: " + ", ".join(f"{k} {v}" for k, v in got.items())
           + f"; {wall:.3f} s wall (first call)")
     check(got == want, f"{name}: counts {got}, the segments give {want}")
+    check_bwd_path(name, shape, got["bwd_mega"] + got["bwd_step"])
     names = MAG_GRAD_NAMES + (("springs.k",) if spring_k else ())
     for nm, g in zip(names, grads):
         check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
@@ -4458,7 +4556,8 @@ def time_glue(name, shape, state, fb_ms):
               f"launches, torch.profiler); bound {bound[0] * 1e3:.4f} us by "
               f"{bound[1]}; plain {plain * 1e3:.1f} us/launch")
         out[g] = dict(ms=ms, plain_ms=plain, bound_ms=bound[0],
-                      bound_by=bound[1], fwd_bwd_ms_per_step=fb_ms)
+                      bound_by=bound[1], fwd_bwd_ms_per_step=fb_ms,
+                      **({"path": bwd_path(shape)} if g == "bwd" else {}))
     print(f"timing {name} gradient path: forward + backward "
           f"{fb_ms * 1e3:.3f} us/step over {GLUE_GRAD_STEPS} steps "
           f"(segments of {GLUE_SEG}; host clock, the checked run)")

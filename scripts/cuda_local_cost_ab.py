@@ -7,18 +7,24 @@ scenes without either, and the kernels on the scenes with them.
 
 Needs one NVIDIA GPU.  Runs the roots in order and then in reverse (A, B,
 B, A for two), each in a process of its own that imports titan_tpu_torch
-and chip_smoke.py from that checkout and builds its kernels, then times on
+and chip_smoke.py from that checkout and builds its kernels.  A root
+written ROOT@TxB builds that checkout with the plain-spring B8's block
+at T threads and its __launch_bounds__ at B blocks an SM
+(-DTITAN_B8_PLAIN_THREADS=T -DTITAN_B8_PLAIN_BLOCKS=B), so one call
+compares B8's block shapes in turns.  Each run then times on
 the card (CUDA events, median of 5): chip_smoke.py's 43^3 bench scene
 through fused_chunk (2,000 steps from rest, then a 5,000-step chunk) and
 the fused adjoint's backward over a 20-step trace from there; its 100^3
 stress scene through the tiled chunk (one launch per step, 200 steps; and
 320 steps as 20 resident-grid launches) and the tiled adjoint's backward
-over a 16-step trace, per-step launches (B7) and one resident-grid launch
-(B8), the RK2 chunk (200 steps: 12 resident-grid launches and a tail),
+over a 16-step trace, per-step launches (B7; and under RK2) and one
+resident-grid launch (B8), the RK2 chunk (200 steps: 12 resident-grid
+launches and a tail),
 the fused adjoint's trace replay at 43^3 (20 steps) and the tiled
 adjoint's replay at 100^3 (one resident-grid launch of 16 steps), and
 each replay kernel's device time per launch (torch.profiler over 200
-steps at 43^3 and four 16-step launches at 100^3).
+steps at 43^3 and four 16-step launches at 100^3) and each backward
+kernel's (torch.profiler over one call of each backward above).
 Where the checkout's chip_smoke.py has ``local_scene``, also the
 fused backward on its 43^3 local scene (200 steps from rest, then a
 20-step trace) and B7 and B8 on its 100^3 local scene (a 16-step trace
@@ -26,8 +32,10 @@ from t = 0; not with --no-local).  Where it has ``add_links``, also its
 43^3 scene with 1,024 links (the fused step over 5,000 steps after 2,000
 from rest, the fused backward over a 20-step trace) and its 100^3 scene
 with 512 links (per-step launches over 200 steps, B7 over a 16-step
-trace).  Each run ends with one JSON line.  It checks nothing and exits 0
-whatever the times are.
+trace).  Where the checkout has ``adjoint_tiled.bwd_kernel_info``, the
+plain-spring B8's threads, registers, local bytes and blocks an SM too.
+Each run ends with one JSON line.  It checks nothing and exits 0 whatever
+the times are.
 """
 
 import json
@@ -35,19 +43,30 @@ import subprocess
 import sys
 
 REPS = 5
+# the backward kernels whose device time per launch each run reports
+BWD_NAMES = ("bwd_force_kernel", "bwd_spring_kernel", "bwd_mid_kernel",
+               "tiled_megabwd_kernel")
 
 
-def one(root: str, local: bool) -> None:
+def one(spec: str, local: bool) -> None:
     import torch
+    root, _, b8 = spec.partition("@")
     sys.path.insert(0, root)
     import chip_smoke as cs
     import titan_tpu_torch as titan
+    from titan_tpu_torch import _build
     from titan_tpu_torch.ops import (adjoint, adjoint_tiled, fused_step,
                                      tiled_step)
 
+    if b8:
+        threads, blocks = b8.split("x")
+        _build.NVCC_FLAGS += (f"-DTITAN_B8_PLAIN_THREADS={threads}",
+                              f"-DTITAN_B8_PLAIN_BLOCKS={blocks}")
     cs.build_kernels(("fused_step", "adjoint", "tiled_step",
                       "tiled_adjoint"))
-    out = {"root": root}
+    out = {"root": spec}
+    if hasattr(adjoint_tiled, "bwd_kernel_info"):
+        out["b8_plain"] = adjoint_tiled.bwd_kernel_info("B8", True)
 
     def median_ms(fn, steps):
         return sorted(cs.event_ms(fn, steps, reps=1)
@@ -69,6 +88,8 @@ def one(root: str, local: bool) -> None:
     cts = cs.seeded_cotangents(shape.n_masses, trace.device)
     out["fused_bwd_43_us_per_step"] = 1e3 * median_ms(
         lambda k: adjoint.bwd_run(shape, state, trace, *cts), 20)
+    out["fused_bwd_43_device_us_per_launch"] = cs.profile_us(
+        lambda: adjoint.bwd_run(shape, state, trace, *cts), BWD_NAMES)
 
     sim = cs.bench_scene(titan, cs.STRESS_NX)
     sim._T = 0.0
@@ -90,10 +111,14 @@ def one(root: str, local: bool) -> None:
         ["tiled_mega_kernel"]).get("tiled_mega_kernel")
     trace = adjoint_tiled.tiled_trace_run(shape, state, 16, inv)
     cts = cs.seeded_cotangents(shape.n_masses, trace.device)
-    for key, mega in (("b7", False), ("b8", True)):
+    for key, sh, mega in (("b7", shape, False), ("b8", shape, True),
+                          ("rk2_b7", rk2, False)):
         out[f"tiled_bwd_100_{key}_us_per_step"] = 1e3 * median_ms(
             lambda k: adjoint_tiled._tiled_bwd_cuda(
-                shape, state, trace, *cts, inv, mega), 16)
+                sh, state, trace, *cts, inv, mega), 16)
+        out[f"tiled_bwd_100_{key}_device_us_per_launch"] = cs.profile_us(
+            lambda: adjoint_tiled._tiled_bwd_cuda(
+                sh, state, trace, *cts, inv, mega), BWD_NAMES)
     del sim, shape, state, inv, trace, cts
     if hasattr(cs, "add_links"):
         sim = cs.bench_scene(titan)
@@ -108,6 +133,8 @@ def one(root: str, local: bool) -> None:
         cts = cs.seeded_cotangents(shape.n_masses, trace.device)
         out["links_fused_bwd_43_us_per_step"] = 1e3 * median_ms(
             lambda k: adjoint.bwd_run(shape, state, trace, *cts), 20)
+        out["links_fused_bwd_43_device_us_per_launch"] = cs.profile_us(
+            lambda: adjoint.bwd_run(shape, state, trace, *cts), BWD_NAMES)
         del sim, shape, state, trace, cts
         sim = cs.bench_scene(titan, cs.STRESS_NX)
         cs.add_links(sim, cs.REM_STRESS_LINKS)
@@ -122,6 +149,9 @@ def one(root: str, local: bool) -> None:
         out["links_tiled_bwd_100_b7_us_per_step"] = 1e3 * median_ms(
             lambda k: adjoint_tiled._tiled_bwd_cuda(
                 shape, state, trace, *cts, inv, False), 16)
+        out["links_tiled_bwd_100_b7_device_us_per_launch"] = cs.profile_us(
+            lambda: adjoint_tiled._tiled_bwd_cuda(
+                shape, state, trace, *cts, inv, False), BWD_NAMES)
         del sim, shape, state, inv, trace, cts
     if local and hasattr(cs, "local_scene"):
         sim = cs.local_scene(titan, 43)
@@ -133,6 +163,8 @@ def one(root: str, local: bool) -> None:
         cts = cs.seeded_cotangents(shape.n_masses, trace.device)
         out["local_fused_bwd_43_us_per_step"] = 1e3 * median_ms(
             lambda k: adjoint.bwd_run(shape, state, trace, *cts), 20)
+        out["local_fused_bwd_43_device_us_per_launch"] = cs.profile_us(
+            lambda: adjoint.bwd_run(shape, state, trace, *cts), BWD_NAMES)
         del sim, shape, state, trace, cts
         sim = cs.local_scene(titan, cs.STRESS_NX)
         sim._T = 0.0
@@ -145,6 +177,9 @@ def one(root: str, local: bool) -> None:
             out[f"local_tiled_bwd_100_{key}_us_per_step"] = 1e3 * median_ms(
                 lambda k: adjoint_tiled._tiled_bwd_cuda(
                     shape, state, trace, *cts, inv, mega), 16)
+            out[f"local_tiled_bwd_100_{key}_device_us_per_launch"] = \
+                cs.profile_us(lambda: adjoint_tiled._tiled_bwd_cuda(
+                    shape, state, trace, *cts, inv, mega), BWD_NAMES)
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
 
@@ -160,7 +195,9 @@ def main() -> int:
         out = subprocess.run([sys.executable, __file__, "--one", root]
                              + ([] if local else ["--no-local"]),
                              capture_output=True, text=True, timeout=600)
-        print(out.stdout[-1500:] + out.stderr[-1500:], flush=True)
+        lines = out.stdout.strip().splitlines()
+        print((lines[-1] if lines else "") + "\n"
+              + (out.stderr[-1500:] if out.returncode else ""), flush=True)
     return 0
 
 

@@ -44,7 +44,6 @@ import titan_tpu_torch
 from titan_tpu.ops import adjoint as jadj
 from titan_tpu.ops import forces as JF
 from titan_tpu.ops import pallas_step, pallas_tiled
-from titan_tpu.ops.step import build_chunk_fn as jax_chunk_fn
 from titan_tpu.state import SceneShape as JaxShape
 from titan_tpu_torch import diff as tdiff
 from titan_tpu_torch.ops import forces as F
@@ -53,7 +52,7 @@ from titan_tpu_torch.ops import step as tstep
 from titan_tpu_torch.ops.adjoint import adjoint_resident_bytes
 
 from test_torch_simulation import TOL, demo_scene, dtype, positions  # noqa: F401
-from test_torch_step import carry_over
+from test_torch_step import carry_over, jax_chunk_ref
 from test_torch_tiled import _lattice_shape
 
 KINDS = ("plain", "damped", "breathing", "actuated", "fixed", "deleted",
@@ -197,7 +196,7 @@ def test_segment_scatter_matches_jax(x64):
     shape, state = carry_over(jsim)
     assert state.topo.inc_idx.shape[0] != shape.n_masses
     out = tstep.run_eager(tstep.build_step_fn(shape), state, 30)
-    want = jax_chunk_fn(jsim._shape)(jsim._state, jnp.int32(30))
+    want = jax_chunk_ref(jsim._shape, jsim._state, 30)
     n = st.n_masses
     for f in ("pos", "vel", "acc"):
         np.testing.assert_allclose(getattr(out.masses, f).numpy()[:, :n],

@@ -31,12 +31,11 @@ import torch
 import titan_tpu
 import titan_tpu_torch
 from titan_tpu.ops import pallas_tiled
-from titan_tpu.ops.step import build_chunk_fn as jax_chunk_fn
 from titan_tpu_torch.ops import step as tstep
 from titan_tpu_torch.ops import tiled_step
 from titan_tpu_torch.state import SceneShape
 
-from test_torch_step import carry_over
+from test_torch_step import carry_over, jax_chunk_ref
 
 # chip_smoke.py's tiled variants, on a 10 x 6 x 6 lattice (deltas up to 43)
 VARIANTS = {
@@ -147,7 +146,7 @@ def test_tiled_plain_matches_jax_chunk(variant):
         assert shape.stencil_uniform == (True,) * 5
 
     out = tiled_step.tiled_chunk(shape, state, 30)    # CPU: plain version
-    want = jax_chunk_fn(jsim._shape)(jsim._state, jnp.int32(30))
+    want = jax_chunk_ref(jsim._shape, jsim._state, 30)
     assert_like_jax(out, want, jsim._store.n_masses, shape.has_actuated)
     if shape.has_actuated:
         assert not torch.equal(out.stencil.rest, state.stencil.rest), \
@@ -275,7 +274,7 @@ def test_uniform_break_demotes_family_field():
     _, state = carry_over(jsim)
     assert torch.equal(state.stencil.k, tsim._state.stencil.k)
     out = tiled_step.tiled_chunk(shape, state, 30)
-    want = jax_chunk_fn(jsim._shape)(jsim._state, jnp.int32(30))
+    want = jax_chunk_ref(jsim._shape, jsim._state, 30)
     assert_like_jax(out, want, st.n_masses, False)
     for sim in sims:
         sim.stop()

@@ -40,6 +40,19 @@
 // the local block (f0 through the global planes and balls) and the input
 // velocity, running the slots before it again; with a few slots per mass
 // that costs less than storing them.
+//
+// The plain-spring path.  A scene whose springs are plain (no damping,
+// breathing or actuation) and whose k is family-uniform (ops/fused_step.py::
+// takes_plain_spring_path: every main path) takes loops compiled for it in
+// the kernels' PLAIN instantiation, which needs the tiled staging's family
+// scalars and existence bits (TiledBwdArgs): the force phase recomputes
+// the family sum with step_body.cuh::plain_family_sum, and the spring phase
+// transposes it with plain_family_transpose.  k is kscal[f] x bit f of the
+// left endpoint's word, partner indices are clamped into [0, N) and each
+// spring's share is taken only where its partner exists, so that neither
+// loop branches per spring; with no damping the springs add no velocity
+// cotangent and read no partner velocity.  The fused adjoint's backward
+// (BwdChunkArgs, no family scalars) keeps the general body.
 
 #ifndef TITAN_ADJOINT_BODY_CUH_
 #define TITAN_ADJOINT_BODY_CUH_
@@ -118,28 +131,35 @@ __device__ __forceinline__ Slot slot_eval(const A& a, int fi, int l,
 
 // cf + the spring families' (and with REM the remainder springs') force on
 // mass i at (pos, vel).  REM, here and below, compiles the remainder calls
-// in, for a scene with remainder springs (as step_body's).
-template <class A, bool REM>
+// in, for a scene with remainder springs (as step_body's); PLAIN the
+// plain-spring loop, bitwise the general one on such a scene.
+template <class A, bool REM, bool PLAIN>
 __device__ float3 spring_sum(const A& a, int i, const float* pos,
                              const float* vel, float3 p, float3 v, float t,
                              float cidx) {
   const int n = a.n;
-  const float3 zero = make_float3(0.f, 0.f, 0.f);
   float3 f = ld3(a.cforce, i, n);
-  for (int fi = 0; fi < a.nf; ++fi) {
-    const int d = a.deltas[fi];
-    const int j = i + d;
-    if (j >= 0 && j < n) {
-      const Slot q = slot_eval(a, fi, i, p, v, ld3(pos, j, n),
-                               a.has_damping ? ld3(vel, j, n) : zero, t, cidx);
-      f = sub3(f, mul3(q.diff, q.cm * q.inv));
-    }
-    const int l = i - d;
-    if (l >= 0 && l < n) {
-      const Slot q = slot_eval(a, fi, l, ld3(pos, l, n),
-                               a.has_damping ? ld3(vel, l, n) : zero, p, v, t,
-                               cidx);
-      f = add3(f, mul3(q.diff, q.cm * q.inv));
+  if constexpr (PLAIN) {
+    f = titan::plain_family_sum(a.deltas, pos, a.bits, i, n, a.nf, a.fparams,
+                                a.rest, a.fparams + a.nf, p, f);
+  } else {
+    const float3 zero = make_float3(0.f, 0.f, 0.f);
+    for (int fi = 0; fi < a.nf; ++fi) {
+      const int d = a.deltas[fi];
+      const int j = i + d;
+      if (j >= 0 && j < n) {
+        const Slot q = slot_eval(a, fi, i, p, v, ld3(pos, j, n),
+                                 a.has_damping ? ld3(vel, j, n) : zero, t,
+                                 cidx);
+        f = sub3(f, mul3(q.diff, q.cm * q.inv));
+      }
+      const int l = i - d;
+      if (l >= 0 && l < n) {
+        const Slot q = slot_eval(a, fi, l, ld3(pos, l, n),
+                                 a.has_damping ? ld3(vel, l, n) : zero, p, v,
+                                 t, cidx);
+        f = add3(f, mul3(q.diff, q.cm * q.inv));
+      }
     }
   }
   if (REM) {
@@ -405,7 +425,7 @@ __device__ float3 stages_transpose(const A& a, int i, float3 f0, float3 p,
 }
 
 // RK2: the midpoint (pos_h, vel_h) of mass i at step t from trace[t].
-template <class A, bool REM>
+template <class A, bool REM, bool PLAIN>
 __device__ __forceinline__ void bwd_mid_mass(const A& a, const float* pos,
                                              const float* vel, int t, int i) {
   const int n = a.n;
@@ -414,7 +434,8 @@ __device__ __forceinline__ void bwd_mid_mass(const A& a, const float* pos,
   const float3 p = ld3(pos, i, n), v = ld3(vel, i, n);
   float3 v1 = v;    // pass 1's mutated velocity
   const float3 f1 =
-      stages_fwd(a, i, spring_sum<A, REM>(a, i, pos, vel, p, v, tn, cidx), p,
+      stages_fwd(a, i,
+                 spring_sum<A, REM, PLAIN>(a, i, pos, vel, p, v, tn, cidx), p,
                  v1);
   float3 ph, vh;
   titan::rk2_midpoint(p, v1, mul3(f1, a.minv[i]), a.scal[0],
@@ -429,7 +450,7 @@ __device__ __forceinline__ void bwd_mid_mass(const A& a, const float* pos,
 // spring sum to gf[3, N] and the partial carry to gpc / gvc, accumulates
 // the cf, minv and drag gradients of mass i, and (pass != 2) writes the
 // carry's non-spring part.
-template <class A, bool REM>
+template <class A, bool REM, bool PLAIN>
 __device__ __forceinline__ void bwd_force_mass(const A& a, const float* pos,
                                                const float* vel, int t,
                                                int pass, int i, float* gf_out) {
@@ -438,7 +459,8 @@ __device__ __forceinline__ void bwd_force_mass(const A& a, const float* pos,
   const float tn = eval_time(a, t, call);
   const float cidx = eval_cidx(a, t, call);
   const float3 p = ld3(pos, i, n), v = ld3(vel, i, n);
-  const float3 f0 = spring_sum<A, REM>(a, i, pos, vel, p, v, tn, cidx);
+  const float3 f0 =
+      spring_sum<A, REM, PLAIN>(a, i, pos, vel, p, v, tn, cidx);
   float3 vf = v;    // the velocity the integrator consumed
   const float3 ff = stages_fwd(a, i, f0, p, vf);
   const float dt = a.scal[0];
@@ -632,10 +654,66 @@ __device__ __forceinline__ RemBar remainder_transpose(
   return out;
 }
 
+// The plain-spring loop's transpose, the spring phase of a scene on the
+// plain-spring path: mass i at p, with force cotangent gfi, from the
+// partial carry gp, per family in family order its own slot (f, i), i to
+// i + d (gp -= dbar, and the slot's k and rest gradients added to gk and
+// grest [F, N]), then its right slot (f, i - d) (gp += dbar).  fbar is gf
+// at the right end less gf at the left.  As plain_family_sum: partner
+// indices clamped into [0, N), k = kscal[f] x bit f of the left endpoint's
+// word, rest from rest_plane where there is one, else rest_scalar[f]; both
+// slots are evaluated and each is taken only where its partner index is in
+// range.  The general body writes gk and grest at every in-range slot,
+// bit or not (k = 0 there), and so does this loop.  Returns gp.
+__device__ __forceinline__ float3 plain_family_transpose(
+    const int* deltas, const float* __restrict__ pos,
+    const int* __restrict__ bits, const float* __restrict__ gf, int i, int n,
+    int nf, const float* kscal, const float* rest_plane,
+    const float* rest_scalar, float3 p, float3 gfi, float3 gp, float* gk,
+    float* grest) {
+  const float3 zero = make_float3(0.f, 0.f, 0.f);
+  const int word = bits[i];
+  for (int fi = 0; fi < nf; ++fi) {
+    const int d = deltas[fi];
+    const bool jin = i + d >= 0 && i + d < n;
+    const bool lin = i - d >= 0 && i - d < n;
+    const int j = jin ? i + d : i;
+    const int l = lin ? i - d : i;
+    const size_t row = static_cast<size_t>(fi) * static_cast<size_t>(n);
+    float rl, rr;
+    if (rest_plane != nullptr) {
+      rl = rest_plane[row + i];
+      rr = rest_plane[row + l];
+    } else {
+      rl = rr = rest_scalar[fi];
+    }
+    const float k = kscal[fi];
+    const float kl = __fmul_rn(k, static_cast<float>((word >> fi) & 1));
+    const float kr = __fmul_rn(k, static_cast<float>((bits[l] >> fi) & 1));
+    const titan::Spring qo =
+        titan::spring_eval(kl, rl, 0, 0.f, p, zero, ld3(pos, j, n), zero);
+    const SpringBar bo = spring_bar(qo, rl, kl, 0, 0.f,
+                                    add3(neg3(gfi), ld3(gf, j, n)), zero,
+                                    zero);
+    const titan::Spring qr =
+        titan::spring_eval(kr, rr, 0, 0.f, ld3(pos, l, n), zero, p, zero);
+    const SpringBar br = spring_bar(qr, rr, kr, 0, 0.f,
+                                    add3(neg3(ld3(gf, l, n)), gfi), zero,
+                                    zero);
+    if (jin) {
+      gp = sub3(gp, bo.dbar);
+      gk[row + i] += bo.gk;
+      grest[row + i] += bo.grest;
+    }
+    if (lin) gp = add3(gp, br.dbar);
+  }
+  return gp;
+}
+
 // Phase B of mass i at (pos, vel): the spring families' transpose, with
 // both incident springs of each family gathered and gf read from the
-// phase-A output `gf_in`, then the carry.
-template <class A, bool REM>
+// phase-A output `gf_in` (PLAIN: plain_family_transpose), then the carry.
+template <class A, bool REM, bool PLAIN>
 __device__ __forceinline__ void bwd_spring_mass(const A& a, const float* pos,
                                                 const float* vel, int t,
                                                 int pass, int i,
@@ -649,26 +727,36 @@ __device__ __forceinline__ void bwd_spring_mass(const A& a, const float* pos,
   const float3 gfi = ld3(gf_in, i, n);
   float3 gp = ld3(a.gpc, i, n);
   float3 gv = ld3(a.gvc, i, n);
-  for (int fi = 0; fi < a.nf; ++fi) {
-    const int d = a.deltas[fi];
-    float3 dbar, adiff;
-    const int j = i + d;     // left spring: slot (fi, i), owned here
-    if (j >= 0 && j < n) {
-      const float3 vj = a.has_damping ? ld3(vel, j, n) : zero;
-      const Slot q = slot_eval(a, fi, i, p, v, ld3(pos, j, n), vj, tn, cidx);
-      const float3 fbar = add3(neg3(gfi), ld3(gf_in, j, n));
-      slot_transpose(a, fi, i, q, fbar, v, vj, tn, true, dbar, adiff);
-      gv = add3(gv, adiff);
-      gp = sub3(gp, dbar);
-    }
-    const int l = i - d;     // right spring: slot (fi, l)
-    if (l >= 0 && l < n) {
-      const float3 vl = a.has_damping ? ld3(vel, l, n) : zero;
-      const Slot q = slot_eval(a, fi, l, ld3(pos, l, n), vl, p, v, tn, cidx);
-      const float3 fbar = add3(neg3(ld3(gf_in, l, n)), gfi);
-      slot_transpose(a, fi, l, q, fbar, vl, v, tn, false, dbar, adiff);
-      gv = add3(gv, neg3(adiff));
-      gp = add3(gp, dbar);
+  if constexpr (PLAIN) {
+    static_cast<void>(zero);    // no damping: no velocity is read
+    static_cast<void>(v);
+    gp = plain_family_transpose(a.deltas, pos, a.bits, gf_in, i, n, a.nf,
+                                a.fparams, a.rest, a.fparams + a.nf, p, gfi,
+                                gp, a.gk, a.grest);
+  } else {
+    for (int fi = 0; fi < a.nf; ++fi) {
+      const int d = a.deltas[fi];
+      float3 dbar, adiff;
+      const int j = i + d;     // left spring: slot (fi, i), owned here
+      if (j >= 0 && j < n) {
+        const float3 vj = a.has_damping ? ld3(vel, j, n) : zero;
+        const Slot q = slot_eval(a, fi, i, p, v, ld3(pos, j, n), vj, tn,
+                                 cidx);
+        const float3 fbar = add3(neg3(gfi), ld3(gf_in, j, n));
+        slot_transpose(a, fi, i, q, fbar, v, vj, tn, true, dbar, adiff);
+        gv = add3(gv, adiff);
+        gp = sub3(gp, dbar);
+      }
+      const int l = i - d;     // right spring: slot (fi, l)
+      if (l >= 0 && l < n) {
+        const float3 vl = a.has_damping ? ld3(vel, l, n) : zero;
+        const Slot q = slot_eval(a, fi, l, ld3(pos, l, n), vl, p, v, tn,
+                                 cidx);
+        const float3 fbar = add3(neg3(ld3(gf_in, l, n)), gfi);
+        slot_transpose(a, fi, l, q, fbar, vl, v, tn, false, dbar, adiff);
+        gv = add3(gv, neg3(adiff));
+        gp = add3(gp, dbar);
+      }
     }
   }
   if (REM) {
@@ -686,24 +774,26 @@ __device__ __forceinline__ void bwd_spring_mass(const A& a, const float* pos,
   }
 }
 
-// One launch of a phase, one thread per mass.
-template <class A, bool REM>
+// One launch of a phase, one thread per mass, kBwdThreads a block.
+constexpr int kBwdThreads = 256;
+
+template <class A, bool REM, bool PLAIN>
 __global__ void bwd_mid_kernel(A a, const float* pos, const float* vel,
                                int t) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n) bwd_mid_mass<A, REM>(a, pos, vel, t, i);
+  if (i < a.n) bwd_mid_mass<A, REM, PLAIN>(a, pos, vel, t, i);
 }
-template <class A, bool REM>
+template <class A, bool REM, bool PLAIN>
 __global__ void bwd_force_kernel(A a, const float* pos, const float* vel,
                                  int t, int pass) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n) bwd_force_mass<A, REM>(a, pos, vel, t, pass, i, a.gf);
+  if (i < a.n) bwd_force_mass<A, REM, PLAIN>(a, pos, vel, t, pass, i, a.gf);
 }
-template <class A, bool REM>
+template <class A, bool REM, bool PLAIN>
 __global__ void bwd_spring_kernel(A a, const float* pos, const float* vel,
                                   int t, int pass) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.n) bwd_spring_mass<A, REM>(a, pos, vel, t, pass, i, a.gf);
+  if (i < a.n) bwd_spring_mass<A, REM, PLAIN>(a, pos, vel, t, pass, i, a.gf);
 }
 
 // Set the carry to the incoming cotangents and zero every gradient
@@ -751,19 +841,19 @@ int bwd_prologue(const A* c, cudaStream_t st) {
 enum Part { kAll = 0, kRk2b = 1, kRk2a = 2 };
 
 // The launches of reversed step t on `st`: two (five for RK2), with or
-// without the remainder calls.  A trace entry holds c->np rows: pos, vel
-// and, for a magnet scene (np 9, 12 under RK2: the layout of
-// ops/fused_step.py::trace_rows), each force pass's constant
-// force (const_f + that pass's magnet field), which replaces c->cforce
-// for the pass.  With c->mag set, each pass's spring phase is followed by
-// the pairwise field's transpose at that pass's positions
-// (magnets_adjoint.cuh), which reads the pass's force cotangent gf and
-// adds to the pass's position cotangent: the carry gpos, or gpc at the
-// RK2 midpoint (before pass 1 reads it).  Returns 0 or the first error.
-template <class A, bool REM>
+// without the remainder calls, on the plain-spring path (PLAIN) or not.
+// A trace entry holds c->np rows: pos, vel and, for a magnet scene (np 9,
+// 12 under RK2: the layout of ops/fused_step.py::trace_rows), each force
+// pass's constant force (const_f + that pass's magnet field), which
+// replaces c->cforce for the pass.  With c->mag set, each pass's spring
+// phase is followed by the pairwise field's transpose at that pass's
+// positions (magnets_adjoint.cuh), which reads the pass's force cotangent
+// gf and adds to the pass's position cotangent: the carry gpos, or gpc at
+// the RK2 midpoint (before pass 1 reads it).  Returns 0 or the first error.
+template <class A, bool REM, bool PLAIN>
 int enqueue_reversed(const A* c, int t, int part, cudaStream_t st) {
   const size_t n = static_cast<size_t>(c->n);
-  const int threads = 256;
+  const int threads = kBwdThreads;
   const int blocks = (c->n + threads - 1) / threads;
   const float* entry = c->trace + static_cast<size_t>(t) * c->np * n;
   const float* pos = entry;
@@ -778,29 +868,28 @@ int enqueue_reversed(const A* c, int t, int part, cudaStream_t st) {
                                                st);
     }
   };
+  const auto mid = bwd_mid_kernel<A, REM, PLAIN>;
+  const auto force = bwd_force_kernel<A, REM, PLAIN>;
+  const auto spring = bwd_spring_kernel<A, REM, PLAIN>;
   if (c->integrator == 2) {
     if (part != kRk2a) {
-      bwd_mid_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t);
+      mid<<<blocks, threads, 0, st>>>(a, pos, vel, t);
       A a2 = a;
       if (c->np > 6) a2.cforce = entry + 9 * n;
-      bwd_force_kernel<A, REM><<<blocks, threads, 0, st>>>(a2, c->pos_h,
-                                                           c->vel_h, t, 2);
-      bwd_spring_kernel<A, REM><<<blocks, threads, 0, st>>>(a2, c->pos_h,
-                                                            c->vel_h, t, 2);
+      force<<<blocks, threads, 0, st>>>(a2, c->pos_h, c->vel_h, t, 2);
+      spring<<<blocks, threads, 0, st>>>(a2, c->pos_h, c->vel_h, t, 2);
       err = cudaGetLastError();
       mag_t(c->pos_h, c->gpc);
     }
     if (part != kRk2b && err == cudaSuccess) {
-      bwd_force_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t,
-                                                           1);
-      bwd_spring_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t,
-                                                            1);
+      force<<<blocks, threads, 0, st>>>(a, pos, vel, t, 1);
+      spring<<<blocks, threads, 0, st>>>(a, pos, vel, t, 1);
       err = cudaGetLastError();
       mag_t(pos, c->gpos);
     }
   } else {
-    bwd_force_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t, 0);
-    bwd_spring_kernel<A, REM><<<blocks, threads, 0, st>>>(a, pos, vel, t, 0);
+    force<<<blocks, threads, 0, st>>>(a, pos, vel, t, 0);
+    spring<<<blocks, threads, 0, st>>>(a, pos, vel, t, 0);
     err = cudaGetLastError();
     mag_t(pos, c->gpos);
   }
@@ -809,10 +898,10 @@ int enqueue_reversed(const A* c, int t, int part, cudaStream_t st) {
 
 // The reverse sweep's launches on `st`: enqueue_reversed for each step
 // from the last.  Returns 0 or the first CUDA error.
-template <class A, bool REM>
+template <class A, bool REM, bool PLAIN>
 int enqueue_sweep(const A* c, cudaStream_t st) {
   for (int t = c->seg - 1; t >= 0; --t) {
-    const int rc = enqueue_reversed<A, REM>(c, t, kAll, st);
+    const int rc = enqueue_reversed<A, REM, PLAIN>(c, t, kAll, st);
     if (rc != 0) return rc;
   }
   return 0;
@@ -820,27 +909,29 @@ int enqueue_sweep(const A* c, cudaStream_t st) {
 
 // One part of reversed step t (Part) on `stream`, the sweep's prologue
 // already run (bwd_prologue).  Returns 0 or the first CUDA error.
-template <class A>
+template <class A, bool PLAIN = false>
 int enqueue_part(const A* c, int t, int part, void* stream) {
   cudaError_t err = cudaSetDevice(c->device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return c->rem.inc != nullptr ? enqueue_reversed<A, true>(c, t, part, st)
-                               : enqueue_reversed<A, false>(c, t, part, st);
+  return c->rem.inc != nullptr
+             ? enqueue_reversed<A, true, PLAIN>(c, t, part, st)
+             : enqueue_reversed<A, false, PLAIN>(c, t, part, st);
 }
 
 // Enqueue the reverse sweep over the trace ([seg, np, N]) on `stream`: two
 // launches per step (five for RK2), and with c->mag one transpose per force
-// pass.  Returns 0 or the first CUDA error.
-template <class A>
+// pass; PLAIN: the plain-spring path's kernels.  Returns 0 or the first
+// CUDA error.
+template <class A, bool PLAIN = false>
 int enqueue_bwd(const A* c, void* stream) {
   cudaError_t err = cudaSetDevice(c->device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc = bwd_prologue(c, st);
   if (rc != 0) return rc;
-  return c->rem.inc != nullptr ? enqueue_sweep<A, true>(c, st)
-                               : enqueue_sweep<A, false>(c, st);
+  return c->rem.inc != nullptr ? enqueue_sweep<A, true, PLAIN>(c, st)
+                               : enqueue_sweep<A, false, PLAIN>(c, st);
 }
 
 }  // namespace titan_adj

@@ -75,6 +75,18 @@
 // and B) is enough.  (The TPU kernel's parity buffers hold the carry,
 // because its tiles read their neighbours' carry through halo windows.)
 //
+// The plain-spring path.  A scene whose springs are plain and whose k is
+// family-uniform (TiledBwdArgs::plain_springs, set from
+// ops/fused_step.py::takes_plain_spring_path: every main path) runs both
+// phases in loops compiled for it (adjoint_body.cuh: plain_family_sum,
+// plain_family_transpose): no per-spring branch on the scene's features,
+// on the partner's bounds or on a null k plane.  B7 takes them in its
+// <TiledBwdArgs, REM, true> kernels, B8 in tiled_megabwd_kernel<true>,
+// which also gets a block and a register cap of its own
+// (kBwdPlainThreads, kBwdPlainBlocks): the general instantiation holds
+// both phases' registers at once (108 a thread, two blocks of 256 an SM),
+// fewer warps than each of B7's two kernels keeps.
+//
 // Bound.  A reversed step reads the trace entry (24 B per mass), the
 // carry (36 B) and the invariants (the existence mask, the [F, N] rest
 // plane at 100^3, const force, inverse mass, frozen mask) and writes the
@@ -83,8 +95,13 @@
 // bytes are); the arithmetic is the force recompute (22 operations per
 // spring, 25 per mass) and its transpose (40 per spring, 45 per mass),
 // with each spring evaluated at both endpoints in both phases.  Like the
-// forward kernels it is bound in practice by each thread's chain of
-// gathers.
+// forward kernels it is bound in practice by the instructions it executes
+// (IEEE sqrt and divide, every spring evaluated twice in each phase).  The
+// design's own floor in bytes is higher than that bound counts: the bars
+// of every slot, k and rest [F, N], are read and written in device memory
+// at every reversed step (2 planes x 13 families x 4 B x 2 a mass a step,
+// ~208 MB a step at 100^3, ~62 us at 3.35 TB/s); a thread owns too many
+// masses (1M over the co-resident threads) to hold them in registers.
 //
 // Rounding.  Built with -fmad=false and without --use_fast_math.
 // Euler/Verlet: the same operations in the same order as the plain
@@ -150,6 +167,8 @@ struct TiledBwdArgs {
   float* gmag;              // [4, N] magnet parameter gradients (with mag)
   titan::LocalSlots local;  // per-mass local-constraint slots
   titan::Remainder rem;     // remainder springs (rest_src: the segment's)
+  int plain_springs;        // 1: the plain-spring path (bits carry k; no
+                            // damping, breathing or actuation)
 
   // per-slot parameter reads of csrc/adjoint_body.cuh, as
   // csrc/tiled_body.cuh::tiled_spring reads them
@@ -168,12 +187,29 @@ struct TiledBwdArgs {
   }
 };
 
+// B8's block on the plain-spring path and the blocks an SM its
+// __launch_bounds__ asks for, chosen on an H100 (PERF.md section 6);
+// scripts/cuda_bwd_plain_ab.py builds the other shapes it tried with -D.
+#ifndef TITAN_B8_PLAIN_THREADS
+#define TITAN_B8_PLAIN_THREADS 512
+#endif
+#ifndef TITAN_B8_PLAIN_BLOCKS
+#define TITAN_B8_PLAIN_BLOCKS 2
+#endif
+
 namespace {
 
+using titan_tiled::kThreads;
+constexpr int kBwdPlainThreads = TITAN_B8_PLAIN_THREADS;
+constexpr int kBwdPlainBlocks = TITAN_B8_PLAIN_BLOCKS;
+
 // B8: all a.seg reversed Euler or Verlet steps of a segment, gf in the
-// parity buffers gf0 (even steps) and gf1 (odd steps).
-__global__ void tiled_megabwd_kernel(TiledBwdArgs a, float* gf0,
-                                     float* gf1) {
+// parity buffers gf0 (even steps) and gf1 (odd steps); PLAIN: the
+// plain-spring path.
+template <bool PLAIN>
+__global__ void __launch_bounds__(PLAIN ? kBwdPlainThreads : kThreads,
+                                  PLAIN ? kBwdPlainBlocks : 1)
+    tiled_megabwd_kernel(TiledBwdArgs a, float* gf0, float* gf1) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int stride = gridDim.x * blockDim.x;
   const size_t n = static_cast<size_t>(a.n);
@@ -182,32 +218,96 @@ __global__ void tiled_megabwd_kernel(TiledBwdArgs a, float* gf0,
     const float* vel = pos + 3 * n;
     float* gf = (t & 1) ? gf1 : gf0;
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
-      titan_adj::bwd_force_mass<TiledBwdArgs, false>(a, pos, vel, t, 0, i,
-                                                     gf);
+      titan_adj::bwd_force_mass<TiledBwdArgs, false, PLAIN>(a, pos, vel, t, 0,
+                                                            i, gf);
     }
     grid.sync();
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
-      titan_adj::bwd_spring_mass<TiledBwdArgs, false>(a, pos, vel, t, 0, i,
-                                                      gf);
+      titan_adj::bwd_spring_mass<TiledBwdArgs, false, PLAIN>(a, pos, vel, t,
+                                                             0, i, gf);
     }
   }
 }
 
+// B8's kernel and block size, on the plain-spring path or not: what its
+// launch and its co-resident limit both use.
+const void* b8_entry(bool plain) {
+  return plain ? reinterpret_cast<const void*>(tiled_megabwd_kernel<true>)
+               : reinterpret_cast<const void*>(tiled_megabwd_kernel<false>);
+}
+int b8_threads(bool plain) { return plain ? kBwdPlainThreads : kThreads; }
+
+// B7's force (which 1), spring (2) or RK2 midpoint (3) kernel.
+template <bool REM, bool PLAIN>
+const void* b7_entry(int which) {
+  if (which == 1) {
+    return reinterpret_cast<const void*>(
+        titan_adj::bwd_force_kernel<TiledBwdArgs, REM, PLAIN>);
+  }
+  if (which == 2) {
+    return reinterpret_cast<const void*>(
+        titan_adj::bwd_spring_kernel<TiledBwdArgs, REM, PLAIN>);
+  }
+  return reinterpret_cast<const void*>(
+      titan_adj::bwd_mid_kernel<TiledBwdArgs, REM, PLAIN>);
+}
+
+// The plain-spring path reads k from the existence bits.
+bool plain_ok(const TiledBwdArgs* c) {
+  return !c->plain_springs || c->bits != nullptr;
+}
+
 }  // namespace
 
-using titan_tiled::kThreads;
-
 // The co-resident block limit on `device` of the trace replay's
-// resident-grid kernel for `integrator` (kind 0) or of B8 (kind 1), or a
+// resident-grid kernel for `integrator` (kind 0) or of B8 (kind 1; with
+// `plain` its plain-spring instantiation at its own block size), or a
 // negated cudaError_t.
 extern "C" int titan_tiled_adjoint_coop_blocks(int kind, int integrator,
-                                               int device) {
+                                               int plain, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  const void* entry =
-      kind == 0 ? titan_tiled::mega_entry<false, true>(integrator)
-                : reinterpret_cast<void*>(tiled_megabwd_kernel);
-  return titan_tiled::coop_blocks_of(entry, kThreads, device);
+  if (kind == 0) {
+    return titan_tiled::coop_blocks_of(
+        titan_tiled::mega_entry<false, true>(integrator), kThreads, device);
+  }
+  return titan_tiled::coop_blocks_of(b8_entry(plain != 0),
+                                     b8_threads(plain != 0), device);
+}
+
+// What one B7 or B8 kernel launches with: out[0] threads a block, out[1]
+// registers a thread, out[2] local-memory bytes a thread (spills), out[3]
+// co-resident blocks an SM.  which: 0 B8, 1 B7's force kernel, 2 its
+// spring kernel, 3 its RK2 midpoint kernel; plain: the plain-spring
+// instantiation; rem: B7's remainder instantiation.  Returns 0 or a CUDA
+// error.
+extern "C" int titan_tiled_bwd_kernel_info(int which, int plain, int rem,
+                                           int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* entry;
+  int threads = titan_adj::kBwdThreads;
+  if (which == 0) {
+    entry = b8_entry(plain != 0);
+    threads = b8_threads(plain != 0);
+  } else if (plain) {
+    entry = rem ? b7_entry<true, true>(which) : b7_entry<false, true>(which);
+  } else {
+    entry = rem ? b7_entry<true, false>(which) : b7_entry<false, false>(which);
+  }
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, entry)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, entry, threads,
+                                                      0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = threads;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = per_sm;
+  return 0;
 }
 
 // B6: enqueue the replay of c->n_steps steps on `stream`, writing step
@@ -220,27 +320,34 @@ extern "C" int titan_tiled_trace(const TiledChunk* c, float* trace,
 
 // B7 (mega = 0): the reverse sweep over the trace, two launches per step
 // (five for RK2).  B8 (mega = 1, Euler or Verlet): the same sweep in one
-// cooperative launch, gf alternating between c->gf and gf_odd.  Returns 0
-// or the first CUDA error.
+// cooperative launch, gf alternating between c->gf and gf_odd.  Either
+// takes the plain-spring path's kernels where c->plain_springs is set.
+// Returns 0 or the first CUDA error.
 extern "C" int titan_tiled_bwd(const TiledBwdArgs* c, int mega, float* gf_odd,
                                void* stream) {
-  if (!mega) return titan_adj::enqueue_bwd(c, stream);
+  if (!plain_ok(c)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool plain = c->plain_springs != 0;
+  if (!mega) {
+    return plain ? titan_adj::enqueue_bwd<TiledBwdArgs, true>(c, stream)
+                 : titan_adj::enqueue_bwd<TiledBwdArgs, false>(c, stream);
+  }
   if (c->integrator == 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(c->device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc = titan_adj::bwd_prologue(c, st);
   if (rc != 0) return rc;
-  void* entry = reinterpret_cast<void*>(tiled_megabwd_kernel);
-  const int limit = titan_tiled::coop_blocks_of(entry, kThreads, c->device);
+  const void* entry = b8_entry(plain);
+  const int threads = b8_threads(plain);
+  const int limit = titan_tiled::coop_blocks_of(entry, threads, c->device);
   if (limit <= 0) return limit < 0 ? -limit : cudaErrorNotSupported;
-  const int want = (c->n + kThreads - 1) / kThreads;
+  const int want = (c->n + threads - 1) / threads;
   const int blocks = want < limit ? want : limit;
   TiledBwdArgs args = *c;
   float* gf0 = c->gf;
   float* gf1 = gf_odd;
   void* params[] = {&args, &gf0, &gf1};
-  err = cudaLaunchCooperativeKernel(entry, dim3(blocks), dim3(kThreads),
+  err = cudaLaunchCooperativeKernel(entry, dim3(blocks), dim3(threads),
                                     params, 0, st);
   return static_cast<int>(err);
 }
@@ -266,5 +373,9 @@ extern "C" int titan_tiled_bwd_begin(const TiledBwdArgs* c, void* stream) {
 
 extern "C" int titan_tiled_bwd_part(const TiledBwdArgs* c, int t, int part,
                                     void* stream) {
-  return titan_adj::enqueue_part(c, t, part, stream);
+  if (!plain_ok(c)) return static_cast<int>(cudaErrorInvalidValue);
+  return c->plain_springs
+             ? titan_adj::enqueue_part<TiledBwdArgs, true>(c, t, part, stream)
+             : titan_adj::enqueue_part<TiledBwdArgs, false>(c, t, part,
+                                                            stream);
 }

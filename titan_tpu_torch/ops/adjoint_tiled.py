@@ -59,6 +59,12 @@ sweep; on a binned one autograd through the binned pass
 between B7's parts, rk2b, the midpoint's vjp, then rk2a under RK2
 (``_glue_sweep``).  Glue scenes take no resident grid here either.
 
+The backward of a scene whose springs are plain and whose k is
+family-uniform (``fused_step.takes_plain_spring_path``: every main path)
+runs loops compiled for it, in B7 and B8 alike (``_TiledBwdArgs.
+plain_springs``; ``csrc/adjoint_body.cuh::plain_family_transpose``), with
+B8 at a block size of its own (``bwd_kernel_info``).
+
 Envelope (``tiled_adjoint_reject_reason``): the tiled step's, local
 constraints, remainder springs and magnets included.
 """
@@ -77,7 +83,8 @@ from .adjoint import (LEAVES, assemble_ct, leaves_of, magnet_args,
                       rem_bars, segment_outputs, state_from_outputs,
                       sweep_plain, trace_rows, with_leaves)
 from .fused_step import (_LocalSlots, _Remainder, _checked, local_struct,
-                         magnet_field_fn, remainder_struct)
+                         magnet_field_fn, remainder_struct,
+                         takes_plain_spring_path)
 from .magnets import binned_field_vjp, pairwise_params
 from .step import local_caps
 from .tiled_step import (_INTEGRATOR_CODE, _MAX_FAMILIES, _TiledChunk,
@@ -262,7 +269,8 @@ class _TiledBwdArgs(ctypes.Structure):
             "gacc_in", "gpos", "gvel", "gacc", "gk", "grest", "gdamp",
             "gomega", "garate", "gcf", "gminv", "gdrag", "gf", "gpc", "gvc",
             "pos_h", "vel_h", "grem", "mag", "gmag")]
-        + [("local", _LocalSlots), ("rem", _Remainder)])
+        + [("local", _LocalSlots), ("rem", _Remainder),
+           ("plain_springs", ctypes.c_int)])
 
 
 def _lib():
@@ -275,8 +283,11 @@ def _lib():
                                     ctypes.c_int, ctypes.c_void_p,
                                     ctypes.c_void_p]
     lib.titan_tiled_bwd.restype = ctypes.c_int
-    lib.titan_tiled_adjoint_coop_blocks.argtypes = [ctypes.c_int] * 3
+    lib.titan_tiled_adjoint_coop_blocks.argtypes = [ctypes.c_int] * 4
     lib.titan_tiled_adjoint_coop_blocks.restype = ctypes.c_int
+    lib.titan_tiled_bwd_kernel_info.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.titan_tiled_bwd_kernel_info.restype = ctypes.c_int
     lib.titan_tiled_trace_pass.argtypes = [ctypes.POINTER(_TiledChunk),
                                            ctypes.POINTER(_TiledPass),
                                            ctypes.c_void_p]
@@ -291,18 +302,44 @@ def _lib():
     return lib
 
 
-def coop_blocks(kind: str, integrator: Integrator, device=None) -> int:
+def coop_blocks(kind: str, integrator: Integrator, device=None,
+                plain: bool = False) -> int:
     """The co-resident block limit (the largest cooperative grid) of the
     trace replay's resident-grid kernel (``kind="trace"``) or of the
-    resident-grid backward (``kind="bwd"``) for ``integrator``."""
+    resident-grid backward (``kind="bwd"``; ``plain``: its plain-spring
+    instantiation, at its own block size) for ``integrator``."""
     dev = torch.device("cuda", device if device is not None
                        else torch.cuda.current_device())
     got = _lib().titan_tiled_adjoint_coop_blocks(
-        {"trace": 0, "bwd": 1}[kind], _INTEGRATOR_CODE[integrator], dev.index)
+        {"trace": 0, "bwd": 1}[kind], _INTEGRATOR_CODE[integrator],
+        int(plain), dev.index)
     if got <= 0:
         raise RuntimeError(f"tiled_adjoint: cooperative launch unavailable "
                            f"on {dev} (CUDA error {-got})")
     return got
+
+
+#: the backward kernels ``bwd_kernel_info`` reports on
+BWD_KERNELS = ("B8", "force", "spring", "mid")
+
+
+def bwd_kernel_info(kernel: str, plain: bool, rem: bool = False,
+                    device=None) -> dict:
+    """What one backward kernel launches with: threads a block, registers
+    a thread, local-memory bytes a thread (spills) and co-resident blocks
+    an SM, of B8 (``kernel="B8"``) or of B7's ``"force"``, ``"spring"`` or
+    RK2 ``"mid"`` kernel, on the plain-spring path (``plain``) or the
+    general body, with B7's remainder calls (``rem``)."""
+    dev = torch.device("cuda", device if device is not None
+                       else torch.cuda.current_device())
+    out = (ctypes.c_int * 4)()
+    rc = _lib().titan_tiled_bwd_kernel_info(BWD_KERNELS.index(kernel),
+                                            int(plain), int(rem), dev.index,
+                                            out)
+    if rc != 0:
+        raise RuntimeError(f"tiled_adjoint bwd_kernel_info: CUDA error {rc}")
+    return dict(zip(("threads", "registers", "local_bytes", "blocks_per_sm"),
+                    out))
 
 
 def _device_index(dev: torch.device) -> int:
@@ -447,6 +484,8 @@ def _tiled_bwd_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
                                             for t in scratch[:5])
     a.local = local_struct(shape, inv, kern)
     a.rem = remainder_struct(shape, inv, kern, closed=True)
+    plain = takes_plain_spring_path(shape)
+    a.plain_springs = int(plain)
     grem, rem_g = rem_bars(shape, empty)
     if grem is not None:
         a.grem = grem.data_ptr()
@@ -467,10 +506,13 @@ def _tiled_bwd_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
         if shape.has_magnets:
             tiled_bwd_run.mag_launches += seg * passes
     del scratch, keep   # freed on this stream: reused only by later work
+    launches = 1 if mega else seg * (5 if passes == 2 else 2)
     if mega:
-        tiled_bwd_run.mega_launches += 1
+        tiled_bwd_run.mega_launches += launches
     else:
-        tiled_bwd_run.step_launches += seg * (5 if passes == 2 else 2)
+        tiled_bwd_run.step_launches += launches
+    if plain:
+        tiled_bwd_run.plain_launches += launches
     g["pair_ok"] = inv["pair_ok"]
     return g
 
@@ -519,9 +561,10 @@ def tiled_bwd_run(shape: SceneShape, state: SimState, trace, gpos, gvel,
     RK2 (B7); ``tiled_bwd_run_plain`` for state on the CPU (the same keys).
     ``inv`` is ``prep_tiled_inputs(shape, state)`` where the caller has it.
     ``tiled_bwd_run.mega_launches`` counts B8's launches,
-    ``.step_launches`` B7's (two per step, five for RK2), ``.mag_launches``
-    the magnet transpose's inside B7 (B5, one per force pass of an unbinned
-    magnet scene)."""
+    ``.step_launches`` B7's (two per step, five for RK2), ``.plain_launches``
+    those of either that ran the plain-spring loop (a scene on
+    ``takes_plain_spring_path``), ``.mag_launches`` the magnet transpose's
+    inside B7 (B5, one per force pass of an unbinned magnet scene)."""
     dev = state.masses.pos.device
     if dev.type == "cpu":
         return tiled_bwd_run_plain(shape, state, trace, gpos, gvel, gacc,
@@ -537,6 +580,7 @@ def tiled_bwd_run(shape: SceneShape, state: SimState, trace, gpos, gvel,
 
 tiled_bwd_run.mega_launches = 0
 tiled_bwd_run.step_launches = 0
+tiled_bwd_run.plain_launches = 0
 tiled_bwd_run.mag_launches = 0
 
 

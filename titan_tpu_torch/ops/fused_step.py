@@ -479,9 +479,11 @@ class _ChunkArgs(ctypes.Structure):
 def takes_plain_spring_path(shape: SceneShape) -> bool:
     """Whether the fused step and the Euler / Verlet resident grid sum
     this scene's families with their plain-spring loop
-    (``csrc/step_body.cuh::plain_family_sum``): stencil families whose
-    springs are plain (no damping, breathing or actuation) and whose k
-    rides the existence bits (``k_rides_bits``).  Other scenes take the
+    (``csrc/step_body.cuh::plain_family_sum``), and the tiled adjoint's
+    backward kernels (B7, B8) transpose them with theirs
+    (``csrc/adjoint_body.cuh::plain_family_transpose``): stencil families
+    whose springs are plain (no damping, breathing or actuation) and whose
+    k rides the existence bits (``k_rides_bits``).  Other scenes take the
     kernels' general body."""
     return bool(shape.stencil_deltas) and k_rides_bits(shape) and not (
         shape.has_damping or shape.has_breathing or shape.has_actuated)
