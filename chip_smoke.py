@@ -98,19 +98,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bitwise, on 12 scenes of 12,000 masses whose family offsets span more
      than a block (Euler with and without the clamp, Verlet, RK2, damping
      with friction, actuated, breathing, drag, a ball, non-uniform k,
-     non-uniform rest, deleted masses), and a resident-grid segment (16
-     steps) and two plus a tail (37) bitwise against per-step launches;
+     non-uniform rest, deleted masses), through the resident grids and
+     their tail and through per-step launches only, and a resident-grid
+     segment (16 steps) and two plus a tail (37) bitwise against per-step
+     launches.  Every launch must take the scene's path
+     (tiled_chunk.plain_launches, check_step_path): the damped, actuated,
+     breathing and non-uniform-k scenes the general body, the others the
+     plain-spring loop, on every kernel but the forward RK2 grid;
   o. the 100^3 stress config (bench.py with TITAN_BENCH_NX=100: 1,000,000
-     masses, 12,731,796 springs) through Simulation (its resident grid's
-     path printed and held as in phase 3), start -> wait ->
+     masses, 12,731,796 springs) through Simulation (the path of its
+     resident grid, per-step kernel and replay printed with each kernel's
+     registers, local bytes and blocks an SM, and held as in phase 3;
+     report_path), start -> wait ->
      getAll -> resume at 4 breakpoints -> stop, every count set to 0 just
      before and read just after: it must take the tiled route, its
      launches must be n // 16 resident-grid and n % 16 per-step launches
-     per chunk of n steps, with no fused launch and no eager step, and the
-     lattice must land.  At the landed pause, one spring's k is multiplied
-     by 10 through Spring.set: the uniform-k flag must clear and the tiled
-     chunk must follow the fused kernel, which reads the dense k.  From
-     the landed state, 200 steps under Euler, RK2 and Verlet against
+     per chunk of n steps, every one before the uniform break below on the
+     plain-spring loop and none after it, with no fused launch and no
+     eager step, and the lattice must land. At the landed pause, one spring's
+     k is multiplied by 10 through Spring.set: the uniform-k flag must clear
+     and the tiled chunk must follow the fused kernel, which reads the dense
+     k. From the landed state, 200 steps under Euler, RK2 and Verlet against
      tiled_chunk_plain (bitwise) with their launches counted, and Euler
      against the fused kernel within TOL_CROSS;
   p. time each integrator's tiled chunk at 100^3 (CUDA events), each
@@ -121,8 +129,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and print the co-resident block limit of its resident-grid kernels
      (the replay's, the backward's general and plain-spring ones);
   r. on the 12 tiled scenes: the trace replay over 37 steps (two
-     resident-grid segments and a tail) bitwise tiled_trace_run_plain and
-     its last entry bitwise the kernel chunk's state; the per-step
+     resident-grid segments and a tail, and per-step launches only)
+     bitwise tiled_trace_run_plain, each launch on the scene's path
+     (tiled_trace_run.plain_launches), and its entries 16 and 36 bitwise
+     the kernel chunk's states; the per-step
      backward on 20 of those entries against tiled_bwd_run_plain, bitwise
      for Euler and Verlet, within TOL_BWD_ELEM per element for RK2; the
      resident-grid backward (Euler, Verlet) bitwise the per-step launches.
@@ -249,6 +259,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      timing;
   z9. every new kernel in the kernels line with its launches, error, time,
      plain time and bound;
+     every gradient path's counts include the forward's and the replay's
+     plain-spring launches (fwd_plain, trace_plain: exactly what the
+     segments and the scene's path give), and every profiled tiled step,
+     grid and replay kernel must be the instantiation of the scene's path
+     (check_profiled_path); the tiled step and replay entries of the
+     kernels line carry "path";
   5. print the kernels line (one entry per kernel and path), the card's
      name and power limit, and last the result line.
 
@@ -507,11 +523,12 @@ def event_ms(fn, steps, reps=3):
     return sorted(times)[len(times) // 2]
 
 
-def profile_device_us(fn, names):
+def profile_device_us(fn, names, keys=None):
     """{kernel: (device us in all, launches)} for each kernel in `names`
     (summed over every profiler key that contains the name) from
     torch.profiler over fn(); a kernel with no device time recorded is
-    left out."""
+    left out.  Each profiler key is appended to the list `keys` where
+    given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -520,6 +537,8 @@ def profile_device_us(fn, names):
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
+        if keys is not None:
+            keys.append(e.key)
         t = getattr(e, "self_device_time_total", 0.0) or 0.0
         for k in names:
             if k in e.key and e.count and t:
@@ -650,9 +669,9 @@ def time_path(name, shape, state):
 
 def print_coop_blocks(titan):
     """The co-resident block limit (the largest cooperative grid) of every
-    resident-grid kernel: the tiled step's, the tiled adjoint replay's and
-    the tiled adjoint's backward (Euler and Verlet; general and
-    plain-spring)."""
+    resident-grid kernel: the tiled step's, the tiled adjoint replay's
+    (general and plain-spring) and the tiled adjoint's backward (Euler and
+    Verlet; general and plain-spring)."""
     from titan_tpu_torch.ops import adjoint_tiled, tiled_step
     for integ in (titan.Integrator.EULER, titan.Integrator.VERLET,
                   titan.Integrator.RK2):
@@ -660,7 +679,10 @@ def print_coop_blocks(titan):
         print(f"tiled resident-grid kernel ({integ.name}): "
               f"{tiled_step.coop_blocks(integ)} co-resident blocks of 256 "
               "threads (the largest cooperative grid); its trace replay "
-              f"{adjoint_tiled.coop_blocks('trace', integ)}"
+              f"{adjoint_tiled.coop_blocks('trace', integ)}, the replay's "
+              "plain-spring instantiation "
+              f"{adjoint_tiled.coop_blocks('trace', integ, plain=True)} of "
+              "512 threads"
               + ("" if integ is titan.Integrator.RK2 else
                  "; resident-grid backward "
                  f"{adjoint_tiled.coop_blocks('bwd', integ)}, its "
@@ -670,32 +692,55 @@ def print_coop_blocks(titan):
 
 
 def report_path(name, shape, route):
-    """Print which family loop the kernel that `route` ("fused" or "mega")
-    runs on `shape` takes (csrc/step_body.cuh::plain_family_sum or the
-    general body), with the plain-spring kernel's registers a thread and
-    co-resident blocks; a lattice main path (13 families) must take the
-    plain-spring loop."""
+    """Print which family loop the kernels that `route` runs on `shape`
+    take (csrc/step_body.cuh::plain_family_sum or the general body), with
+    each kernel's registers a thread and co-resident blocks; "fused": the
+    fused step; "mega": the tiled chunk's resident grid, its per-step
+    kernel (the tail's, and a link or glue scene's every launch) and the
+    replay's grid and per-step kernel.  A lattice main path (13 families)
+    must take the plain-spring loop on each (the forward RK2 grid keeps
+    the general body)."""
     from titan_tpu_torch.ops import fused_step, tiled_step
     plain = fused_step.takes_plain_spring_path(shape)
-    if route == "fused":
-        what = "fused_step_kernel"
-    else:
-        what = f"tiled_mega_kernel ({shape.config.integrator.name})"
     if len(shape.stencil_deltas) == 13:
-        check(plain, f"{name}: {what} does not take the plain-spring loop")
-    if not plain:
-        print(f"path {name}, {what}: the general body")
-        return
+        check(plain, f"{name}: the {route} path does not take the "
+              "plain-spring loop")
+    loop = "the plain-spring loop" if plain else "the general body"
     if route == "fused":
+        if not plain:
+            print(f"path {name}, fused_step_kernel: the general body")
+            return
         regs, per_sm = fused_step.kernel_info(shape.has_remainder)
-        occ = f"{per_sm} co-resident blocks of 128 threads an SM"
-    else:
-        integ = shape.config.integrator
-        regs = tiled_step.mega_regs(integ, plain=True)
-        occ = (f"{tiled_step.coop_blocks(integ, plain=True)} co-resident "
-               "blocks of 512 threads (the cooperative grid)")
-    print(f"path {name}, {what}: the plain-spring loop, {regs} registers a "
-          f"thread, {occ}")
+        print(f"path {name}, fused_step_kernel: the plain-spring loop, "
+              f"{regs} registers a thread, {per_sm} co-resident blocks of "
+              "128 threads an SM")
+        return
+    integ = shape.config.integrator
+    modes = ("rk2a", "rk2b") if integ.name == "RK2" else (
+        integ.name.lower(),)
+    parts = []
+    for trace in (False, True):
+        kinds = [("step", m) for m in modes]
+        if tiled_step.mega_seg(shape):
+            kinds.insert(0, ("grid", integ))
+        for kind, mode in kinds:
+            i = tiled_step.step_kernel_info(kind, mode, plain,
+                                            shape.has_remainder, trace)
+            if kind == "grid":
+                takes = plain and (trace or integ.name != "RK2")
+                what = (("tiled_megark2_kernel" if integ.name == "RK2"
+                         else "tiled_mega_kernel") + " ("
+                        + ("replay" if trace else "forward") + ", "
+                        + ("the plain-spring loop" if takes
+                           else "the general body") + ")")
+            else:
+                what = (f"tiled_step_kernel {mode} ("
+                        + ("replay" if trace else "forward") + ")")
+            parts.append(f"{what} {i['threads']} threads a block, "
+                         f"{i['registers']} registers and {i['local_bytes']}"
+                         f" B of local memory a thread, {i['blocks_per_sm']}"
+                         " blocks an SM")
+    print(f"path {name}, tiled step and replay: {loop}; " + "; ".join(parts))
 
 
 def build_kernels(names):
@@ -1810,14 +1855,17 @@ def tiled_counters():
 
 def zero_tiled_counts():
     tiled, fused, eager = tiled_counters()
-    tiled.mega_launches = tiled.step_launches = 0
+    tiled.mega_launches = tiled.step_launches = tiled.plain_launches = 0
     fused.launches = eager.steps = 0
 
 
 def read_tiled_counts():
+    """The stepping counts; ``plain``: the tiled launches that took the
+    plain-spring loop."""
     tiled, fused, eager = tiled_counters()
     return dict(mega=tiled.mega_launches, step=tiled.step_launches,
-                fused=fused.launches, eager=eager.steps)
+                plain=tiled.plain_launches, fused=fused.launches,
+                eager=eager.steps)
 
 
 class uncounted:
@@ -1831,6 +1879,7 @@ class uncounted:
         tiled, fused, eager = tiled_counters()
         tiled.mega_launches, tiled.step_launches = (self.saved["mega"],
                                                     self.saved["step"])
+        tiled.plain_launches = self.saved["plain"]
         fused.launches, eager.steps = self.saved["fused"], self.saved["eager"]
 
 
@@ -1901,13 +1950,75 @@ def state_diffs(a, b, fields=("pos", "vel", "acc", "T"), rest=False):
     return out, same
 
 
+def launch_counts_of(run):
+    """(resident-grid, per-step, plain-spring) launch counts of
+    tiled_step.tiled_chunk or adjoint_tiled.tiled_trace_run."""
+    return run.mega_launches, run.step_launches, run.plain_launches
+
+
+def check_step_path(label, shape, run, before, trace=False):
+    """The launches `run` (tiled_chunk, or tiled_trace_run with `trace`)
+    made since its counts were `before` (launch_counts_of) must have
+    taken the plain-spring loop as the scene's path gives: every one on
+    the plain path but the forward RK2 grid's, none on the general body
+    (tiled_step.plain_launch_count).  Returns what to print."""
+    from titan_tpu_torch.ops import tiled_step
+    mega, step, took = (a - b for a, b in zip(launch_counts_of(run),
+                                               before))
+    want = tiled_step.plain_launch_count(shape, mega, step, trace)
+    path = spring_path(shape)
+    check(took == want and (want > 0) == (path == "plain"),
+          f"{label}: {took} of {mega + step} {'replay' if trace else 'step'}"
+          f" launches took the plain-spring loop, the {path} path gives "
+          f"{want}")
+    return f"{took} of {mega + step} launches on the plain-spring loop"
+
+
+def check_profiled_path(label, shape, keys):
+    """Each tiled step, grid or replay kernel among the profiler's `keys`
+    must be the instantiation of the scene's path: the plain-spring loop
+    (tiled_step_kernel<MODE, REM, true, TRACE>, tiled_mega_kernel<MODE,
+    true, TRACE>, tiled_megark2_kernel<true, true>: a PLAIN argument
+    before TRACE, true) on the plain path, but in the forward RK2 grid,
+    and the general body (tiled_step_kernel<MODE, REM, TRACE>,
+    tiled_mega_kernel<MODE, false, TRACE>, tiled_megark2_kernel<TRACE>)
+    elsewhere.  Returns the kernels seen."""
+    import re
+    full = {"tiled_step_kernel": 4, "tiled_mega_kernel": 3,
+            "tiled_megark2_kernel": 2}
+    plain = spring_path(shape) == "plain"
+    seen = set()
+    for k in keys:
+        m = re.search(r"(tiled_step_kernel|tiled_mega_kernel|"
+                      r"tiled_megark2_kernel)<([^>]*)>", k)
+        if m is None:
+            continue
+        args = [a.strip() for a in m.group(2).split(",")]
+        took = len(args) == full[m.group(1)] and args[-2] == "true"
+        want = plain and (args[-1] == "true"
+                          or m.group(1) != "tiled_megark2_kernel")
+        check(took == want, f"{label}: {m.group(0)} launched where the "
+              f"{spring_path(shape)} path gives the "
+              + ("plain-spring loop" if want else "general body"))
+        seen.add(m.group(0))
+    return sorted(seen)
+
+
 def tiled_vs_plain(shape, state, steps, label, bad):
     """tiled_chunk (the kernels) against tiled_chunk_plain over `steps`
-    steps, bitwise on pos, vel, acc, T (and rest); appends a failure to
-    `bad`.  Returns the max |d| and the kernels' output."""
+    steps, bitwise on pos, vel, acc, T (and rest), and one launch per step
+    throughout (the per-step kernel alone) likewise; each run's launches
+    must have taken the scene's path (check_step_path).  Appends a failure
+    to `bad`.  Returns the max |d| and the kernels' output."""
     import torch
     from titan_tpu_torch.ops import tiled_step
+    run = tiled_step.tiled_chunk
+    before = launch_counts_of(run)
     got = tiled_step.tiled_chunk(shape, state, steps)
+    took = check_step_path(label, shape, run, before)
+    before = launch_counts_of(run)
+    per_step = tiled_step._tiled_chunk_cuda(shape, state, steps, 0)
+    took_step = check_step_path(label, shape, run, before)
     want = tiled_step.tiled_chunk_plain(shape, state, steps)
     torch.cuda.synchronize()
     d, same = state_diffs(got, want, rest=shape.has_actuated)
@@ -1915,12 +2026,19 @@ def tiled_vs_plain(shape, state, steps, label, bad):
         if not bool(torch.isfinite(getattr(got.masses, f)).all()):
             same = False
             d[f"non-finite {f}"] = 1.0
-    print(f"tiled vs plain [{label}, {steps} steps]: "
-          + ("bitwise" if same else "DIFFER") + "; max |d| "
-          + ", ".join(f"{k} {v:.3e}" for k, v in d.items()))
+    d_step, same_step = state_diffs(per_step, want, rest=shape.has_actuated)
+    print(f"tiled vs plain [{label}, {steps} steps, {spring_path(shape)} "
+          f"path]: " + ("bitwise" if same else "DIFFER") + "; max |d| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+          + f" ({took}); per-step launches only: "
+          + ("bitwise" if same_step else f"DIFFER, max |d| {d_step}")
+          + f" ({took_step})")
     if not same:
         bad.append(f"{label}: kernels differ from tiled_chunk_plain: {d}")
-    return max(d.values()), got
+    if not same_step:
+        bad.append(f"{label}: per-step launches differ from "
+                   f"tiled_chunk_plain: {d_step}")
+    return max(list(d.values()) + list(d_step.values())), got
 
 
 def mega_vs_steps(shape, state, label, bad):
@@ -2062,7 +2180,7 @@ def drive_stress(titan, name):
     st = sim._store
     n = st.n_masses
     z0 = st.pos[:n, 2].copy()
-    lengths, recorded = [], []
+    lengths, recorded, chunk_shapes = [], [], []
     built = rsim.build_chunk_fn
 
     def recording(shape):
@@ -2071,6 +2189,7 @@ def drive_stress(titan, name):
 
         def chunk(state, n_steps):
             lengths.append(int(n_steps))
+            chunk_shapes.append(shape)
             return fn(state, n_steps)
         return chunk
 
@@ -2122,14 +2241,20 @@ def drive_stress(titan, name):
     wall = time.perf_counter() - t0
     seg = tiled_step.MEGA_SEG
     want = dict(mega=sum(k // seg for k in lengths),
-                step=sum(k % seg for k in lengths))
+                step=sum(k % seg for k in lengths),
+                plain=sum(tiled_step.plain_launch_count(sh, k // seg, k % seg)
+                          for sh, k in zip(chunk_shapes, lengths)))
     print(f"main path {name}: {len(lengths)} chunks, {sum(lengths)} steps; "
           f"tiled resident-grid launches {counts['mega']} (chunk lengths "
           f"give {want['mega']}), tiled per-step launches {counts['step']} "
-          f"(give {want['step']}), fused_step launches {counts['fused']}, "
-          f"eager steps {counts['eager']}")
+          f"(give {want['step']}), {counts['plain']} of them on the "
+          f"plain-spring loop (the chunks' paths give {want['plain']}: "
+          f"every launch before the uniform break, none after it), "
+          f"fused_step launches {counts['fused']}, eager steps "
+          f"{counts['eager']}")
     check(counts["mega"] > 0, f"{name}: no resident-grid launch")
-    check(counts["mega"] == want["mega"] and counts["step"] == want["step"],
+    check(counts["mega"] == want["mega"] and counts["step"] == want["step"]
+          and counts["plain"] == want["plain"] and counts["plain"] > 0,
           f"{name}: launches {counts} against the chunk lengths' {want}")
     check(counts["fused"] == 0 and counts["eager"] == 0,
           f"{name}: fused launches or eager steps on the tiled path: "
@@ -2223,7 +2348,10 @@ def time_tiled(name, shape, state):
         plain_ms = event_ms(run_plain, 10)
         names = ["tiled_megark2_kernel" if rk2 else "tiled_mega_kernel",
                  "tiled_step_kernel"]
-        dev = profile_device_us(lambda: run(200), names)
+        keys = []
+        dev = profile_device_us(lambda: run(200), names, keys)
+    seen = check_profiled_path(name, shape, keys)
+    print(f"path {name}: the profiler saw {seen}")
     mode = "rk2" if rk2 else shape.config.integrator.name.lower()
     print(f"timing {name} tiled chunk: {ms * 1e3:.3f} us/step over "
           f"{steps} steps (CUDA events); fused kernel on the same state "
@@ -2255,9 +2383,12 @@ def time_tiled(name, shape, state):
                  f"{us:.3f} us/launch on the device ({t[1]} launches)")
               + f"; bound {b_ms * 1e3:.4f} us/launch by {by} (bytes "
               f"{t_b * 1e3:.4f} us, ops {t_o * 1e3:.4f} us)")
+        plain = spring_path(shape) == "plain" and not (
+            rk2 and per_launch_steps)
         out[kname] = dict(ms=None if us is None else us / 1e3,
                           plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-                          ms_per_step=ms, fused_ms_per_step=fused_ms)
+                          ms_per_step=ms, fused_ms_per_step=fused_ms,
+                          path="plain" if plain else "general")
     return out
 
 
@@ -2282,6 +2413,7 @@ def tiled_phases(titan, kernels):
     runs = {"euler": (shape, counts, err)}
     for integ in (Integrator.RK2, Integrator.VERLET):
         sh = integrator_shape(shape, integ)
+        report_path(f"{name} landed, {integ.name}", sh, "mega")
         zero_tiled_counts()
         tiled_step.tiled_chunk(sh, state, CROSS_STEPS)
         torch.cuda.synchronize()
@@ -2289,9 +2421,12 @@ def tiled_phases(titan, kernels):
         per = 2 if integ is Integrator.RK2 else 1
         seg = tiled_step.MEGA_SEG
         print(f"{name} landed, {integ.name}: {CROSS_STEPS} steps ran "
-              f"{c['mega']} resident-grid and {c['step']} per-step launches")
+              f"{c['mega']} resident-grid and {c['step']} per-step launches"
+              f", {c['plain']} of them on the plain-spring loop")
         check(c["mega"] == CROSS_STEPS // seg
               and c["step"] == per * (CROSS_STEPS % seg)
+              and c["plain"] == tiled_step.plain_launch_count(
+                  sh, c["mega"], c["step"])
               and c["fused"] == c["eager"] == 0,
               f"{name} {integ.name}: launches {c}")
         e, _ = tiled_vs_plain(sh, state, CROSS_STEPS,
@@ -2361,8 +2496,10 @@ def adjoint_counters():
                   adjoint_tiled.tiled_bwd_run)
     return {"fwd_mega": (tc, "mega_launches"),
             "fwd_step": (tc, "step_launches"),
+            "fwd_plain": (tc, "plain_launches"),
             "trace_mega": (tr, "mega_launches"),
             "trace_step": (tr, "step_launches"),
+            "trace_plain": (tr, "plain_launches"),
             "bwd_mega": (tb, "mega_launches"),
             "bwd_step": (tb, "step_launches"),
             "fused": (fused_step.fused_chunk, "launches"),
@@ -2381,29 +2518,30 @@ def read_adjoint_counts():
             for k, (obj, attr) in adjoint_counters().items()}
 
 
-def bwd_path(shape):
-    """"plain" where the tiled adjoint's backward kernels (B7, B8) run the
-    plain-spring loop on `shape` (adjoint_body.cuh::plain_family_sum and
-    plain_family_transpose; fused_step.takes_plain_spring_path), else
-    "general"."""
+def spring_path(shape):
+    """"plain" where the tiled kernels run the plain-spring loop on
+    `shape` (fused_step.takes_plain_spring_path): the per-step kernel, the
+    replay and every resident grid but the forward RK2 one
+    (step_body.cuh::plain_family_sum), and the backward kernels B7, B8
+    (adjoint_body.cuh::plain_family_transpose); else "general"."""
     from titan_tpu_torch.ops import fused_step
     return "plain" if fused_step.takes_plain_spring_path(shape) else \
         "general"
 
 
-def check_bwd_path(name, shape, launches):
+def check_spring_path(name, shape, launches):
     """The `launches` B7 and B8 launches since tiled_bwd_run.plain_launches
     was zeroed must all have run the plain-spring loop where `shape` takes
     it, and none where it does not."""
     from titan_tpu_torch.ops import adjoint_tiled as at
     took = at.tiled_bwd_run.plain_launches
-    want = launches if bwd_path(shape) == "plain" else 0
+    want = launches if spring_path(shape) == "plain" else 0
     check(took == want, f"{name}: {took} of {launches} backward launches "
-          f"took the plain-spring loop, the {bwd_path(shape)} path gives "
+          f"took the plain-spring loop, the {spring_path(shape)} path gives "
           f"{want}")
 
 
-def report_bwd_path(name, shape):
+def report_spring_path(name, shape):
     """Print the path of the tiled adjoint's backward on `shape` (bwd_path)
     and, for each kernel the gradient path launches (B8 where
     mega_adjoint_ok, else B7's force and spring kernels and under RK2 its
@@ -2412,7 +2550,7 @@ def report_bwd_path(name, shape):
     grid).  A lattice main path (13 families) must take the plain-spring
     loop."""
     from titan_tpu_torch.ops import adjoint_tiled as at
-    path = bwd_path(shape)
+    path = spring_path(shape)
     if len(shape.stencil_deltas) == 13:
         check(path == "plain", f"{name}: the tiled backward does not take "
               "the plain-spring loop")
@@ -2469,41 +2607,67 @@ def bwd_diffs(got, ref, rk2):
     return abs_err, rel, bitwise, fails
 
 
+def trace_entries_forward(shape, state, trace, steps):
+    """Whether trace entries `steps` are bitwise the kernel chunk's states
+    after that many steps."""
+    import torch
+    from titan_tpu_torch.ops import tiled_step
+    ok = True
+    for s in steps:
+        fwd = tiled_step.tiled_chunk(shape, state, s)
+        ok = ok and bool(torch.equal(trace[s, :6], torch.cat(
+            [fwd.masses.pos, fwd.masses.vel])))
+    return ok
+
+
 def tiled_adjoint_vs_plain(shape, state, label, bad):
-    """B6 bitwise tiled_trace_run_plain over TRACE_STEPS steps (and its
-    last entry bitwise the kernel chunk's state); B7's per-step launches
-    against tiled_bwd_run_plain on the first BWD_STEPS entries (bitwise for
-    Euler and Verlet, TOL_BWD_ELEM per element for RK2); B8 (Euler,
-    Verlet) bitwise B7.  Appends failures to `bad`; returns (trace max
-    |d|, backward max |d|, backward max relative error, B7 bitwise)."""
+    """B6 bitwise tiled_trace_run_plain over TRACE_STEPS steps, through the
+    forward's launches and through per-step launches only, each launch on
+    the scene's path (check_step_path), and its entries after the first
+    resident-grid segment and the last bitwise the kernel chunk's states;
+    B7's per-step launches against tiled_bwd_run_plain on the first
+    BWD_STEPS entries (bitwise for Euler and Verlet, TOL_BWD_ELEM per
+    element for RK2); B8 (Euler, Verlet) bitwise B7.  Appends failures to
+    `bad`; returns (trace max |d|, backward max |d|, backward max
+    relative error, B7 bitwise)."""
     import torch
     from titan_tpu_torch.ops import adjoint_tiled as at
     from titan_tpu_torch.ops import tiled_step
     rk2 = shape.config.integrator.name == "RK2"
-    trace = at.tiled_trace_run(shape, state, TRACE_STEPS)
+    inv = tiled_step.prep_tiled_inputs(shape, state)
+    run = at.tiled_trace_run
+    before = launch_counts_of(run)
+    trace = at.tiled_trace_run(shape, state, TRACE_STEPS, inv)
+    took = check_step_path(label, shape, run, before, trace=True)
+    before = launch_counts_of(run)
+    per_step = at._tiled_trace_cuda(shape, state, TRACE_STEPS, inv, 0)
+    took_step = check_step_path(label, shape, run, before, trace=True)
     want = at.tiled_trace_run_plain(shape, state, TRACE_STEPS)
-    last = tiled_step.tiled_chunk(shape, state, TRACE_STEPS - 1)
     torch.cuda.synchronize()
-    dtr = float((trace - want).abs().max())
+    dtr = max(float((trace - want).abs().max()),
+              float((per_step - want).abs().max()))
     same = bool(torch.equal(trace, want)) and bool(torch.equal(
-        trace[-1], torch.cat([last.masses.pos, last.masses.vel])))
+        per_step, want)) and trace_entries_forward(
+            shape, state, trace, (tiled_step.MEGA_SEG, TRACE_STEPS - 1))
     if not same:
         bad.append(f"{label}: trace differs from tiled_trace_run_plain by "
-                   f"{dtr:.3e}")
-    del want
+                   f"{dtr:.3e}, or from the forward's states")
+    del want, per_step
     trace = trace[:BWD_STEPS]
-    inv = tiled_step.prep_tiled_inputs(shape, state)
     cts = seeded_cotangents(shape.n_masses, trace.device)
     at.tiled_bwd_run.plain_launches = 0
     b7 = at._tiled_bwd_cuda(shape, state, trace, *cts, inv, mega=False)
-    check_bwd_path(label, shape, BWD_STEPS * (5 if rk2 else 2))
+    check_spring_path(label, shape, BWD_STEPS * (5 if rk2 else 2))
     ref = at.tiled_bwd_run_plain(shape, state, trace, *cts, inv)
     torch.cuda.synchronize()
     abs_err, rel, bitwise, fails = bwd_diffs(b7, ref, rk2)
     kind = "per element" if rk2 else "max |d| / max |plain|"
-    print(f"tiled adjoint vs plain [{label}]: trace ({TRACE_STEPS} steps) "
-          + ("bitwise" if same else f"DIFFERS ({dtr:.3e})")
-          + f"; per-step backward ({BWD_STEPS} steps, {bwd_path(shape)} "
+    print(f"tiled adjoint vs plain [{label}]: trace ({TRACE_STEPS} steps, "
+          f"{spring_path(shape)} path; {took}; per-step launches only "
+          f"{took_step}) "
+          + ("bitwise, entries bitwise the forward's states" if same
+             else f"DIFFERS ({dtr:.3e})")
+          + f"; per-step backward ({BWD_STEPS} steps, {spring_path(shape)} "
           "path) "
           + ("bitwise" if bitwise else kind + ": " + ", ".join(
               f"{k} {v:.2e}" for k, v in rel.items()))
@@ -2514,12 +2678,12 @@ def tiled_adjoint_vs_plain(shape, state, label, bad):
     if at.mega_adjoint_ok(shape):
         at.tiled_bwd_run.plain_launches = 0
         b8 = at._tiled_bwd_cuda(shape, state, trace, *cts, inv, mega=True)
-        check_bwd_path(label, shape, 1)
+        check_spring_path(label, shape, 1)
         torch.cuda.synchronize()
         diff = [k for k in ref if k != "pair_ok"
                 and not torch.equal(b8[k], b7[k])]
         print(f"tiled adjoint resident-grid backward vs per-step launches "
-              f"[{label}, {bwd_path(shape)} path]: "
+              f"[{label}, {spring_path(shape)} path]: "
               + ("bitwise" if not diff else f"DIFFER in {diff}"))
         if diff:
             bad.append(f"{label}: the resident-grid backward differs from "
@@ -2535,8 +2699,8 @@ def tiled_adjoint_small_scenes(titan):
     for variant in TILED_VARIANTS:
         shape, state = tiled_variant_scene(titan, variant)
         want = "general" if variant in GENERAL_BWD_VARIANTS else "plain"
-        check(bwd_path(shape) == want, f"tiled {variant}: the backward "
-              f"takes the {bwd_path(shape)} path, not the {want} one")
+        check(spring_path(shape) == want, f"tiled {variant}: the backward "
+              f"takes the {spring_path(shape)} path, not the {want} one")
         e = tiled_adjoint_vs_plain(shape, state, f"tiled {variant}", bad)
         rk2 = shape.config.integrator.name == "RK2"
         worst[rk2] = [max(w, x) for w, x in zip(worst[rk2], e[:3])]
@@ -2557,7 +2721,11 @@ def expected_grad_counts(shape, n_steps):
         shape))
     want = dict.fromkeys(adjoint_counters(), 0)
     want.update(fwd_mega=n_seg * mega, fwd_step=n_seg * step,
-                trace_mega=n_seg * mega, trace_step=n_seg * step)
+                trace_mega=n_seg * mega, trace_step=n_seg * step,
+                fwd_plain=n_seg * tiled_step.plain_launch_count(
+                    shape, mega, step),
+                trace_plain=n_seg * tiled_step.plain_launch_count(
+                    shape, mega, step, trace=True))
     if at.mega_adjoint_ok(shape):
         want["bwd_mega"] = n_seg
     else:                   # five launches per RK2 step, else two
@@ -2576,7 +2744,7 @@ def tiled_grad_path(name, shape, state, n_steps=GRAD_STEPS):
     from titan_tpu_torch.ops import adjoint_tiled as at
     check(diff.grad_route(shape) == ("tiled_adjoint", None),
           f"{name}: gradient route {diff.grad_route(shape)}")
-    report_bwd_path(name, shape)
+    report_spring_path(name, shape)
     seg, want = expected_grad_counts(shape, n_steps)
     zero_adjoint_counts()
     at.tiled_bwd_run.plain_launches = 0
@@ -2588,7 +2756,7 @@ def tiled_grad_path(name, shape, state, n_steps=GRAD_STEPS):
           + ", ".join(f"{k} {v}" for k, v in got.items())
           + f"; {wall:.3f} s wall (first call)")
     check(got == want, f"{name}: counts {got}, the segments give {want}")
-    check_bwd_path(name, shape, got["bwd_mega"] + got["bwd_step"])
+    check_spring_path(name, shape, got["bwd_mega"] + got["bwd_step"])
     for nm, g in zip(GRAD_NAMES, grads):
         check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
               "not finite")
@@ -2867,12 +3035,19 @@ def time_tiled_adjoint(name, shape, state):
         for _ in range(2):
             measured()
         torch.cuda.synchronize()
-    groups = {"trace_mega": lambda k: "mega" in k and "true>" in k,
+    # the replay's grids only: B8 (tiled_megabwd_kernel<true>, its
+    # plain-spring instantiation) also holds "mega" and "true>"
+    groups = {"trace_mega": lambda k: ("tiled_mega_kernel<" in k
+                                       or "tiled_megark2_kernel<" in k)
+              and "true>" in k,
               "trace_step": lambda k: "tiled_step_kernel" in k
               and "true>" in k,
               "bwd_step": lambda k: "<TiledBwdArgs," in k,
               "bwd_mega": lambda k: "tiled_megabwd_kernel" in k}
     dev = {}
+    seen = check_profiled_path(name, shape, [e.key for e in
+                                             prof.key_averages()])
+    print(f"path {name} replay: the profiler saw {seen}")
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -2921,7 +3096,7 @@ def time_tiled_adjoint(name, shape, state):
         out[g] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
                       fwd_bwd_ms_per_step=new_ms,
                       fused_adjoint_ms_per_step=old_ms,
-                      **({"path": bwd_path(shape)} if kind == "bwd" else {}))
+                      path=spring_path(shape))
     if not rk2 and shape.config.integrator.name == "EULER":
         profile_grad_path(name, shape, state, segment=None)
     return out
@@ -2954,12 +3129,13 @@ def tiled_adjoint_phases(titan, kernels, shape, state):
         worst = worst_small[integ is Integrator.RK2]
         err = dict(trace=max(e[0], worst[0]), bwd=max(e[1], worst[1]))
         for g, kname, replaces in (
-                ("trace_mega", "tiled_megark2_kernel<true> (trace replay"
+                ("trace_mega",
+                 "tiled_megark2_kernel<PLAIN, true> (trace replay"
                  if integ is Integrator.RK2 else
-                 "tiled_mega_kernel<MODE, true> (trace replay",
+                 "tiled_mega_kernel<MODE, PLAIN, true> (trace replay",
                  "titan_tpu/ops/pallas_tiled.py:1305"),
                 ("trace_step",
-                 "tiled_step_kernel<MODE, REM, true> (trace replay",
+                 "tiled_step_kernel<MODE, REM, PLAIN, true> (trace replay",
                  "titan_tpu/ops/pallas_tiled.py:1305"),
                 ("bwd_step", "bwd_force_kernel + bwd_spring_kernel"
                  + (" + bwd_mid_kernel" if integ is Integrator.RK2 else "")
@@ -3316,7 +3492,7 @@ def drive_from_rest(sim, name, t_build, check_shape):
     from titan_tpu_torch.ops.step import chunk_route, resident_bytes
     from titan_tpu_torch.runtime import simulation as rsim
     n = sim._store.n_masses
-    lengths, recorded = [], []
+    lengths, recorded, chunk_shapes = [], [], []
     built = rsim.build_chunk_fn
 
     def recording(shape):
@@ -3325,6 +3501,7 @@ def drive_from_rest(sim, name, t_build, check_shape):
 
         def chunk(state, n_steps):
             lengths.append(int(n_steps))
+            chunk_shapes.append(shape)
             return fn(state, n_steps)
         return chunk
 
@@ -3342,6 +3519,7 @@ def drive_from_rest(sim, name, t_build, check_shape):
               f"{resident_bytes(shape) / 1e6:.1f} MB)")
         check(chunk_route(shape) == ("tiled", None),
               f"{name}: route {chunk_route(shape)}")
+        report_path(name, shape, "mega")
         for k, t in enumerate(LOCAL_STRESS_WAITS):
             sim.wait(t)
             sim.getAll()
@@ -3362,16 +3540,21 @@ def drive_from_rest(sim, name, t_build, check_shape):
     seg = tiled_step.mega_seg(end[0])
     want = dict(mega=sum(k // seg for k in lengths) if seg else 0,
                 step=sum(k % seg for k in lengths) if seg else sum(lengths))
+    want["plain"] = sum(tiled_step.plain_launch_count(
+        sh, k // seg if seg else 0, k % seg if seg else k)
+        for sh, k in zip(chunk_shapes, lengths))
     print(f"main path {name}: {len(lengths)} chunks {lengths}, "
           f"{sum(lengths)} steps to t={t_end:.4f} in {wall:.2f} s wall; "
           f"tiled resident-grid launches {counts['mega']} (chunk lengths "
           f"give {want['mega']}), tiled per-step launches {counts['step']} "
-          f"(give {want['step']}), fused_step launches {counts['fused']}, "
-          f"eager steps {counts['eager']}")
+          f"(give {want['step']}), {counts['plain']} of them on the "
+          f"plain-spring loop (give {want['plain']}), fused_step launches "
+          f"{counts['fused']}, eager steps {counts['eager']}")
     check(sum(lengths) >= 2000, f"{name}: {sum(lengths)} steps")
     check((counts["mega"] > 0) == bool(seg) and counts["step"] > 0,
           f"{name}: resident-grid and per-step launches {counts}")
-    check(counts["mega"] == want["mega"] and counts["step"] == want["step"],
+    check(counts["mega"] == want["mega"] and counts["step"] == want["step"]
+          and counts["plain"] == want["plain"],
           f"{name}: launches {counts} against the chunk lengths' {want}")
     check(counts["fused"] == 0 and counts["eager"] == 0,
           f"{name}: fused launches or eager steps on the tiled path: "
@@ -3457,11 +3640,11 @@ def local_stress_path(titan, kernels):
         gpath = (f"{name} gradient path, {integ.name}, "
                  f"{LOCAL_RK2_GRAD_STEPS if rk2 else GRAD_STEPS} steps")
         for g, kname, replaces in (
-                ("trace_mega", ("tiled_megark2_kernel<true>" if rk2 else
-                                "tiled_mega_kernel<MODE, true>")
+                ("trace_mega", ("tiled_megark2_kernel<PLAIN, true>" if rk2 else
+                                "tiled_mega_kernel<MODE, PLAIN, true>")
                  + " (trace replay", "titan_tpu/ops/pallas_tiled.py:1305"),
                 ("trace_step",
-                 "tiled_step_kernel<MODE, REM, true> (trace replay",
+                 "tiled_step_kernel<MODE, REM, PLAIN, true> (trace replay",
                  "titan_tpu/ops/pallas_tiled.py:1305"),
                 ("bwd_step", "bwd_force_kernel + bwd_spring_kernel"
                  + (" + bwd_mid_kernel" if rk2 else "")
@@ -3688,7 +3871,7 @@ def rem_grad_path(name, shape, state, segment, route):
     else:
         seg, want = expected_grad_counts(shape, GRAD_STEPS)
         check(seg == segment, f"{name}: default segment {seg}")
-        report_bwd_path(name, shape)
+        report_spring_path(name, shape)
     leaves, st = rem_grad_leaves(state)
     w = grad_loss_weights(state)
     zero_adjoint_counts()
@@ -3704,7 +3887,7 @@ def rem_grad_path(name, shape, state, segment, route):
           f"{segment}: " + ", ".join(f"{k} {v}" for k, v in got.items())
           + f"; {wall:.3f} s wall (first call)")
     check(got == want, f"{name}: counts {got}, the segments give {want}")
-    check_bwd_path(name, shape, got["bwd_mega"] + got["bwd_step"])
+    check_spring_path(name, shape, got["bwd_mega"] + got["bwd_step"])
     for nm, g in zip(REM_GRAD_NAMES, grads):
         check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
               "not finite")
@@ -3828,8 +4011,9 @@ def rem_stress_path(titan, kernels):
             torch.cuda.synchronize()
             c = read_tiled_counts()
             per = 2 if integ is Integrator.RK2 else 1
-            check(c == dict(mega=0, step=per * CROSS_STEPS, fused=0,
-                            eager=0), f"{label}: launches {c}")
+            check(c == dict(mega=0, step=per * CROSS_STEPS,
+                            plain=per * CROSS_STEPS, fused=0, eager=0),
+                  f"{label}: launches {c}")
         gc = rem_grad_path(f"{label} gradient path", sh, state, 50,
                            "tiled_adjoint")
         runs[integ] = (sh, c, e, ta, gc)
@@ -3851,7 +4035,7 @@ def rem_stress_path(titan, kernels):
         gpath = f"{name} gradient path, {integ.name}, {GRAD_STEPS} steps"
         for g, kname, replaces in (
                 ("trace_step",
-                 "tiled_step_kernel<MODE, REM, true> (trace replay",
+                 "tiled_step_kernel<MODE, REM, PLAIN, true> (trace replay",
                  "titan_tpu/ops/pallas_tiled.py:1305"),
                 ("bwd_step", "bwd_force_kernel + bwd_spring_kernel"
                  + (" + bwd_mid_kernel" if rk2 else "")
@@ -4049,10 +4233,15 @@ def glue_vs_plain(shape, state, label, bad):
     rk2 = shape.config.integrator.name == "RK2"
     binned = bool(shape.magnet_binned)
     field = fused_step.magnet_field_fn(shape, state, plain=False)
+    before = launch_counts_of(tiled_step.tiled_chunk)
     got = tiled_step.tiled_chunk(shape, state, TRACE_STEPS)
+    took = check_step_path(label, shape, tiled_step.tiled_chunk, before)
     want = tiled_step.tiled_chunk_plain(shape, state, TRACE_STEPS,
                                         field=field)
+    before = launch_counts_of(at.tiled_trace_run)
     trace = at.tiled_trace_run(shape, state, TRACE_STEPS)
+    took_tr = check_step_path(label, shape, at.tiled_trace_run, before,
+                              trace=True)
     tw = at.tiled_trace_run_plain(shape, state, TRACE_STEPS, field=field)
     last = tiled_step.tiled_chunk(shape, state, TRACE_STEPS - 1)
     torch.cuda.synchronize()
@@ -4069,10 +4258,11 @@ def glue_vs_plain(shape, state, label, bad):
     torch.cuda.synchronize()
     dbw, rel, bitwise, fails = bwd_diffs(g, ref, rk2 or binned)
     live = int((ref["mag"] != 0).any(0).sum())
-    print(f"tiled glue vs plain [{label}]: step ({TRACE_STEPS} steps) "
+    print(f"tiled glue vs plain [{label}, {spring_path(shape)} path]: step "
+          f"({TRACE_STEPS} steps; {took}) "
           + ("bitwise" if same else f"DIFFERS {d}") + f"; trace ("
-          f"{trace.shape[1]} rows) " + ("bitwise" if tsame else
-                                        f"DIFFERS ({dtr:.3e})")
+          f"{trace.shape[1]} rows; {took_tr}) "
+          + ("bitwise" if tsame else f"DIFFERS ({dtr:.3e})")
           + "; backward " + ("bitwise" if bitwise else "per element: "
                              + ", ".join(f"{k} {v:.2e}"
                                          for k, v in rel.items()))
@@ -4229,7 +4419,9 @@ def mag_grad_counts(shape, n_steps, route):
                     adjoint_bwd=n_steps * (5 if rk2 else 2),
                     transpose=n_steps * passes)
     else:
+        plain = n_steps * passes if spring_path(shape) == "plain" else 0
         want.update(fwd_step=n_steps * passes, trace_step=n_steps * passes,
+                    fwd_plain=plain, trace_plain=plain,
                     bwd_step=n_steps * (5 if rk2 else 2))
         want["binned" if shape.magnet_binned else "tiled_transpose"] = \
             n_steps * passes
@@ -4253,7 +4445,7 @@ def mag_grad_path(name, shape, state, n_steps, segment, route,
     from titan_tpu_torch.ops import adjoint_tiled as at
     want = mag_grad_counts(shape, n_steps, route)
     if route != "adjoint":
-        report_bwd_path(name, shape)
+        report_spring_path(name, shape)
     leaves, st = mag_grad_leaves(state, spring_k)
     w = grad_loss_weights(state)
     torch.cuda.synchronize()
@@ -4270,7 +4462,7 @@ def mag_grad_path(name, shape, state, n_steps, segment, route,
           f"{segment}: " + ", ".join(f"{k} {v}" for k, v in got.items())
           + f"; {wall:.3f} s wall (first call)")
     check(got == want, f"{name}: counts {got}, the segments give {want}")
-    check_bwd_path(name, shape, got["bwd_mega"] + got["bwd_step"])
+    check_spring_path(name, shape, got["bwd_mega"] + got["bwd_step"])
     names = MAG_GRAD_NAMES + (("springs.k",) if spring_k else ())
     for nm, g in zip(names, grads):
         check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
@@ -4462,6 +4654,7 @@ def drive_glue(sim, name):
           and tstep.chunk_route(shape) == ("tiled", None)
           and diff.grad_route(shape) == ("tiled_adjoint", None),
           f"{name}: shape or routes")
+    report_path(name, shape, "mega")
     for k in range(4):
         sim.wait(GLUE_FWD_STEPS * dt / 4)
         sim.getAll()
@@ -4476,7 +4669,8 @@ def drive_glue(sim, name):
     counts = read_mag_counts()
     steps = int(round(t_end / dt))
     want = dict.fromkeys(mag_counters(), 0)
-    want.update(fwd_step=steps, grid=steps)
+    want.update(fwd_step=steps, grid=steps,
+                fwd_plain=steps if spring_path(shape) == "plain" else 0)
     print(f"main path {name}: {steps} steps to t={t_end:.4f} s in "
           f"{wall:.2f} s wall; " + ", ".join(f"{k} {v}"
                                              for k, v in counts.items()))
@@ -4515,6 +4709,9 @@ def time_glue(name, shape, state, fb_ms):
               "bwd": lambda k: "<TiledBwdArgs," in k,
               "grid": lambda k: "grid_magnet_kernel" in k}
     dev = {}
+    seen = check_profiled_path(name, shape, [e.key for e in
+                                             prof.key_averages()])
+    print(f"path {name} glue: the profiler saw {seen}")
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -4557,7 +4754,8 @@ def time_glue(name, shape, state, fb_ms):
               f"{bound[1]}; plain {plain * 1e3:.1f} us/launch")
         out[g] = dict(ms=ms, plain_ms=plain, bound_ms=bound[0],
                       bound_by=bound[1], fwd_bwd_ms_per_step=fb_ms,
-                      **({"path": bwd_path(shape)} if g == "bwd" else {}))
+                      **({} if g == "grid" else
+                         {"path": spring_path(shape)}))
     print(f"timing {name} gradient path: forward + backward "
           f"{fb_ms * 1e3:.3f} us/step over {GLUE_GRAD_STEPS} steps "
           f"(segments of {GLUE_SEG}; host clock, the checked run)")
@@ -4607,13 +4805,14 @@ def glue_phase(titan, kernels):
                       wall * 1e3 / GLUE_GRAD_STEPS)
         path = f"{name} gradient path, {integ.name}, {GLUE_GRAD_STEPS} steps"
         entries = [
-            ("tiled_step_kernel<MODE, REM, false> (glue forward, "
+            ("tiled_step_kernel<MODE, REM, PLAIN, false> (glue forward, "
              + (f"{path})" if integ is not Integrator.EULER else
                 f"{name} main path, {GLUE_FWD_STEPS} steps)"),
              src_step, "titan_tpu/ops/pallas_tiled.py:1051",
              fwd["fwd_step"] if integ is Integrator.EULER
              else counts["fwd_step"], e[0], t["step"]),
-            (f"tiled_step_kernel<MODE, REM, true> (glue replay, {path})",
+            ("tiled_step_kernel<MODE, REM, PLAIN, true> (glue replay, "
+             f"{path})",
              src_adj, "titan_tpu/ops/pallas_tiled.py:1305",
              counts["trace_step"], e[1], t["trace"]),
             ("bwd_force_kernel + bwd_spring_kernel"

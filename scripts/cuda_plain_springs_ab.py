@@ -101,7 +101,8 @@ def main() -> int:
                 ok = same(tiled_step.tiled_chunk(sh, state, 32), ref)
                 ms = median_ms(cs, lambda k: tiled_step.tiled_chunk(
                     sh, state, k), 320)
-                regs = tiled_step.mega_regs(integ, src == "plain")
+                regs = tiled_step.step_kernel_info(
+                    "grid", integ, src == "plain")["registers"]
                 print(f"{nx}^3 {integ.name} resident grid {src} (round {r})"
                       f": {ms * 1e3:.3f} us/step; "
                       f"{'bitwise' if ok else 'DIFFERS'} (per-step); "

@@ -26,8 +26,12 @@
 // forward stepped through.  RK2 replays through the resident-grid RK2
 // kernel too, not per step as the JAX package does (its megatrace is
 // Euler/Verlet only): a resident-grid segment is bitwise its per-step
-// launches either way.  The trace holds no acc: the Verlet transpose is
-// linear in the previous acc and never reads its value.
+// launches either way.  A plain-spring scene's replay takes the
+// plain-spring loop in every launch, the RK2 grid's included
+// (tiled_megark2_kernel<true, true>; the forward's keeps the general body):
+// the loop is bitwise the general body, so the trace stays the forward's.
+// The trace holds no acc: the Verlet transpose is linear in the previous
+// acc and never reads its value.
 //
 // B7, per-step backward.  The transpose of csrc/adjoint_body.cuh (the
 // fused adjoint's, one CUDA copy of it) instantiated over TiledBwdArgs,
@@ -260,16 +264,19 @@ bool plain_ok(const TiledBwdArgs* c) {
 }  // namespace
 
 // The co-resident block limit on `device` of the trace replay's
-// resident-grid kernel for `integrator` (kind 0) or of B8 (kind 1; with
-// `plain` its plain-spring instantiation at its own block size), or a
-// negated cudaError_t.
+// resident-grid kernel for `integrator` (kind 0) or of B8 (kind 1); with
+// `plain` the instantiation a plain-spring scene launches, at its own block
+// size; or a negated cudaError_t.
 extern "C" int titan_tiled_adjoint_coop_blocks(int kind, int integrator,
                                                int plain, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (kind == 0) {
+    const bool gp = titan_tiled::grid_plain(plain != 0, true, integrator);
     return titan_tiled::coop_blocks_of(
-        titan_tiled::mega_entry<false, true>(integrator), kThreads, device);
+        gp ? titan_tiled::mega_entry<true, true>(integrator)
+           : titan_tiled::mega_entry<false, true>(integrator),
+        titan_tiled::mega_threads(gp), device);
   }
   return titan_tiled::coop_blocks_of(b8_entry(plain != 0),
                                      b8_threads(plain != 0), device);
@@ -310,8 +317,17 @@ extern "C" int titan_tiled_bwd_kernel_info(int which, int plain, int rem,
   return 0;
 }
 
+// The replay's kernel info (titan_tiled::kernel_info): threads, registers,
+// local bytes and co-resident blocks an SM of its per-step kernel (kind 0)
+// or resident grid (kind 1).
+extern "C" int titan_tiled_trace_kernel_info(int kind, int mode, int plain,
+                                             int rem, int device, int* out) {
+  return titan_tiled::kernel_info<true>(kind, mode, plain, rem, device, out);
+}
+
 // B6: enqueue the replay of c->n_steps steps on `stream`, writing step
-// s's input (pos, vel) to trace + s * 6 N.  Returns 0 or the first CUDA
+// s's input (pos, vel) to trace + s * 6 N, through the plain-spring
+// kernels where c->plain_springs is set.  Returns 0 or the first CUDA
 // error.
 extern "C" int titan_tiled_trace(const TiledChunk* c, float* trace,
                                  void* stream) {

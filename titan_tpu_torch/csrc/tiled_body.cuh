@@ -270,9 +270,8 @@ __device__ __forceinline__ void tiled_mass_with(const TiledArgs& a,
   if (io.acc_dst != nullptr) st3(io.acc_dst, i, n, mul3(acc, keep));
 }
 
-// tiled_mass_with the family sum from device memory: the per-step kernels,
-// the replay and megark2, and the resident grid of a scene off the
-// plain-spring path.
+// tiled_mass_with the family sum from device memory: every kernel of a
+// scene off the plain-spring path, and the forward RK2 grid.
 template <int MODE, bool REM = false>
 __device__ __forceinline__ void tiled_mass(const TiledArgs& a,
                                            const StepIO& io, int i) {

@@ -60,16 +60,18 @@
 // csrc/tiled_chunk.cuh, which csrc/tiled_adjoint.cu instantiates again
 // with trace stores for the tiled adjoint's replay.
 //
-// The Euler / Verlet grid's plain-spring path (tiled_mega_kernel<MODE,
-// true, false>: a scene whose springs are plain and whose k rides the
-// existence bits, as the 100^3 stress config).  Each thread sums its
-// families with the fused step's plain-spring loop (step_body.cuh::
+// The plain-spring path (a scene whose springs are plain and whose k rides
+// the existence bits, as every main path).  Each thread sums its families
+// with the fused step's plain-spring loop (step_body.cuh::
 // plain_family_sum: no per-spring feature branch, partner indices clamped
-// into [0, N) so that no load waits on a branch) before tiled_mass's tail,
-// at 512 threads a block, two blocks an SM (at most 64 registers a thread).
-// Other scenes, the per-step launches, megark2 and the replay keep the
-// general body; both loops do the same arithmetic in the same order, so
-// every mode stays bitwise the others.
+// into [0, N) so that no load waits on a branch) before tiled_mass's tail:
+// the Euler / Verlet grid (tiled_mega_kernel<MODE, true, false>) at 512
+// threads a block, two blocks an SM, and the per-step kernel
+// (tiled_step_kernel<MODE, REM, true, false>: the tail's launches, a link
+// scene's, the glue passes) at 128 threads a block, eight an SM, both
+// capped at 64 registers.  The RK2 grid and every kernel of another scene
+// keep the general body; both loops do the same arithmetic in the same
+// order, so every mode stays bitwise the others.
 //
 // Bound.  Per step a launch reads pos (and vel, acc) and the mask, and
 // writes the new state: ~84 MB at 100^3, ~25 us at 3.35 TB/s, against the
@@ -79,15 +81,16 @@
 // f32).  The kernels issue far more instructions than that (IEEE sqrt and
 // divide, each spring evaluated by both endpoints): the general grid was
 // instruction-bound and no faster per step than per-step launches; the
-// plain-spring loop runs a 100^3 step in ~3/5 of a per-step launch's time
-// on an H100 (PERF.md section 6, PR 9).  Measured and dropped: each block
-// copying its tile's partner windows of pos and existence bits into shared
-// memory (cp.async, double-buffered) before the same loop, 12-15% slower
-// than reading them from device memory; staging the tile's 26 rest runs as
-// well, slower still.
-// Next steps: the per-step launches (row 2, and the link scenes that take
-// only them) on the plain-spring loop; each spring evaluated once where
-// both its endpoints are in one block.
+// plain-spring loop runs a 100^3 step in ~3/5 of a general per-step
+// launch's time on an H100 (PERF.md section 6).  Measured and dropped:
+// each block copying its tile's partner windows of pos and existence bits
+// into shared memory (cp.async, double-buffered) before the same loop,
+// 12-15% slower than reading them from device memory; staging the tile's
+// 26 rest runs as well, slower still; in the per-step kernel, each spring
+// with both ends in one block evaluated once and its force passed through
+// shared memory, 17-27% slower (the two-phase loop's barrier and branches
+// cost more than the evaluations it saves).
+// Next step: the forward RK2 grid on the plain-spring loop.
 //
 // Rounding.  Built with -fmad=false and without --use_fast_math, as
 // fused_step.cu, so that it agrees bitwise with its plain version.
@@ -99,18 +102,17 @@
 
 // The co-resident block limit of the resident-grid kernel for
 // `integrator` on `device` (the largest grid a cooperative launch takes;
-// plain: the plain-spring Euler / Verlet grid at its block size), or a
+// plain: the grid a plain-spring scene launches, at its block size), or a
 // negated cudaError_t.
 extern "C" int titan_tiled_coop_blocks(int integrator, int device,
                                        int plain) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  return plain ? titan_tiled::coop_blocks_of(
-                     titan_tiled::mega_entry<true, false>(integrator),
-                     titan_tiled::kPlainThreads, device)
-               : titan_tiled::coop_blocks_of(
-                     titan_tiled::mega_entry<false, false>(integrator),
-                     titan_tiled::kThreads, device);
+  const bool gp = titan_tiled::grid_plain(plain != 0, false, integrator);
+  return titan_tiled::coop_blocks_of(
+      gp ? titan_tiled::mega_entry<true, false>(integrator)
+         : titan_tiled::mega_entry<false, false>(integrator),
+      titan_tiled::mega_threads(gp), device);
 }
 
 // Enqueue c->n_steps steps on `stream`: n_steps / k_seg resident-grid
@@ -129,14 +131,10 @@ extern "C" int titan_tiled_pass(const TiledChunk* c,
   return titan_tiled::enqueue_tiled_pass<false>(c, p, stream);
 }
 
-// The registers a thread of the resident-grid kernel for `integrator`
-// (plain: the plain-spring Euler / Verlet grid).  Returns 0 or the CUDA
-// error.
-extern "C" int titan_tiled_mega_regs(int integrator, int plain, int* regs) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(
-      &attr, plain ? titan_tiled::mega_entry<true, false>(integrator)
-                   : titan_tiled::mega_entry<false, false>(integrator));
-  if (err == cudaSuccess) *regs = attr.numRegs;
-  return static_cast<int>(err);
+// The forward's kernel info (titan_tiled::kernel_info): threads, registers,
+// local bytes and co-resident blocks an SM of its per-step kernel (kind 0)
+// or resident grid (kind 1).
+extern "C" int titan_tiled_kernel_info(int kind, int mode, int plain, int rem,
+                                       int device, int* out) {
+  return titan_tiled::kernel_info<false>(kind, mode, plain, rem, device, out);
 }

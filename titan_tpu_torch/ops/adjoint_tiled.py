@@ -89,8 +89,8 @@ from .magnets import binned_field_vjp, pairwise_params
 from .step import local_caps
 from .tiled_step import (_INTEGRATOR_CODE, _MAX_FAMILIES, _TiledChunk,
                          _TiledPass, chunk_struct, glue_passes, launch_counts,
-                         mega_seg, prep_tiled_inputs, tiled_chunk,
-                         tiled_chunk_plain, tiled_reject_reason)
+                         mega_seg, plain_launch_count, prep_tiled_inputs,
+                         tiled_chunk, tiled_chunk_plain, tiled_reject_reason)
 
 #: the default segment's cap on the trace ([seg, trace_rows, N] f32), and
 #: on its steps (``adjoint_tiled.py:1504-1520``)
@@ -299,6 +299,9 @@ def _lib():
                                          ctypes.c_int, ctypes.c_int,
                                          ctypes.c_void_p]
     lib.titan_tiled_bwd_part.restype = ctypes.c_int
+    lib.titan_tiled_trace_kernel_info.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.titan_tiled_trace_kernel_info.restype = ctypes.c_int
     return lib
 
 
@@ -306,8 +309,9 @@ def coop_blocks(kind: str, integrator: Integrator, device=None,
                 plain: bool = False) -> int:
     """The co-resident block limit (the largest cooperative grid) of the
     trace replay's resident-grid kernel (``kind="trace"``) or of the
-    resident-grid backward (``kind="bwd"``; ``plain``: its plain-spring
-    instantiation, at its own block size) for ``integrator``."""
+    resident-grid backward (``kind="bwd"``) for ``integrator``;
+    ``plain``: the instantiation a plain-spring scene launches, at its own
+    block size."""
     dev = torch.device("cuda", device if device is not None
                        else torch.cuda.current_device())
     got = _lib().titan_tiled_adjoint_coop_blocks(
@@ -373,6 +377,7 @@ def _tiled_trace_cuda(shape: SceneShape, state: SimState, seg: int,
                 raise RuntimeError(f"tiled adjoint trace kernel launch "
                                    f"failed: CUDA error {rc}")
             tiled_trace_run.step_launches += 1
+            tiled_trace_run.plain_launches += c.plain_springs
         glue_passes(shape, state, seg, inv,
                     magnet_field_fn(shape, state, plain=False), run,
                     trace=trace)
@@ -387,6 +392,8 @@ def _tiled_trace_cuda(shape: SceneShape, state: SimState, seg: int,
     mega, step = launch_counts(shape, seg, k_seg)
     tiled_trace_run.mega_launches += mega
     tiled_trace_run.step_launches += step
+    tiled_trace_run.plain_launches += plain_launch_count(shape, mega, step,
+                                                         trace=True)
     return trace
 
 
@@ -396,7 +403,9 @@ def tiled_trace_run(shape: SceneShape, state: SimState, seg: int,
     the card, ``tiled_trace_run_plain`` for state on the CPU.  ``inv`` is
     ``prep_tiled_inputs(shape, state)`` where the caller has it.
     ``tiled_trace_run.mega_launches`` and ``.step_launches`` count the
-    replay's resident-grid and per-step launches (as ``tiled_chunk``'s)."""
+    replay's resident-grid and per-step launches, ``.plain_launches``
+    those of either that ran the plain-spring loop (as ``tiled_chunk``'s;
+    the RK2 replay's grid takes it too)."""
     dev = state.masses.pos.device
     if dev.type == "cpu":
         return tiled_trace_run_plain(shape, state, seg)
@@ -410,6 +419,7 @@ def tiled_trace_run(shape: SceneShape, state: SimState, seg: int,
 
 tiled_trace_run.mega_launches = 0
 tiled_trace_run.step_launches = 0
+tiled_trace_run.plain_launches = 0
 
 
 def _tiled_bwd_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,

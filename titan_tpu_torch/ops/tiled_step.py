@@ -42,6 +42,14 @@ kernel (``csrc/magnets_grid.cu``) for a binned one (``step.magnet_route``,
 the fused step's); ``tiled_chunk_plain`` takes their plain versions.  Glue
 scenes take no resident grid (``mega_seg``).
 
+A scene whose springs are plain and whose k is family-uniform
+(``fused_step.takes_plain_spring_path``: every main path) sums its
+families with the plain-spring loop (``csrc/step_body.cuh::
+plain_family_sum``) in every kernel but the forward RK2 grid:
+``_TiledChunk.plain_springs`` marks it, ``tiled_chunk.plain_launches``
+counts the launches that took the loop (``plain_launch_count``) and
+``step_kernel_info`` reports each kernel's block, registers and occupancy.
+
 Envelope (``tiled_reject_reason``): f32 Euler, Verlet or RK2, persistent
 external force, stencil families.
 """
@@ -448,6 +456,8 @@ class _TiledPass(ctypes.Structure):
 
 # the per-step kernel's modes (csrc/tiled_body.cuh enum Mode)
 _EULER, _VERLET, _RK2A, _RK2B = 0, 1, 2, 3
+#: ``step_kernel_info``'s names of those modes
+STEP_MODES = ("euler", "verlet", "rk2a", "rk2b")
 
 
 def _lib():
@@ -462,21 +472,10 @@ def _lib():
     lib.titan_tiled_pass.restype = ctypes.c_int
     lib.titan_tiled_coop_blocks.argtypes = [ctypes.c_int] * 3
     lib.titan_tiled_coop_blocks.restype = ctypes.c_int
-    lib.titan_tiled_mega_regs.argtypes = [ctypes.c_int, ctypes.c_int,
-                                          ctypes.POINTER(ctypes.c_int)]
-    lib.titan_tiled_mega_regs.restype = ctypes.c_int
+    lib.titan_tiled_kernel_info.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.titan_tiled_kernel_info.restype = ctypes.c_int
     return lib
-
-
-def mega_regs(integrator: Integrator, plain: bool = False) -> int:
-    """Registers a thread of the resident-grid kernel ``integrator``
-    launches (``plain``: the plain-spring Euler / Verlet grid)."""
-    regs = ctypes.c_int()
-    rc = _lib().titan_tiled_mega_regs(_INTEGRATOR_CODE[integrator],
-                                      int(plain), ctypes.byref(regs))
-    if rc != 0:
-        raise RuntimeError(f"tiled_step mega_regs: CUDA error {rc}")
-    return regs.value
 
 
 def coop_blocks(integrator: Integrator, device=None,
@@ -484,16 +483,43 @@ def coop_blocks(integrator: Integrator, device=None,
     """The co-resident block limit of the resident-grid kernel that
     ``integrator`` launches: the largest grid a cooperative launch takes
     (``plain``: the plain-spring Euler / Verlet grid, 512 threads a block;
-    else 256)."""
+    else, and for the forward RK2 grid, 256)."""
     dev = torch.device("cuda", device if device is not None
                        else torch.cuda.current_device())
     got = _lib().titan_tiled_coop_blocks(
-        _INTEGRATOR_CODE[integrator], dev.index,
-        int(plain and integrator is not Integrator.RK2))
+        _INTEGRATOR_CODE[integrator], dev.index, int(plain))
     if got <= 0:
         raise RuntimeError(f"tiled_step: cooperative launch unavailable on "
                            f"{dev} (CUDA error {-got})")
     return got
+
+
+def step_kernel_info(kind: str, mode, plain: bool, rem: bool = False,
+                     trace: bool = False, device=None) -> dict:
+    """What one kernel of the tiled chunk (``trace``: of its replay,
+    ``csrc/tiled_adjoint.cu``) launches with: threads a block, registers
+    a thread, local-memory bytes a thread (spills) and co-resident blocks
+    an SM.  ``kind`` "step": the per-step kernel of ``mode`` (one of
+    ``STEP_MODES``; ``rem``: its remainder instantiation); "grid": the
+    resident grid of ``mode`` (an ``Integrator``).  ``plain``: the kernel
+    a scene on the plain-spring path launches (the forward RK2 grid: its
+    general body)."""
+    dev = torch.device("cuda", device if device is not None
+                       else torch.cuda.current_device())
+    code = STEP_MODES.index(mode) if kind == "step" \
+        else _INTEGRATOR_CODE[mode]
+    if trace:
+        from .adjoint_tiled import _lib as trace_lib
+        fn = trace_lib().titan_tiled_trace_kernel_info
+    else:
+        fn = _lib().titan_tiled_kernel_info
+    out = (ctypes.c_int * 4)()
+    rc = fn(("step", "grid").index(kind), code, int(plain), int(rem),
+            dev.index, out)
+    if rc != 0:
+        raise RuntimeError(f"tiled_step step_kernel_info: CUDA error {rc}")
+    return dict(zip(("threads", "registers", "local_bytes", "blocks_per_sm"),
+                    out))
 
 
 def chunk_struct(shape: SceneShape, state: SimState, n_steps: int,
@@ -563,8 +589,7 @@ def chunk_struct(shape: SceneShape, state: SimState, n_steps: int,
     c.pos_tmp, c.vel_tmp, c.acc_tmp = (t.data_ptr() for t in tmp)
     c.pos_half, c.vel_half, c.vel_v1 = (None if t is None else t.data_ptr()
                                         for t in half)
-    c.plain_springs = int(bool(k_seg) and not rk2
-                          and takes_plain_spring_path(shape))
+    c.plain_springs = int(takes_plain_spring_path(shape))
     return c, out, tmp + half
 
 
@@ -575,6 +600,18 @@ def launch_counts(shape: SceneShape, n_steps: int, k_seg: int):
     n_seg = n_steps // k_seg if k_seg else 0
     per = 2 if shape.config.integrator is Integrator.RK2 else 1
     return n_seg, (n_steps - n_seg * k_seg) * per
+
+
+def plain_launch_count(shape: SceneShape, mega: int, step: int,
+                       trace: bool = False) -> int:
+    """How many of ``mega`` resident-grid and ``step`` per-step launches of
+    the chunk (``trace``: of its replay) take the plain-spring loop: all
+    of them on a scene on the plain-spring path, but the forward RK2
+    grid's; none elsewhere (``csrc/tiled_chunk.cuh::grid_plain``)."""
+    if not takes_plain_spring_path(shape):
+        return 0
+    rk2 = shape.config.integrator is Integrator.RK2
+    return step + (mega if trace or not rk2 else 0)
 
 
 def glue_passes(shape: SceneShape, state: SimState, n_steps: int,
@@ -656,6 +693,7 @@ def _tiled_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
                 raise RuntimeError(f"tiled_step kernel launch failed: CUDA "
                                    f"error {rc}")
             tiled_chunk.step_launches += 1
+            tiled_chunk.plain_launches += c.plain_springs
         out = glue_passes(shape, state, n_steps, inv,
                           field or magnet_field_fn(shape, state, plain=False),
                           run)
@@ -670,6 +708,7 @@ def _tiled_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
     mega, step = launch_counts(shape, n_steps, k_seg)
     tiled_chunk.mega_launches += mega
     tiled_chunk.step_launches += step
+    tiled_chunk.plain_launches += plain_launch_count(shape, mega, step)
     return finish_tiled_chunk(shape, state, inv, n_steps, *out)
 
 
@@ -677,7 +716,8 @@ def tiled_chunk(shape: SceneShape, state: SimState, n_steps) -> SimState:
     """``n_steps`` tiled steps: the CUDA kernels for state on the card, the
     plain version for state on the CPU.  ``tiled_chunk.mega_launches``
     counts resident-grid launches, ``tiled_chunk.step_launches`` per-step
-    launches (two per RK2 step)."""
+    launches (two per RK2 step), ``tiled_chunk.plain_launches`` those of
+    either that ran the plain-spring loop."""
     n_steps = int(n_steps)
     if n_steps <= 0:
         return state
@@ -691,3 +731,4 @@ def tiled_chunk(shape: SceneShape, state: SimState, n_steps) -> SimState:
 
 tiled_chunk.mega_launches = 0
 tiled_chunk.step_launches = 0
+tiled_chunk.plain_launches = 0
