@@ -56,10 +56,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      scenes -- 400 random magnets, an overflowing cell (cap 8, where the
      grid field must also be the binned pass's), deleted and
      zero-parameter sources, edge-clipped masses, a 16-link RobotLink --
-     within TOL_FIELD * max |plain|;
+     the pairwise field within TOL_FIELD * max |plain|, the grid field
+     bitwise, with the count of its tiles whose windows exceed the
+     kernel's shared-memory stage; and the grid field bitwise on 3,000
+     magnets within 0.4 m (cap 512), where some tile must exceed it
+     (grid_over_budget);
   h. the fused step fed the plain field against fused_chunk_plain fed the
      same field, bitwise (RobotLink under Euler, Verlet and RK2; a
-     2,000-particle grid swarm);
+     2,000-particle grid swarm, whose grid field is held bitwise too);
   i. each whole magnet route (field kernel + fused step) against the plain
      route over 100 steps, Euler, Verlet and RK2, within TOL_ROUTE, the
      field and step launches equal to the force passes; and a binned scene
@@ -76,14 +80,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      RobotLink scene every mass with another link inside the cutoff must
      feel that link's field.  From each final state, the fused step fed the
      plain field against its plain version (bitwise) and the field kernel
-     against its plain version, each element within TOL_FIELD * the sum of
-     |terms| it adds up (the RobotLink field also with only the even, then
-     only the odd, masses valid: no link partner, whose collapsed 1/r^2
-     pull hides every other term);
+     against its plain version: the grid field bitwise, with its tiles
+     over the stage counted; the pairwise field each element within
+     TOL_FIELD * the sum of |terms| it adds up (also with only the even,
+     then only the odd, masses valid: no link partner, whose collapsed
+     1/r^2 pull hides every other term);
   k. time each path: the whole route per step (CUDA events), each kernel's
      device time per launch (torch.profiler) beside its bound, the plain
-     versions, and the host time of the grid setup per pass (grid_setup
-     timed alone);
+     versions, the grid setup's host enqueue time and device time per pass
+     (grid_setup alone; host clock, CUDA events), and the grid kernel's
+     tile, stage, registers and co-resident blocks;
   l. gradient routing: diff.grad_rollout over 20 steps of a 16-link scene
      takes the fused adjoint (the field kernel in the forward and the
      replay, a magnet transpose per force pass, no eager step), and the
@@ -104,7 +110,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      launches.  Every launch must take the scene's path
      (tiled_chunk.plain_launches, check_step_path): the damped, actuated,
      breathing and non-uniform-k scenes the general body, the others the
-     plain-spring loop, on every kernel but the forward RK2 grid;
+     plain-spring loop, on every kernel;
   o. the 100^3 stress config (bench.py with TITAN_BENCH_NX=100: 1,000,000
      masses, 12,731,796 springs) through Simulation (the path of its
      resident grid, per-step kernel and replay printed with each kernel's
@@ -248,8 +254,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      magnets, 50 links, dt 1e-4) through Simulation for 500 steps on the
      tiled route with the grid field, every count zeroed before and read
      after (one per-step launch and one grid launch per step, nothing
-     else); from there under Euler, Verlet and RK2 the glue step, replay
-     and B7 against their plain versions at full width, and the gradient
+     else), and the grid field bitwise its plain version at the end
+     state (its tiles over the stage counted); from there under Euler,
+     Verlet and RK2 the glue step, replay and B7 against their plain
+     versions at full width, and the gradient
      path on the tiled adjoint over 100 steps in segments of 50 (exact
      launches, the binned vjp once per force pass, 0 resident-grid, 0 B8,
      0 eager; finite gradients, nonzero where the term acts), and once
@@ -698,8 +706,7 @@ def report_path(name, shape, route):
     fused step; "mega": the tiled chunk's resident grid, its per-step
     kernel (the tail's, and a link or glue scene's every launch) and the
     replay's grid and per-step kernel.  A lattice main path (13 families)
-    must take the plain-spring loop on each (the forward RK2 grid keeps
-    the general body)."""
+    must take the plain-spring loop on each."""
     from titan_tpu_torch.ops import fused_step, tiled_step
     plain = fused_step.takes_plain_spring_path(shape)
     if len(shape.stencil_deltas) == 13:
@@ -727,12 +734,9 @@ def report_path(name, shape, route):
             i = tiled_step.step_kernel_info(kind, mode, plain,
                                             shape.has_remainder, trace)
             if kind == "grid":
-                takes = plain and (trace or integ.name != "RK2")
                 what = (("tiled_megark2_kernel" if integ.name == "RK2"
                          else "tiled_mega_kernel") + " ("
-                        + ("replay" if trace else "forward") + ", "
-                        + ("the plain-spring loop" if takes
-                           else "the general body") + ")")
+                        + ("replay" if trace else "forward") + ")")
             else:
                 what = (f"tiled_step_kernel {mode} ("
                         + ("replay" if trace else "forward") + ")")
@@ -1274,7 +1278,9 @@ def field_vs_plain(titan):
         gr = magnets_grid.grid_magnet_forces(m, cut, cap)
         gr_plain = magnets_grid.grid_magnet_forces_plain(m, cut, cap)
         torch.cuda.synchronize()
-        out = []
+        check(torch.equal(gr, gr_plain), f"{label}: the grid kernel is not "
+              "bitwise its plain version")
+        out = [grid_tile_report(m, cut, cap)[2]]
         for kname, a, b in (("pairwise", pw, pw_plain),
                             ("grid", gr, gr_plain)):
             check(bool(torch.isfinite(a).all()), f"{label}: {kname} field "
@@ -1298,8 +1304,46 @@ def field_vs_plain(titan):
             check(d <= TOL_FIELD * float(bn.abs().max()),
                   f"{label}: grid plain differs from the binned pass")
         print(f"field kernels vs plain [{label}]: " + "; ".join(out)
-              + f" (tolerance {TOL_FIELD} * max |plain|)")
+              + f" (tolerance {TOL_FIELD} * max |plain|; grid bitwise)")
+    grid_over_budget(titan)
     return worst
+
+
+def grid_tile_report(m, cut, cap):
+    """(tiles over the stage, tiles, what to print) of one grid field
+    pass on masses ``m``: the tiles whose windows hold more sources than
+    the kernel's stage read them from device memory."""
+    from titan_tpu_torch.ops import magnets_grid
+    info = magnets_grid.kernel_info()
+    over, tiles = magnets_grid.tiles_over_budget(
+        magnets_grid.grid_setup(m, cut), cap, info["tile"], info["stage"],
+        info["window"])
+    return over, tiles, (f"grid tiles {tiles} of {info['tile']} receivers, "
+                         f"{over} over the stage ({info['stage']} sources, "
+                         f"{info['window']} cells a row)")
+
+
+def grid_over_budget(titan):
+    """Phase g's grid scene built so that windows exceed the kernel's
+    stage (3,000 magnets within 0.4 m, cap 512): the kernel, reading those
+    tiles' sources from device memory, bitwise its plain version, and a
+    nonzero count of such tiles."""
+    import torch
+    from titan_tpu_torch.ops import magnets_grid
+    cut, cap = 0.14, 512
+    _, state = marshalled(cloud_sim(titan, n=3000, seed=7, spread=0.2))
+    m = state.masses
+    got = magnets_grid.grid_magnet_forces(m, cut, cap)
+    want = magnets_grid.grid_magnet_forces_plain(m, cut, cap)
+    torch.cuda.synchronize()
+    over, tiles, what = grid_tile_report(m, cut, cap)
+    same = torch.equal(got, want)
+    print(f"grid field kernel vs plain [3,000 magnets within 0.4 m, cap "
+          f"{cap}]: {'bitwise' if same else 'DIFFERENT'} (max |plain| "
+          f"{float(want.abs().max()):.3e}); {what}")
+    check(same and over > 0 and float(want.abs().max()) > 0,
+          "the grid kernel over its stage: not bitwise its plain version, "
+          "or no tile over the stage")
 
 
 def fed_field_bitwise(titan):
@@ -1318,6 +1362,8 @@ def fed_field_bitwise(titan):
     for label, sim in cases:
         shape, state = marshalled(sim)
         check(fused_step.fused_reject_reason(shape) is None, label)
+        if shape.magnet_binned:
+            grid_bitwise(shape, state, label)
         field = fused_step.magnet_field_fn(shape, state, plain=True)
         got = fused_step._fused_chunk_cuda(shape, state, 50, field=field)
         want = fused_step.fused_chunk_plain(shape, state, 50, field=field)
@@ -1514,7 +1560,7 @@ def grid_pairs(state, cap, cut):
     G = magnets_grid.GRID_DIM
     m = state.masses
     n = m.pos.shape[1]
-    cell, starts, src = magnets_grid.grid_setup(m, cut)
+    cell, starts, src = magnets_grid.grid_setup(m, cut)[:3]
     starts = starts.long()
     cell = cell.long()
     real = cell < G * G
@@ -1614,6 +1660,9 @@ def time_magnet_path(name, shape, state, field_kernel, n_steps):
             magnets_grid.grid_setup(m, cut)
         setup_us = (time.perf_counter() - t0) / n_steps * 1e6
         torch.cuda.synchronize()
+        setup_dev_us = 1e3 * event_ms(lambda k: [
+            magnets_grid.grid_setup(m, cut) for _ in range(k)], n_steps)
+        info = magnets_grid.kernel_info()
     dev = profile_route(name, lambda: route(n_steps), n_steps,
                         ("fused_step_kernel", kname))
     per = {k: t / c for k, (t, c) in dev.items()}
@@ -1640,7 +1689,15 @@ def time_magnet_path(name, shape, state, field_kernel, n_steps):
           f"(CUDA events, {n_steps}-step chunk; host enqueue "
           f"{host_us:.3f} us/step"
           + (f", of which the grid setup's enqueue {setup_us:.3f} us/pass"
-             if field_kernel == "grid" else "") + ")")
+             f"; the setup alone {setup_dev_us:.3f} us/pass by CUDA "
+             f"events" if field_kernel == "grid" else "") + ")")
+    if field_kernel == "grid":
+        print(f"timing {name}: grid_magnet_kernel {info['tile']} threads a "
+              f"block ({info['blocks_asked']} blocks an SM asked), stage "
+              f"{info['stage']} sources and {info['window']} cells a row, "
+              f"{info['registers']} registers and "
+              f"{info['local_bytes']} B of local memory a thread, "
+              f"{info['blocks_per_sm']} co-resident blocks an SM")
     print(f"timing {name}: torch.profiler device time per launch: "
           + (", ".join(f"{k} {v:.3f} us" for k, v in per.items())
              if per else "not measured (no device time recorded)")
@@ -1660,7 +1717,8 @@ def time_magnet_path(name, shape, state, field_kernel, n_steps):
             dict(ms=fused_ms, path_ms=step_ms, plain_ms=fused_plain_ms,
                  bound_ms=step_bound, bound_by=step_by,
                  host_us_per_step=host_us,
-                 **({"setup_host_us_per_pass": setup_us}
+                 **({"setup_host_us_per_pass": setup_us,
+                     "setup_us_per_pass": setup_dev_us}
                     if field_kernel == "grid" else {})))
 
 
@@ -1759,7 +1817,7 @@ def magnet_phases(titan, kernels):
                   and not shape.stencil_deltas, f"{name}: {shape}")
             check(z1 < z0 - 1e-3, f"{name}: mean z did not fall "
                   f"({z0:.5f} -> {z1:.5f})")
-            full = grid_full_size(shape, state, name)
+            full = grid_bitwise(shape, state, f"{name} at the final state")
         fed = fused_vs_fed_plain(shape, state, 20, name)
         field_t, fused_t = time_magnet_path(name, shape, state, fk,
                                             200 if fk == "pairwise" else 100)
@@ -1768,7 +1826,10 @@ def magnet_phases(titan, kernels):
             source=f"titan_tpu_torch/{src}", replaces=replaces,
             launches=counts[fk], max_abs_err=max(worst_field[fk][0], full[0]),
             max_rel_err=max(worst_field[fk][1], full[1]),
-            route_max_abs_err=worst_route[fk], **field_t, library_ms=None))
+            route_max_abs_err=worst_route[fk], **field_t,
+            **({} if fk == "pairwise" else
+               dict(tiles=full[3], tiles_over_stage=full[2])),
+            library_ms=None))
         kernels.append(dict(
             name=f"fused_step ({name})", route="cuda",
             source="titan_tpu_torch/csrc/fused_step.cu",
@@ -1796,10 +1857,10 @@ def fused_vs_fed_plain(shape, state, steps, name):
     return d
 
 
-def grid_full_size(shape, state, name):
-    """The grid kernel against its plain version at the swarm path's final
-    state, within TOL_FIELD * max |plain| (the two sum in the same order):
-    (max |d|, max |d| / max |plain|)."""
+def grid_bitwise(shape, state, name):
+    """The grid kernel against its plain version on `state`, bitwise (the
+    two sum in the same order), with the pass's tiles: (max |d|, max |d| /
+    max |plain|, tiles over the stage, tiles)."""
     import torch
     from titan_tpu_torch.ops import magnets_grid
     m, cut = state.masses, shape.config.magnet_cutoff
@@ -1808,10 +1869,14 @@ def grid_full_size(shape, state, name):
     b = magnets_grid.grid_magnet_forces_plain(m, cut, cap)
     torch.cuda.synchronize()
     d, scale = float((a - b).abs().max()), float(b.abs().max())
-    print(f"{name}: grid field kernel vs plain at the final state: max |d| "
-          f"{d:.3e} of max |plain| {scale:.3e}")
-    check(d <= TOL_FIELD * scale, f"{name}: full-size grid field disagrees")
-    return d, d / max(scale, 1e-30)
+    same = torch.equal(a, b)
+    over, tiles, what = grid_tile_report(m, cut, cap)
+    print(f"{name}: grid field kernel vs plain: "
+          f"{'bitwise' if same else 'DIFFERENT'} (max |d| {d:.3e} of max "
+          f"|plain| {scale:.3e}); {what}")
+    check(same and scale > 0, f"{name}: the grid field kernel is not "
+          "bitwise its plain version")
+    return d, d / max(scale, 1e-30), over, tiles
 
 
 # ---------------------------------------------------------------------------
@@ -1960,12 +2025,12 @@ def check_step_path(label, shape, run, before, trace=False):
     """The launches `run` (tiled_chunk, or tiled_trace_run with `trace`)
     made since its counts were `before` (launch_counts_of) must have
     taken the plain-spring loop as the scene's path gives: every one on
-    the plain path but the forward RK2 grid's, none on the general body
+    the plain path, none on the general body
     (tiled_step.plain_launch_count).  Returns what to print."""
     from titan_tpu_torch.ops import tiled_step
     mega, step, took = (a - b for a, b in zip(launch_counts_of(run),
                                                before))
-    want = tiled_step.plain_launch_count(shape, mega, step, trace)
+    want = tiled_step.plain_launch_count(shape, mega, step)
     path = spring_path(shape)
     check(took == want and (want > 0) == (path == "plain"),
           f"{label}: {took} of {mega + step} {'replay' if trace else 'step'}"
@@ -1978,9 +2043,9 @@ def check_profiled_path(label, shape, keys):
     """Each tiled step, grid or replay kernel among the profiler's `keys`
     must be the instantiation of the scene's path: the plain-spring loop
     (tiled_step_kernel<MODE, REM, true, TRACE>, tiled_mega_kernel<MODE,
-    true, TRACE>, tiled_megark2_kernel<true, true>: a PLAIN argument
-    before TRACE, true) on the plain path, but in the forward RK2 grid,
-    and the general body (tiled_step_kernel<MODE, REM, TRACE>,
+    true, TRACE>, tiled_megark2_kernel<true, TRACE>: a PLAIN argument
+    before TRACE, true) on the plain path, forward and replay alike, and
+    the general body (tiled_step_kernel<MODE, REM, TRACE>,
     tiled_mega_kernel<MODE, false, TRACE>, tiled_megark2_kernel<TRACE>)
     elsewhere.  Returns the kernels seen."""
     import re
@@ -1995,8 +2060,7 @@ def check_profiled_path(label, shape, keys):
             continue
         args = [a.strip() for a in m.group(2).split(",")]
         took = len(args) == full[m.group(1)] and args[-2] == "true"
-        want = plain and (args[-1] == "true"
-                          or m.group(1) != "tiled_megark2_kernel")
+        want = plain
         check(took == want, f"{label}: {m.group(0)} launched where the "
               f"{spring_path(shape)} path gives the "
               + ("plain-spring loop" if want else "general body"))
@@ -2383,8 +2447,7 @@ def time_tiled(name, shape, state):
                  f"{us:.3f} us/launch on the device ({t[1]} launches)")
               + f"; bound {b_ms * 1e3:.4f} us/launch by {by} (bytes "
               f"{t_b * 1e3:.4f} us, ops {t_o * 1e3:.4f} us)")
-        plain = spring_path(shape) == "plain" and not (
-            rk2 and per_launch_steps)
+        plain = spring_path(shape) == "plain"
         out[kname] = dict(ms=None if us is None else us / 1e3,
                           plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
                           ms_per_step=ms, fused_ms_per_step=fused_ms,
@@ -2521,9 +2584,9 @@ def read_adjoint_counts():
 def spring_path(shape):
     """"plain" where the tiled kernels run the plain-spring loop on
     `shape` (fused_step.takes_plain_spring_path): the per-step kernel, the
-    replay and every resident grid but the forward RK2 one
-    (step_body.cuh::plain_family_sum), and the backward kernels B7, B8
-    (adjoint_body.cuh::plain_family_transpose); else "general"."""
+    replay and every resident grid (step_body.cuh::plain_family_sum),
+    and the backward kernels B7, B8 (adjoint_body.cuh::
+    plain_family_transpose); else "general"."""
     from titan_tpu_torch.ops import fused_step
     return "plain" if fused_step.takes_plain_spring_path(shape) else \
         "general"
@@ -2725,7 +2788,7 @@ def expected_grad_counts(shape, n_steps):
                 fwd_plain=n_seg * tiled_step.plain_launch_count(
                     shape, mega, step),
                 trace_plain=n_seg * tiled_step.plain_launch_count(
-                    shape, mega, step, trace=True))
+                    shape, mega, step))
     if at.mega_adjoint_ok(shape):
         want["bwd_mega"] = n_seg
     else:                   # five launches per RK2 step, else two
@@ -4381,7 +4444,7 @@ def acting_params(shape, state):
             idx[:, 0][:, None])
     else:
         G, cap = magnets_grid.GRID_DIM, shape.magnet_binned[1]
-        cell, starts, src = magnets_grid.grid_setup(m, cut)
+        cell, starts, src = magnets_grid.grid_setup(m, cut)[:3]
         starts, cell = starts.long(), cell.long()
         idx = torch.arange(n, device=m.pos.device)
         real = cell < G * G
@@ -4765,7 +4828,8 @@ def time_glue(name, shape, state, fb_ms):
 def glue_phase(titan, kernels):
     """Phase z8: the 64^3 magnet lattice of scripts/tpu_soak.py's flow 6
     through Simulation for GLUE_FWD_STEPS steps on the tiled route
-    (drive_glue: per-step launches and the grid field only); from its end
+    (drive_glue: per-step launches and the grid field only), the grid
+    field bitwise its plain version there (grid_bitwise); from its end
     state under Euler, Verlet and RK2 the glue step, replay and B7 against
     their plain versions (glue_vs_plain), the gradient path on the tiled
     adjoint over GLUE_GRAD_STEPS steps in segments of GLUE_SEG
@@ -4781,6 +4845,7 @@ def glue_phase(titan, kernels):
     sim = glue_sim(titan)
     print(f"{name}: built in {time.perf_counter() - t0:.2f} s (host)")
     fwd, (shape, state) = drive_glue(sim, name)
+    grid_full = grid_bitwise(shape, state, f"{name} at the final state")
     bad, runs = [], {}
     for integ in (Integrator.EULER, Integrator.VERLET, Integrator.RK2):
         sh = integrator_shape(shape, integ)
@@ -4825,7 +4890,9 @@ def glue_phase(titan, kernels):
                             f"{GLUE_FWD_STEPS} steps)",
                             "titan_tpu_torch/csrc/magnets_grid.cu",
                             "titan_tpu/ops/magnets_grid.py:64", fwd["grid"],
-                            0.0, t["grid"]))
+                            grid_full[0], dict(
+                                t["grid"], tiles=grid_full[3],
+                                tiles_over_stage=grid_full[2])))
         for kname, src, replaces, n_launch, err, tm in entries:
             kernels.append(dict(name=kname, route="cuda", source=src,
                                 replaces=replaces, launches=n_launch,

@@ -10,9 +10,9 @@ structures against their C structures.
   with family-uniform k set the flag on every launch (links too): the
   per-step chunk, the resident-grid segments and their per-step tail, the
   Euler, Verlet and RK2 replay and a magnet scene's glue passes, forward
-  and replay.  Every launch then takes the loop but the forward RK2 grid,
-  which keeps the general body.  Damping, breathing, actuation,
-  non-uniform k and a uniform-breaking ``Spring.set`` clear the flag.
+  and replay.  Every launch then takes the loop.  Damping, breathing,
+  actuation, non-uniform k and a uniform-breaking ``Spring.set`` clear
+  the flag.
 - ``_TiledChunk``, ``_TiledArgs`` and ``_TiledPass`` name their C
   structures' fields in ``csrc/tiled_chunk.cuh`` and
   ``csrc/tiled_body.cuh``, in order.
@@ -138,28 +138,21 @@ def test_plain_flag_follows_scene(feature, stand_in_card):
 
 @pytest.mark.parametrize("integrator", ["verlet", "rk2"])
 def test_plain_launches_by_integrator(integrator, stand_in_card):
-    """A plain scene under Verlet takes the loop on every launch; under
-    RK2 the replay's grid does, the forward's grid keeps the general body
-    (its launches are not counted), and every per-step launch (two a step)
-    takes it."""
+    """A plain scene under Verlet and RK2 takes the loop on every launch,
+    forward and replay alike: both resident-grid launches and every
+    per-step launch (two a step under RK2)."""
     shape, state = scene(integrator=integrator)
     assert fused_step.takes_plain_spring_path(shape)
     inv = tiled_step.prep_tiled_inputs(shape, state)
-    rk2 = integrator == "rk2"
-    per = 2 if rk2 else 1
+    per = 2 if integrator == "rk2" else 1
     zero_counts()
     tiled_step._tiled_chunk_cuda(shape, state, STEPS, tiled_step.MEGA_SEG)
     adjoint_tiled._tiled_trace_cuda(shape, state, STEPS, inv,
                                     tiled_step.MEGA_SEG)
     assert [flag for _, flag, _ in stand_in_card] == [1, 1]
-    assert counts(tiled_step.tiled_chunk) == (2, 5 * per,
-                                              5 * per + (0 if rk2 else 2))
-    assert counts(adjoint_tiled.tiled_trace_run) == (2, 5 * per,
-                                                     5 * per + 2)
-    assert tiled_step.plain_launch_count(shape, 2, 5 * per) == \
-        5 * per + (0 if rk2 else 2)
-    assert tiled_step.plain_launch_count(shape, 2, 5 * per, trace=True) == \
-        5 * per + 2
+    for run in (tiled_step.tiled_chunk, adjoint_tiled.tiled_trace_run):
+        assert counts(run) == (2, 5 * per, 5 * per + 2)
+    assert tiled_step.plain_launch_count(shape, 2, 5 * per) == 5 * per + 2
 
 
 @pytest.mark.parametrize("feature,integrator", [("plain", "euler"),

@@ -27,9 +27,9 @@
 // kernel too, not per step as the JAX package does (its megatrace is
 // Euler/Verlet only): a resident-grid segment is bitwise its per-step
 // launches either way.  A plain-spring scene's replay takes the
-// plain-spring loop in every launch, the RK2 grid's included
-// (tiled_megark2_kernel<true, true>; the forward's keeps the general body):
-// the loop is bitwise the general body, so the trace stays the forward's.
+// plain-spring loop in every launch, as its forward does (the RK2 grid:
+// tiled_megark2_kernel<true, true>): the loop is bitwise the general body,
+// so the trace stays the forward's.
 // The trace holds no acc: the Verlet transpose is linear in the previous
 // acc and never reads its value.
 //
@@ -272,11 +272,10 @@ extern "C" int titan_tiled_adjoint_coop_blocks(int kind, int integrator,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (kind == 0) {
-    const bool gp = titan_tiled::grid_plain(plain != 0, true, integrator);
     return titan_tiled::coop_blocks_of(
-        gp ? titan_tiled::mega_entry<true, true>(integrator)
-           : titan_tiled::mega_entry<false, true>(integrator),
-        titan_tiled::mega_threads(gp), device);
+        plain ? titan_tiled::mega_entry<true, true>(integrator)
+              : titan_tiled::mega_entry<false, true>(integrator),
+        titan_tiled::mega_threads(plain != 0), device);
   }
   return titan_tiled::coop_blocks_of(b8_entry(plain != 0),
                                      b8_threads(plain != 0), device);

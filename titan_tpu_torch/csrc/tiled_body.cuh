@@ -271,7 +271,7 @@ __device__ __forceinline__ void tiled_mass_with(const TiledArgs& a,
 }
 
 // tiled_mass_with the family sum from device memory: every kernel of a
-// scene off the plain-spring path, and the forward RK2 grid.
+// scene off the plain-spring path.
 template <int MODE, bool REM = false>
 __device__ __forceinline__ void tiled_mass(const TiledArgs& a,
                                            const StepIO& io, int i) {

@@ -5,18 +5,17 @@
 // step computes, and why it is laid out this way, is set out at the top of
 // csrc/tiled_step.cu.
 //
-// The plain-spring loop (step_body.cuh::plain_family_sum) runs wherever the
-// host marks the scene's springs plain (TiledChunk::plain_springs): in the
-// per-step kernel (tiled_step_kernel<MODE, REM, true, TRACE>), the Euler /
-// Verlet resident grid (tiled_mega_kernel<MODE, true, TRACE>) and the RK2
-// replay's grid (tiled_megark2_kernel<true, true>), forward and replay
-// alike.  The forward RK2 grid (tiled_megark2_kernel<false>) and every
-// kernel of a scene off that path run the general family loop
-// (tiled_body.cuh::tiled_families).  Both loops do the same arithmetic in
-// the same order, so every kernel stays bitwise the others.  The plain
-// per-step and RK2 kernels are overloads of the general ones with a PLAIN
-// argument before TRACE, so that the general instantiations keep their
-// machine code; TRACE stays the last template argument (the profiler
+// The plain-spring loop (step_body.cuh::plain_family_sum) runs in every
+// launch of a scene that the host marks plain (TiledChunk::plain_springs):
+// the per-step kernel (tiled_step_kernel<MODE, REM, true, TRACE>), the
+// Euler / Verlet resident grid (tiled_mega_kernel<MODE, true, TRACE>) and
+// the RK2 resident grid (tiled_megark2_kernel<true, TRACE>), forward and
+// replay alike.  Every kernel of a scene off that path runs the general
+// family loop (tiled_body.cuh::tiled_families).  Both loops do the same
+// arithmetic in the same order, so every kernel stays bitwise the others.
+// The plain per-step and RK2 kernels are overloads of the general ones with
+// a PLAIN argument before TRACE, so that the general instantiations keep
+// their machine code; TRACE stays the last template argument (the profiler
 // groups of chip_smoke.py tell the replay by it).
 //
 // TRACE = true: before each step, each mass's input (pos, vel) of that step
@@ -249,8 +248,7 @@ __device__ __forceinline__ void megark2_steps(
   }
 }
 
-// The general body (the forward RK2 grid, and the replay of a scene off
-// the plain-spring path).
+// The general body (a scene off the plain-spring path).
 template <bool TRACE>
 __global__ void tiled_megark2_kernel(TiledArgs a, int step0, int k_seg,
                                      State3 in, State3 buf_a, State3 buf_b,
@@ -260,36 +258,26 @@ __global__ void tiled_megark2_kernel(TiledArgs a, int step0, int k_seg,
                               vel_half, vel_v1, trace);
 }
 
-// The plain-spring loop, tiled_megark2_kernel<true, true>: the replay of a
-// plain-spring scene only (the forward RK2 grid keeps the general body).
-// An overload, as tiled_step_kernel's, at kPlainThreads threads a block,
-// two blocks an SM.
+// The plain-spring loop, tiled_megark2_kernel<true, TRACE>: the forward
+// and the replay of a plain-spring scene.  An overload, as
+// tiled_step_kernel's, at kPlainThreads threads a block, two blocks an SM.
 template <bool PLAIN, bool TRACE>
 __global__ void __launch_bounds__(kPlainThreads, 2)
     tiled_megark2_kernel(TiledArgs a, int step0, int k_seg, State3 in,
                          State3 buf_a, State3 buf_b, float* pos_half,
                          float* vel_half, float* vel_v1, float* trace) {
-  static_assert(PLAIN && TRACE, "only the replay's RK2 grid takes the "
-                                "plain-spring loop");
-  megark2_steps<true, true>(a, step0, k_seg, in, buf_a, buf_b, pos_half,
-                            vel_half, vel_v1, trace);
-}
-
-// Whether the resident grid of `integrator` takes the plain-spring loop on
-// a scene whose springs take it (`plain`): every grid but the forward RK2
-// one (row 4 keeps the general body).
-__host__ __device__ constexpr bool grid_plain(bool plain, bool trace,
-                                              int integrator) {
-  return plain && (trace || integrator != 2);
+  static_assert(PLAIN, "the general body is tiled_megark2_kernel<TRACE>");
+  megark2_steps<true, TRACE>(a, step0, k_seg, in, buf_a, buf_b, pos_half,
+                             vel_half, vel_v1, trace);
 }
 
 // The resident-grid kernel of `integrator` (PLAIN: its plain-spring
-// instantiation; the forward RK2 grid has none), and its block.
+// instantiation), and its block.
 template <bool PLAIN, bool TRACE>
 void* mega_entry(int integrator) {
   if (integrator == 2) {
-    if constexpr (PLAIN && TRACE) {
-      return reinterpret_cast<void*>(tiled_megark2_kernel<true, true>);
+    if constexpr (PLAIN) {
+      return reinterpret_cast<void*>(tiled_megark2_kernel<true, TRACE>);
     } else {
       return reinterpret_cast<void*>(tiled_megark2_kernel<TRACE>);
     }
@@ -354,8 +342,7 @@ inline int coop_blocks_of(const void* entry, int threads, int device) {
 // out[3] co-resident blocks an SM.  kind 0: the per-step kernel of Mode
 // `mode` (REM: its remainder instantiation); kind 1: the resident grid of
 // integrator `mode` (0 Euler, 1 Verlet, 2 RK2).  plain: the kernel a scene
-// whose springs are plain launches (grid_plain for the grids).  Returns 0
-// or a CUDA error.
+// whose springs are plain launches.  Returns 0 or a CUDA error.
 template <bool TRACE>
 int kernel_info(int kind, int mode, int plain, int rem, int device,
                 int* out) {
@@ -373,10 +360,9 @@ int kernel_info(int kind, int mode, int plain, int rem, int device,
                   : step_entry<false, false, TRACE>(mode);
     }
   } else {
-    const bool gp = grid_plain(plain != 0, TRACE, mode);
-    threads = mega_threads(gp);
-    entry = gp ? mega_entry<true, TRACE>(mode)
-               : mega_entry<false, TRACE>(mode);
+    threads = mega_threads(plain != 0);
+    entry = plain ? mega_entry<true, TRACE>(mode)
+                  : mega_entry<false, TRACE>(mode);
   }
   cudaFuncAttributes attr;
   if ((err = cudaFuncGetAttributes(&attr, entry)) != cudaSuccess) {
@@ -414,8 +400,7 @@ struct TiledChunk {
   float* vel_half;
   float* vel_v1;    // RK2 with local constraints: pass 1's mutated velocity
   int plain_springs;  // 1: the scene's springs take the plain-spring loop
-                      // (TiledArgs::bits carries k): the per-step kernel
-                      // and every grid but the forward RK2 one
+                      // (TiledArgs::bits carries k) in every launch
 };
 
 namespace titan_tiled {
@@ -453,10 +438,9 @@ int enqueue_tiled_chunk(const TiledChunk* c, float* trace, void* stream) {
     // write: out for an even tail, tmp for an odd one
     State3 buf_a = tail % 2 == 0 ? out : tmp;
     State3 buf_b = tail % 2 == 0 ? tmp : out;
-    const bool gp = grid_plain(plain, TRACE, c->integrator);
-    void* entry_fn = gp ? mega_entry<true, TRACE>(c->integrator)
-                        : mega_entry<false, TRACE>(c->integrator);
-    const int threads = mega_threads(gp);
+    void* entry_fn = plain ? mega_entry<true, TRACE>(c->integrator)
+                           : mega_entry<false, TRACE>(c->integrator);
+    const int threads = mega_threads(plain);
     const int limit = coop_blocks_of(entry_fn, threads, c->device);
     if (limit <= 0) return limit < 0 ? -limit : cudaErrorNotSupported;
     const int want = (a.n + threads - 1) / threads;

@@ -65,13 +65,13 @@
 // with the fused step's plain-spring loop (step_body.cuh::
 // plain_family_sum: no per-spring feature branch, partner indices clamped
 // into [0, N) so that no load waits on a branch) before tiled_mass's tail:
-// the Euler / Verlet grid (tiled_mega_kernel<MODE, true, false>) at 512
-// threads a block, two blocks an SM, and the per-step kernel
-// (tiled_step_kernel<MODE, REM, true, false>: the tail's launches, a link
-// scene's, the glue passes) at 128 threads a block, eight an SM, both
-// capped at 64 registers.  The RK2 grid and every kernel of another scene
-// keep the general body; both loops do the same arithmetic in the same
-// order, so every mode stays bitwise the others.
+// the Euler / Verlet grid (tiled_mega_kernel<MODE, true, false>) and the
+// RK2 grid (tiled_megark2_kernel<true, false>) at 512 threads a block, two
+// blocks an SM, and the per-step kernel (tiled_step_kernel<MODE, REM, true,
+// false>: the tail's launches, a link scene's, the glue passes) at 128
+// threads a block, eight an SM, all capped at 64 registers.  Every kernel
+// of another scene keeps the general body; both loops do the same
+// arithmetic in the same order, so every mode stays bitwise the others.
 //
 // Bound.  Per step a launch reads pos (and vel, acc) and the mask, and
 // writes the new state: ~84 MB at 100^3, ~25 us at 3.35 TB/s, against the
@@ -90,7 +90,6 @@
 // with both ends in one block evaluated once and its force passed through
 // shared memory, 17-27% slower (the two-phase loop's barrier and branches
 // cost more than the evaluations it saves).
-// Next step: the forward RK2 grid on the plain-spring loop.
 //
 // Rounding.  Built with -fmad=false and without --use_fast_math, as
 // fused_step.cu, so that it agrees bitwise with its plain version.
@@ -108,11 +107,10 @@ extern "C" int titan_tiled_coop_blocks(int integrator, int device,
                                        int plain) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  const bool gp = titan_tiled::grid_plain(plain != 0, false, integrator);
   return titan_tiled::coop_blocks_of(
-      gp ? titan_tiled::mega_entry<true, false>(integrator)
-         : titan_tiled::mega_entry<false, false>(integrator),
-      titan_tiled::mega_threads(gp), device);
+      plain ? titan_tiled::mega_entry<true, false>(integrator)
+            : titan_tiled::mega_entry<false, false>(integrator),
+      titan_tiled::mega_threads(plain != 0), device);
 }
 
 // Enqueue c->n_steps steps on `stream`: n_steps / k_seg resident-grid

@@ -392,8 +392,7 @@ def _tiled_trace_cuda(shape: SceneShape, state: SimState, seg: int,
     mega, step = launch_counts(shape, seg, k_seg)
     tiled_trace_run.mega_launches += mega
     tiled_trace_run.step_launches += step
-    tiled_trace_run.plain_launches += plain_launch_count(shape, mega, step,
-                                                         trace=True)
+    tiled_trace_run.plain_launches += plain_launch_count(shape, mega, step)
     return trace
 
 

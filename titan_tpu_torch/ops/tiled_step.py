@@ -45,7 +45,7 @@ scenes take no resident grid (``mega_seg``).
 A scene whose springs are plain and whose k is family-uniform
 (``fused_step.takes_plain_spring_path``: every main path) sums its
 families with the plain-spring loop (``csrc/step_body.cuh::
-plain_family_sum``) in every kernel but the forward RK2 grid:
+plain_family_sum``) in every launch, forward and replay alike:
 ``_TiledChunk.plain_springs`` marks it, ``tiled_chunk.plain_launches``
 counts the launches that took the loop (``plain_launch_count``) and
 ``step_kernel_info`` reports each kernel's block, registers and occupancy.
@@ -482,8 +482,7 @@ def coop_blocks(integrator: Integrator, device=None,
                 plain: bool = False) -> int:
     """The co-resident block limit of the resident-grid kernel that
     ``integrator`` launches: the largest grid a cooperative launch takes
-    (``plain``: the plain-spring Euler / Verlet grid, 512 threads a block;
-    else, and for the forward RK2 grid, 256)."""
+    (``plain``: the plain-spring grid, 512 threads a block; else 256)."""
     dev = torch.device("cuda", device if device is not None
                        else torch.cuda.current_device())
     got = _lib().titan_tiled_coop_blocks(
@@ -502,8 +501,7 @@ def step_kernel_info(kind: str, mode, plain: bool, rem: bool = False,
     an SM.  ``kind`` "step": the per-step kernel of ``mode`` (one of
     ``STEP_MODES``; ``rem``: its remainder instantiation); "grid": the
     resident grid of ``mode`` (an ``Integrator``).  ``plain``: the kernel
-    a scene on the plain-spring path launches (the forward RK2 grid: its
-    general body)."""
+    a scene on the plain-spring path launches."""
     dev = torch.device("cuda", device if device is not None
                        else torch.cuda.current_device())
     code = STEP_MODES.index(mode) if kind == "step" \
@@ -602,16 +600,11 @@ def launch_counts(shape: SceneShape, n_steps: int, k_seg: int):
     return n_seg, (n_steps - n_seg * k_seg) * per
 
 
-def plain_launch_count(shape: SceneShape, mega: int, step: int,
-                       trace: bool = False) -> int:
+def plain_launch_count(shape: SceneShape, mega: int, step: int) -> int:
     """How many of ``mega`` resident-grid and ``step`` per-step launches of
-    the chunk (``trace``: of its replay) take the plain-spring loop: all
-    of them on a scene on the plain-spring path, but the forward RK2
-    grid's; none elsewhere (``csrc/tiled_chunk.cuh::grid_plain``)."""
-    if not takes_plain_spring_path(shape):
-        return 0
-    rk2 = shape.config.integrator is Integrator.RK2
-    return step + (mega if trace or not rk2 else 0)
+    the chunk or of its replay take the plain-spring loop: all of them on
+    a scene on the plain-spring path, none elsewhere."""
+    return mega + step if takes_plain_spring_path(shape) else 0
 
 
 def glue_passes(shape: SceneShape, state: SimState, n_steps: int,
