@@ -30,15 +30,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      fused_step.cu, each by its own nvcc, started together, with ptxas
      reports;
   b. hold both adjoint kernels against their plain versions on the 12 small
-     scenes over a 20-step segment: the trace bitwise against
+     scenes and a non-uniform-k one over a 20-step segment: the trace bitwise against
      trace_run_plain, the backward against bwd_run_plain fed the same trace
-     and seeded cotangents, within TOL_BWD of max |plain| for every output;
+     and seeded cotangents, bitwise under Euler and Verlet and within
+     TOL_BWD of max |plain| for every output under RK2, its launches
+     exactly adjoint.bwd_launch_count's, the damped, breathing, actuated
+     and non-uniform-k scenes on the backward's general body and the
+     others on its plain-spring loop (bwd_run.plain_launches);
   c. the gradient path from each landed main-path state (43^3 and 20^3):
      diff.grad_rollout over 200 steps in segments of 100 and
      torch.autograd.grad of seeded weights . (final pos, vel) over pos,
      vel, k, rest, m, extern_force and g, with every launch count and the
      eager step count set to 0 just before and read just after; each kernel
-     must launch, no eager step may run, every gradient must be finite.
+     must launch, no eager step may run, every gradient must be finite, and
+     the backward's launches must be the folded sweep's exactly, all on the
+     plain-spring loop (its path printed with each kernel's registers and
+     blocks an SM: fused_bwd_path).
      Then both adjoint kernels against their plain versions on one
      100-step segment's trace from that state;
   d. a system-id fit at 43^3 (examples/system_id.py's idea): a
@@ -86,7 +93,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      then only the odd, masses valid: no link partner, whose collapsed
      1/r^2 pull hides every other term);
   k. time each path: the whole route per step (CUDA events), each kernel's
-     device time per launch (torch.profiler) beside its bound, the plain
+     device time per launch (torch.profiler, taken once more where it
+     recorded fewer launches than the route made, the run failing if the
+     second is short too) beside its bound, the plain
      versions, the grid setup's host enqueue time and device time per pass
      (grid_setup alone; host clock, CUDA events), and the grid kernel's
      tile, stage, registers and co-resident blocks;
@@ -231,20 +240,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   z6. the magnet gradients' new branches against their plain versions on
      small scenes: the pairwise field's transpose (B5, csrc/
      magnets_adjoint.cuh) alone on a magnet cloud (deleted and
-     zero-parameter masses, a tenth fixed) and on 64 RobotLinks, with the
+     zero-parameter masses, a tenth fixed), a dense 2,048-magnet cloud whose
+     acting pairs reach every slot of sources, and on 64 RobotLinks, with the
      pairwise field kernel against its plain version in the kernel's order
      (pairwise_field_lanes), bitwise; the fused trace with magnets (B4: the
      field kernel, then the replay kernel per pass, each pass's constant
      force in the trace) bitwise trace_run_plain fed the kernel's field,
      and the backward with its transposes against bwd_run_plain (Euler,
      Verlet bitwise; RK2 per element) on 64 RobotLinks, with 32 links
-     under RK2; the tiled glue chunk (B2), replay (B6) and B7 on four
+     under RK2, and on a plain-spring 6^3 lattice of magnets (the
+     backward's plain-spring loop unfolded: every launch on it,
+     bwd_run.plain_launches); the backward's launches exactly
+     adjoint.bwd_launch_count's; the tiled glue chunk (B2), replay (B6) and B7 on four
      12,000-mass lattices with 4,000 magnets and 48 links (pairwise Euler
      and RK2, binned Verlet and RK2: bitwise, RK2 and the binned vjp per
      element);
   z7. 1,024 RobotLinks (2,048 masses, in the air at t = 0) take the fused
-     step and adjoint; under Euler, Verlet and RK2 the trace and backward
-     at full width against their plain versions, and diff.grad_rollout
+     step and adjoint; B5 alone at full width (transpose_vs_plain) with its
+     registers and blocks an SM; under Euler, Verlet and RK2 the trace and
+     backward at full width against their plain versions, and
+     diff.grad_rollout
      over 200 steps in segments of 100 with gradients over pos, vel and
      the four magnet parameters, every count set to 0 just before and read
      just after: exact launches (fused step, replay, backward, pairwise
@@ -325,6 +340,15 @@ SEG, GRAD_STEPS = 100, 200
 VARIANTS = ("plain", "friction", "static_friction", "ball", "damping",
             "breathing", "actuated", "drag", "deleted", "verlet", "rk2",
             "clamp_off")
+# phase b's small scenes: VARIANTS and a non-uniform-k one; those of
+# GENERAL_VARIANTS take the fused backward's general body (the others, and
+# every 13-family main path, its plain-spring loop)
+ADJOINT_VARIANTS = VARIANTS + ("nonuniform_k",)
+GENERAL_VARIANTS = ("damping", "breathing", "actuated", "nonuniform_k")
+# the fused backward's kernels (csrc/adjoint.cu): the general body's three
+# and, on the plain-spring path, the folded launches
+FUSED_BWD_NAMES = ("bwd_mid_kernel", "bwd_force_kernel", "bwd_spring_kernel",
+                   "bwd_fold_kernel", "bwd_fold_rk2_kernel")
 TIMED_STEPS = 5000
 
 
@@ -340,6 +364,7 @@ def check(cond, msg):
 def variant_scene(titan, variant):
     """A 6^3 lattice exercising one feature of the kernel, marshalled on
     the card; returns (shape, state)."""
+    import numpy as np
     cfg = dict(device="cuda", velocity_clamp=variant != "clamp_off")
     if variant == "verlet":
         cfg["integrator"] = titan.Integrator.VERLET
@@ -371,6 +396,8 @@ def variant_scene(titan, variant):
         st.drag[:n] = 0.3
     elif variant == "deleted":
         st.valid[[3, 17, 100]] = False
+    elif variant == "nonuniform_k":
+        st.k[:s] *= 1.0 + 0.1 * np.random.RandomState(1).rand(s)
     if variant in ("friction", "static_friction"):
         sim.createPlane(titan.Vec(0, 0, 1), 0, 0.4, 0.6)
         if variant == "friction":
@@ -776,11 +803,56 @@ def seeded_cotangents(n, device, seed=5):
             .to(device) for _ in range(3)]
 
 
+def fused_bwd_path(name, shape):
+    """Print the fused backward's path on `shape` (the plain-spring loop,
+    folded or not, or the general body) and, for each kernel it launches,
+    its threads a block, registers and local-memory bytes a thread and
+    co-resident blocks an SM; a 13-family lattice must take the loop.
+    Returns "plain" or "general"."""
+    from titan_tpu_torch.ops import adjoint
+    path = spring_path(shape)
+    plain = path == "plain"
+    if len(shape.stencil_deltas) == 13:
+        check(plain, f"{name}: the fused backward does not take the "
+              "plain-spring loop")
+    rk2 = shape.config.integrator.name == "RK2"
+    fold = plain and not shape.has_magnets
+    if fold:
+        names = ("mid", "force", "fold_rk2") if rk2 else ("fold",)
+    else:
+        names = ("force", "spring") + (("mid",) if rk2 else ())
+    parts = []
+    for k in names:
+        i = adjoint.bwd_kernel_info(k, shape)
+        parts.append(f"bwd_{k}_kernel {i['threads']} threads a block, "
+                     f"{i['registers']} registers and {i['local_bytes']} B "
+                     f"of local memory a thread, {i['blocks_per_sm']} "
+                     "blocks an SM")
+    print(f"path {name}, fused backward: "
+          + ("the plain-spring loop" + (", folded" if fold else "")
+             if plain else "the general body") + "; " + "; ".join(parts))
+    return path
+
+
+def check_fused_bwd_launches(name, shape, seg, n_seg, launches, on_loop):
+    """The fused backward's `launches` over `n_seg` segments of `seg` steps
+    must be what adjoint.bwd_launch_count gives, and `on_loop` of them
+    (bwd_run.plain_launches) all of them on the plain-spring path, none
+    on the general body."""
+    from titan_tpu_torch.ops import adjoint
+    want, want_plain = adjoint.bwd_launch_count(shape, seg)
+    check(launches == n_seg * want and on_loop == n_seg * want_plain,
+          f"{name}: {launches} backward launches ({on_loop} on the "
+          f"plain-spring loop), the segments give {n_seg * want} "
+          f"({n_seg * want_plain})")
+
+
 def adjoint_vs_plain(shape, state, seg, label):
     """Both adjoint kernels against their plain versions from `state`: the
-    trace bitwise, the backward within TOL_BWD per output on the kernel's
-    trace.  Returns the trace's max |d| and the backward's max |d| and
-    max |d| / max |plain|."""
+    trace bitwise, the backward (its launches counted: check_fused_bwd_
+    launches) bitwise under Euler and Verlet and within TOL_BWD per output
+    under RK2 on the kernel's trace.  Returns the trace's max |d| and the
+    backward's max |d| and max |d| / max |plain|."""
     import torch
     from titan_tpu_torch.ops import adjoint
     trace = adjoint.trace_run(shape, state, seg)
@@ -791,24 +863,34 @@ def adjoint_vs_plain(shape, state, seg, label):
           f"{label}: trace kernel differs from trace_run_plain by {dtr:.3e}")
     del want
     cts = seeded_cotangents(shape.n_masses, trace.device)
+    run = adjoint.bwd_run
+    run.launches = run.plain_launches = 0
     got = adjoint.bwd_run(shape, state, trace, *cts)
+    launches, on_loop = run.launches, run.plain_launches
     ref = adjoint.bwd_run_plain(shape, state, trace, *cts)
     torch.cuda.synchronize()
-    abs_err, rel, bad = 0.0, {}, []
+    check_fused_bwd_launches(label, shape, seg, 1, launches, on_loop)
+    rk2 = shape.config.integrator.name == "RK2"
+    abs_err, rel, bad, same = 0.0, {}, [], True
     for key, b in ref.items():
         if key in ("pair_ok", "rem_ok"):
             continue
         a, b = masked_bars(key, got[key], b, ref)
         if not bool(torch.isfinite(a).all()):
             bad.append(f"non-finite {key}")
+        same = same and bool(torch.equal(a, b))
         d = float((a - b).abs().max())
         abs_err = max(abs_err, d)
         rel[key] = d / max(float(b.abs().max()), 1e-30)
         if rel[key] > TOL_BWD:
             bad.append(f"{key} {rel[key]:.3e}")
+    if not rk2 and not same:
+        bad.append("not bitwise under " + shape.config.integrator.name)
     print(f"adjoint vs plain [{label}, {seg} steps]: trace bitwise; "
-          f"backward max |d| / max |plain|: "
-          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          f"backward ({spring_path(shape)} path, {launches} launches, "
+          f"{on_loop} on the plain-spring loop) "
+          + ("bitwise" if same else "max |d| / max |plain|: "
+             + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
           + (f"  FAIL {bad}" if bad else ""))
     check(not bad, f"{label}: backward kernel disagrees with plain: {bad}")
     return dtr, abs_err, max(rel.values())
@@ -884,8 +966,9 @@ def grad_path(name, shape, state):
     adjoint_vs_plain."""
     import torch
     from titan_tpu_torch import diff
+    path = fused_bwd_path(name, shape)
     fwd, tr, bwd, eager = counters()
-    fwd.launches = tr.launches = bwd.launches = 0
+    fwd.launches = tr.launches = bwd.launches = bwd.plain_launches = 0
     eager.steps = 0
     t0 = time.perf_counter()
     loss, grads = run_grad(
@@ -895,11 +978,14 @@ def grad_path(name, shape, state):
     got = (fwd.launches, tr.launches, bwd.launches, eager.steps)
     print(f"gradient path {name}: {GRAD_STEPS} steps in segments of {SEG}: "
           f"fused_step launches {got[0]}, adjoint trace launches {got[1]}, "
-          f"adjoint backward launches {got[2]}, eager steps {got[3]}; "
+          f"adjoint backward launches {got[2]} ({bwd.plain_launches} on the "
+          f"plain-spring loop, the {path} path), eager steps {got[3]}; "
           f"{wall:.3f} s wall (first call)")
     check(min(got[:3]) > 0, f"{name}: a kernel of the gradient path never "
           f"launched: {got}")
     check(got[3] == 0, f"{name}: the gradient path ran {got[3]} eager steps")
+    check_fused_bwd_launches(name, shape, SEG, GRAD_STEPS // SEG, got[2],
+                             bwd.plain_launches)
     names = ("pos", "vel", "k", "rest", "m", "extern_force", "g")
     for nm, g in zip(names, grads):
         check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
@@ -908,7 +994,7 @@ def grad_path(name, shape, state):
           + ", ".join(f"{nm} {float(g.abs().max()):.3e}"
                       for nm, g in zip(names, grads)))
     err = adjoint_vs_plain(shape, state, SEG, f"{name} landed")
-    return got[1], got[2], err
+    return got[1], got[2], err, path
 
 
 def system_id(shape, state, iters=3, lr=0.08):
@@ -1016,8 +1102,7 @@ def profile_grad_path(name, shape, state, segment=SEG):
         wall_us = (time.perf_counter() - t0) * 1e6
     dev, ours, h2d = 0.0, 0.0, 0
     ours_names = ("fused_step_kernel", "adjoint_trace_kernel",
-                  "bwd_force_kernel", "bwd_spring_kernel", "bwd_mid_kernel",
-                  "tiled_")
+                  "tiled_") + FUSED_BWD_NAMES
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue       # host ops also carry their kernels' device time
@@ -1064,9 +1149,9 @@ def time_adjoint(name, shape, state, fast=False):
     tr_plain = event_ms(lambda k: adjoint.trace_run_plain(shape, state, k),
                         10)
     bw_plain = event_ms(lambda k: adjoint.bwd_run_plain(
-        shape, state, ptr, *cts), 10)
+        shape, state, ptr, *cts), 10, reps=1)
     reps = 3
-    bwd_names = ("bwd_mid_kernel", "bwd_force_kernel", "bwd_spring_kernel")
+    bwd_names = FUSED_BWD_NAMES
     dev = profile_device_us(lambda: [(
         adjoint.trace_run(shape, state, SEG),
         adjoint.bwd_run(shape, state, trace, *cts)) for _ in range(reps)],
@@ -1078,7 +1163,8 @@ def time_adjoint(name, shape, state, fast=False):
              if "adjoint_trace_kernel" in dev else tr_wrap)
     bw_ms = (sum(dev[k][0] for k in bwd_names if k in dev)
              / (reps * SEG) / 1e3
-             if "bwd_force_kernel" in dev else bw_wrap)
+             if any(k in dev for k in bwd_names) else bw_wrap)
+    bwd_key = next((k for k in bwd_names if k in dev), "bwd_force_kernel")
     (tb, tby), (bb, bby) = adjoint_bound_ms(shape, state, SEG)
     print(f"timing {name} gradient path: forward + backward "
           f"{fb_ms * 1e3:.3f} us/step over {GRAD_STEPS} steps (host clock, "
@@ -1095,7 +1181,7 @@ def time_adjoint(name, shape, state, fast=False):
           f"{tr_wrap * 1e3:.3f} us/step (CUDA events, host staging "
           f"included); plain {tr_plain * 1e3:.1f} us/step")
     print(f"timing {name} adjoint_bwd: {bw_ms * 1e3:.3f} us/step "
-          f"({SEG}-step trace, {src('bwd_force_kernel')}), bound {bb * 1e3:.4f} us/step by "
+          f"({SEG}-step trace, {src(bwd_key)}), bound {bb * 1e3:.4f} us/step by "
           f"{bby}, {100 * bb / bw_ms:.2f}% of bound; wrapper "
           f"{bw_wrap * 1e3:.3f} us/step (CUDA events, host staging "
           f"included); plain {bw_plain * 1e3:.1f} us/step")
@@ -1663,8 +1749,22 @@ def time_magnet_path(name, shape, state, field_kernel, n_steps):
         setup_dev_us = 1e3 * event_ms(lambda k: [
             magnets_grid.grid_setup(m, cut) for _ in range(k)], n_steps)
         info = magnets_grid.kernel_info()
-    dev = profile_route(name, lambda: route(n_steps), n_steps,
-                        ("fused_step_kernel", kname))
+    # every launch recorded: the profile is taken once more where the
+    # profiler dropped some (one run recorded 185 of 200, and its per-launch
+    # times were half the true ones), and a second short one fails the run
+    passes = 2 if shape.config.integrator.name == "RK2" else 1
+    for attempt in range(2):
+        dev = profile_route(name, lambda: route(n_steps), n_steps,
+                            ("fused_step_kernel", kname))
+        seen = {k: c for k, (_, c) in dev.items()}
+        whole = all(seen.get(k) == n_steps * passes
+                    for k in ("fused_step_kernel", kname))
+        if whole:
+            break
+    print(f"timing {name}: the profiler recorded {seen} launches of "
+          f"{n_steps * passes} each (profile {attempt + 1})")
+    check(whole, f"{name}: the profiler recorded {seen} launches, not "
+          f"{n_steps * passes} of each kernel, in two profiles")
     per = {k: t / c for k, (t, c) in dev.items()}
     if field_kernel == "pairwise":
         plain_field = lambda k: [F.magnet_forces(m, cut)  # noqa: E731
@@ -2568,6 +2668,7 @@ def adjoint_counters():
             "fused": (fused_step.fused_chunk, "launches"),
             "adjoint_trace": (adjoint.trace_run, "launches"),
             "adjoint_bwd": (adjoint.bwd_run, "launches"),
+            "adjoint_bwd_plain": (adjoint.bwd_run, "plain_launches"),
             "eager": (tstep.run_eager, "steps")}
 
 
@@ -3499,8 +3600,8 @@ def local_bench_path(titan, kernels):
     bad = []
     err = fused_local_vs_plain(shape, state, f"{name} landed", bad, steps=200)
     check(not bad, "; ".join(bad))
-    tr_launches, bwd_launches, (tr_err, abs_err, rel_err) = grad_path(
-        name, shape, state)
+    tr_launches, bwd_launches, (tr_err, abs_err, rel_err), path = \
+        grad_path(name, shape, state)
     with uncounted():
         end = fused_step.fused_chunk(shape, state, TIMED_STEPS)
         act_end = slot_activity(shape, end)
@@ -3523,7 +3624,7 @@ def local_bench_path(titan, kernels):
             source="titan_tpu_torch/csrc/adjoint.cu",
             replaces=f"titan_tpu/ops/adjoint.py:{line}", launches=n_launch,
             max_abs_err=e, **({} if kname == "adjoint_trace"
-                              else dict(max_rel_err=rel_err)),
+                              else dict(max_rel_err=rel_err, path=path)),
             **tm, library_ms=None))
 
 
@@ -3924,13 +4025,17 @@ def rem_grad_path(name, shape, state, segment, route):
     from titan_tpu_torch.ops import adjoint_tiled as at
     check(diff.grad_route(shape) == (route, None),
           f"{name}: gradient route {diff.grad_route(shape)}")
+    from titan_tpu_torch.ops import adjoint
     rk2 = shape.config.integrator.name == "RK2"
     passes = 2 if rk2 else 1
     if route == "adjoint":
+        fused_bwd_path(name, shape)
+        n_bwd, n_plain = adjoint.bwd_launch_count(shape, segment)
         want = dict.fromkeys(adjoint_counters(), 0)
         want.update(fused=GRAD_STEPS * passes,
                     adjoint_trace=GRAD_STEPS * passes,
-                    adjoint_bwd=GRAD_STEPS * (5 if rk2 else 2))
+                    adjoint_bwd=GRAD_STEPS // segment * n_bwd,
+                    adjoint_bwd_plain=GRAD_STEPS // segment * n_plain)
     else:
         seg, want = expected_grad_counts(shape, GRAD_STEPS)
         check(seg == segment, f"{name}: default segment {seg}")
@@ -4024,7 +4129,10 @@ def rem_bench_path(titan, kernels):
             name=f"{kname} ({name} gradient path, EULER, {GRAD_STEPS} "
             "steps)", route="cuda", source="titan_tpu_torch/csrc/adjoint.cu",
             replaces=f"titan_tpu/ops/adjoint.py:{line}", launches=n_launch,
-            max_abs_err=e, **tm, library_ms=None))
+            max_abs_err=e, **tm, **({} if kname == "adjoint_trace" else dict(
+                path=spring_path(shape),
+                plain_launches=c["adjoint_bwd_plain"])),
+            library_ms=None))
     return shape, state
 
 
@@ -4180,24 +4288,42 @@ def read_mag_counts():
     return {k: getattr(obj, attr) for k, (obj, attr) in mag_counters().items()}
 
 
-def transpose_vs_plain(shape, state, label, bad, seed=6):
-    """B5 alone: the transpose kernel against magnet_transpose_plain at the
-    state's positions for a seeded cotangent, with a tenth of the masses
-    fixed, bitwise; and the pairwise field kernel against its plain
-    version in the kernel's order (pairwise_field_lanes), bitwise.
-    Returns max |d|."""
+def transpose_vs_plain(shape, state, label, bad, seed=6, min_slots=1):
+    """B5 alone: the transpose kernel against magnet_transpose_plain (in
+    the built kernel's slots, magnets.transpose_info) at the state's
+    positions for a seeded cotangent, with a tenth of the masses fixed,
+    bitwise; and the pairwise field kernel against its plain version in
+    the kernel's order (pairwise_field_lanes), bitwise.  Prints how many
+    of the kernel's slots of sources hold an acting pair and how many
+    acting pairs cross from a receiver's own slot to another; fails where
+    fewer than `min_slots` slots hold one.  Returns max |d|."""
     import numpy as np
     import torch
-    from titan_tpu_torch.ops import magnets
+    from titan_tpu_torch.ops import magnets, magnets_grid
     m = state.masses
     n, cut = shape.n_masses, shape.config.magnet_cutoff
     prm = magnets.pairwise_params(m)
+    slots = magnets.transpose_info()["slots"]
+    chunk = magnets.transpose_chunk(n, slots)
+    d = m.pos[:, :, None] - m.pos[:, None, :]
+    acts = ((d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+            < magnets_grid.cutoff_threshold(cut))
+    ok = prm[4] != 0
+    acts &= ok[:, None] & ok[None, :]
+    acts.fill_diagonal_(False)
+    del d
+    src_slot = torch.arange(n, device=m.pos.device) // chunk
+    used = int(torch.unique(src_slot[acts.any(0)]).numel())
+    cross = int((acts & (src_slot[:, None] != src_slot[None, :])).sum())
+    pairs = int(acts.sum())
+    del acts
     rng = np.random.RandomState(seed)
     fixed = torch.from_numpy((rng.uniform(0, 1, n) < 0.1).astype(
         np.float32)).to(m.pos.device)
     gf = seeded_cotangents(n, m.pos.device, seed)[0]
     got = magnets.magnet_transpose(m.pos, prm, fixed, gf, cut)
-    want = magnets.magnet_transpose_plain(m.pos, prm, fixed, gf, cut)
+    want = magnets.magnet_transpose_plain(m.pos, prm, fixed, gf, cut,
+                                          slots=slots)
     field = magnets.pairwise_magnet_field(m, cut, prm)
     lanes = magnets.pairwise_field_lanes(m.pos, prm, cut)
     torch.cuda.synchronize()
@@ -4207,44 +4333,55 @@ def transpose_vs_plain(shape, state, label, bad, seed=6):
     live = int((got[1] != 0).any(0).sum())
     print(f"magnet transpose vs plain [{label}]: "
           + ("bitwise" if same else f"DIFFERS ({d:.3e})")
-          + f", {live} masses with a parameter gradient; pairwise field "
-          "kernel vs its plain version in the kernel's order: "
-          + ("bitwise" if fsame else "DIFFERS"))
-    if not (same and fsame) or live == 0:
+          + f", {live} masses with a parameter gradient; {pairs} acting "
+          f"ordered pairs, their sources in {used} of the kernel's {slots} "
+          f"slots of {chunk}, {cross} of them outside the receiver's own "
+          "slot; pairwise field kernel vs its plain version in the "
+          "kernel's order: " + ("bitwise" if fsame else "DIFFERS"))
+    if not (same and fsame) or live == 0 or used < min(min_slots, slots):
         bad.append(f"{label}: magnet transpose or field differs from plain "
-                   f"(transpose {same}, field {fsame}, {live} live)")
+                   f"(transpose {same}, field {fsame}, {live} live, "
+                   f"acting pairs in {used} slots)")
     return d
 
 
-def mag_fused_vs_plain(shape, state, label, bad):
+def mag_fused_vs_plain(shape, state, label, bad, steps=BWD_STEPS):
     """B4 and B5 in the sweep: the fused trace of a magnet scene (field
     kernel, then the replay kernel, per pass) bitwise trace_run_plain fed
     the field kernel's field and its last entry bitwise the forward
     chunk's state; the backward (with one transpose per force pass) on
     that trace against bwd_run_plain (bwd_diffs: Euler and Verlet bitwise,
-    RK2 per element).  Returns (trace, backward) max |d|."""
+    RK2 per element), its launches and those on the plain-spring loop
+    exactly adjoint.bwd_launch_count's (check_fused_bwd_launches), over
+    `steps` steps.  Returns (trace, backward) max |d|."""
     import torch
     from titan_tpu_torch.ops import adjoint, fused_step
     rk2 = shape.config.integrator.name == "RK2"
     field = fused_step.magnet_field_fn(shape, state, plain=False)
-    trace = adjoint.trace_run(shape, state, BWD_STEPS)
-    want = adjoint.trace_run_plain(shape, state, BWD_STEPS, field=field)
-    last = fused_step.fused_chunk(shape, state, BWD_STEPS - 1)
+    trace = adjoint.trace_run(shape, state, steps)
+    want = adjoint.trace_run_plain(shape, state, steps, field=field)
+    last = fused_step.fused_chunk(shape, state, steps - 1)
     torch.cuda.synchronize()
     dtr = float((trace - want).abs().max())
     tsame = bool(torch.equal(trace, want)) and bool(torch.equal(
         trace[-1, :6], torch.cat([last.masses.pos, last.masses.vel])))
     del want
     cts = seeded_cotangents(shape.n_masses, trace.device)
+    run = adjoint.bwd_run
+    run.launches = run.plain_launches = 0
     g = adjoint.bwd_run(shape, state, trace, *cts)
+    launches, on_loop = run.launches, run.plain_launches
     ref = adjoint.bwd_run_plain(shape, state, trace, *cts)
     torch.cuda.synchronize()
+    check_fused_bwd_launches(label, shape, steps, 1, launches, on_loop)
     dbw, rel, bitwise, fails = bwd_diffs(g, ref, rk2)
     live = int((ref["mag"] != 0).any(0).sum())
-    print(f"fused magnet adjoint vs plain [{label}]: trace ({BWD_STEPS} "
+    print(f"fused magnet adjoint vs plain [{label}]: trace ({steps} "
           f"steps, {trace.shape[1]} rows) "
           + ("bitwise" if tsame else f"DIFFERS ({dtr:.3e})")
-          + "; backward " + ("bitwise" if bitwise else "per element: "
+          + f"; backward ({spring_path(shape)} path, {launches} launches, "
+          f"{on_loop} on the plain-spring loop) "
+          + ("bitwise" if bitwise else "per element: "
                              + ", ".join(f"{k} {v:.2e}"
                                          for k, v in rel.items()))
           + f"; {live} masses with a magnet gradient"
@@ -4340,21 +4477,54 @@ def glue_vs_plain(shape, state, label, bad):
     return max(d.values()), dtr, dbw
 
 
+# the plain-spring magnet lattice's segment: its route, not its depth, is
+# what phase z6 adds
+MAG_LATTICE_STEPS = 6
+
+
+def magnet_lattice(titan, integrator):
+    """A 6^3 lattice 0.1 m apart with plain springs (k 800, family-uniform:
+    the backward's plain-spring loop) whose every mass is a magnet (radius
+    0.06, stiffness 100, max force 0.01, scale 1), so each face neighbour
+    acts inside the 0.14 m cutoff, on the pairwise route, over a plane,
+    g = -9.8, dt 1e-4.  Marshalled on the card; returns (shape, state)."""
+    sim = titan.Simulation(titan.SimConfig(
+        device="cuda", integrator=titan.Integrator[integrator.upper()],
+        magnet_binned_threshold=10 ** 9))
+    sim.createLattice(titan.Vec(0, 0, 1), titan.Vec(0.5, 0.5, 0.5), 6, 6, 6)
+    sim.setAllSpringConstantValues(800.0)
+    st = sim._store
+    n = st.n_masses
+    st.mag_rad[:n] = 0.06
+    st.mag_stiffness[:n] = 100.0
+    st.mag_maxf[:n] = 0.01
+    st.mag_scale[:n] = 1.0
+    sim.createPlane(titan.Vec(0, 0, 1), 0)
+    sim.setGlobalAcceleration(titan.Vec(0, 0, -9.8))
+    sim.setTimeStep(1e-4)
+    return marshalled(sim)
+
+
 def mag_small_scenes(titan):
     """Phase z6: B5 alone on a magnet cloud (deleted and zero-parameter
     masses) and on RobotLinks; B4 and B5 in the fused sweep on RobotLinks
-    (Euler, Verlet, RK2; RK2 with 32 links too); B2, B6 and B7 on four
+    (Euler, Verlet, RK2; RK2 with 32 links too; the general body) and on
+    a plain-spring magnet lattice (each integrator; the plain-spring loop,
+    unfolded); B2, B6 and B7 on four
     12,000-mass glue lattices (unbinned Euler and RK2, binned Verlet and
     RK2).  Returns the worst max |d| per kernel family."""
     bad = []
     worst = dict(transpose=0.0, trace=0.0, bwd=0.0, tiled=0.0,
                  tiled_trace=0.0, tiled_bwd=0.0)
-    for label, (shape, state) in (
+    for label, (shape, state), min_slots in (
             ("cloud", marshalled(cloud_sim(titan, 400,
-                                           edit="deleted_zero_param"))),
-            ("64 RobotLinks", marshalled(link_sim(titan, 64)))):
+                                           edit="deleted_zero_param")), 1),
+            ("dense cloud", marshalled(cloud_sim(
+                titan, 2048, seed=3, spread=0.35,
+                edit="deleted_zero_param")), 32),
+            ("64 RobotLinks", marshalled(link_sim(titan, 64)), 1)):
         worst["transpose"] = max(worst["transpose"], transpose_vs_plain(
-            shape, state, label, bad))
+            shape, state, label, bad, min_slots=min_slots))
     for integ in ("euler", "verlet", "rk2"):
         sim = link_sim(titan, 64, magnetic_force=0.5, spread=0.3, z=0.4,
                        integrator=titan.Integrator[integ.upper()])
@@ -4366,6 +4536,15 @@ def mag_small_scenes(titan):
             e = mag_fused_vs_plain(shape, state, label, bad)
             worst["trace"] = max(worst["trace"], e[0])
             worst["bwd"] = max(worst["bwd"], e[1])
+        shape, state = magnet_lattice(titan, integ)
+        label = f"plain-spring magnet lattice, {integ}"
+        check(shape.has_magnets and not shape.magnet_binned
+              and spring_path(shape) == "plain", f"{label}: the fused "
+              f"backward takes the {spring_path(shape)} path")
+        e = mag_fused_vs_plain(shape, state, label, bad,
+                               steps=MAG_LATTICE_STEPS)
+        worst["trace"] = max(worst["trace"], e[0])
+        worst["bwd"] = max(worst["bwd"], e[1])
     for integ, binned in (("euler", False), ("rk2", False),
                           ("verlet", True), ("rk2", True)):
         shape, state = glue_lattice(titan, integ, binned)
@@ -4472,14 +4651,17 @@ def mag_grad_counts(shape, n_steps, route):
     tiled adjoint with per-step launches only (the grid field in the
     forward and the replay, one binned-pass vjp per force pass between
     B7's parts on a binned scene); nothing else."""
+    from titan_tpu_torch.ops import adjoint
     rk2 = shape.config.integrator.name == "RK2"
     passes = 2 if rk2 else 1
     field = "grid" if shape.magnet_binned else "pairwise"
     want = dict.fromkeys(mag_counters(), 0)
     want[field] = 2 * n_steps * passes
     if route == "adjoint":
+        # a magnet scene's sweep does not fold: the count of any segment
+        n_bwd, n_plain = adjoint.bwd_launch_count(shape, n_steps)
         want.update(fused=n_steps * passes, adjoint_trace=n_steps * passes,
-                    adjoint_bwd=n_steps * (5 if rk2 else 2),
+                    adjoint_bwd=n_bwd, adjoint_bwd_plain=n_plain,
                     transpose=n_steps * passes)
     else:
         plain = n_steps * passes if spring_path(shape) == "plain" else 0
@@ -4509,6 +4691,8 @@ def mag_grad_path(name, shape, state, n_steps, segment, route,
     want = mag_grad_counts(shape, n_steps, route)
     if route != "adjoint":
         report_spring_path(name, shape)
+    else:
+        fused_bwd_path(name, shape)
     leaves, st = mag_grad_leaves(state, spring_k)
     w = grad_loss_weights(state)
     torch.cuda.synchronize()
@@ -4558,7 +4742,7 @@ def time_mag_adjoint(name, shape, state):
     passes = 2 if rk2 else 1
     trace = adjoint.trace_run(shape, state, SEG)
     cts = seeded_cotangents(shape.n_masses, trace.device)
-    bwd_names = ("bwd_mid_kernel", "bwd_force_kernel", "bwd_spring_kernel")
+    bwd_names = FUSED_BWD_NAMES
     reps = 2
     dev = profile_device_us(lambda: [(
         adjoint.trace_run(shape, state, SEG),
@@ -4572,12 +4756,12 @@ def time_mag_adjoint(name, shape, state):
     tp_wrap = event_ms(lambda k: [magnets.magnet_transpose(
         m.pos, prm, fixed, gf, cut) for _ in range(k)], 20)
     tp_plain = event_ms(lambda k: [magnets.magnet_transpose_plain(
-        m.pos, prm, fixed, gf, cut) for _ in range(k)], 2, reps=1)
+        m.pos, prm, fixed, gf, cut) for _ in range(k)], 1, reps=1)
     tr_plain = event_ms(lambda k: adjoint.trace_run_plain(shape, state, k),
                         5, reps=1)
-    ptr = adjoint.trace_run_plain(shape, state, 5)
+    ptr = adjoint.trace_run_plain(shape, state, 2)
     bw_plain = event_ms(lambda k: adjoint.bwd_run_plain(
-        shape, state, ptr, *cts), 5, reps=1)
+        shape, state, ptr, *cts), 2, reps=1)
     check(all(k in dev for k in ("adjoint_trace_kernel", "bwd_force_kernel",
                                  "magnet_transpose_kernel")),
           f"{name}: the profiler recorded no device time for a kernel")
@@ -4616,6 +4800,7 @@ def link_grad_phase(titan, kernels):
     entries to ``kernels``."""
     from titan_tpu_torch import diff
     from titan_tpu_torch.config import Integrator
+    from titan_tpu_torch.ops import magnets
     from titan_tpu_torch.ops import step as tstep
     name = f"RobotLink {LINK_GRAD_LINKS:,} links"
     shape, state = marshalled(link_sim(titan, LINK_GRAD_LINKS))
@@ -4627,6 +4812,13 @@ def link_grad_phase(titan, kernels):
           and diff.grad_route(shape) == ("adjoint", None),
           f"{name}: {shape.n_masses} masses, routes")
     bad, runs = [], {}
+    tp_err = transpose_vs_plain(shape, state, name, bad, min_slots=2)
+    check(not bad, "; ".join(bad))
+    info = magnets.transpose_info()
+    print(f"{name}: magnet_transpose_kernel {info['threads']} threads a "
+          f"block in clusters of {info['cluster']}, {info['slots']} slots, "
+          f"{info['registers']} registers and {info['local_bytes']} B of "
+          f"local memory a thread, {info['blocks_per_sm']} blocks an SM")
     for integ in (Integrator.EULER, Integrator.VERLET, Integrator.RK2):
         sh = integrator_shape(shape, integ)
         label = f"{name}, {integ.name}"
@@ -4652,7 +4844,9 @@ def link_grad_phase(titan, kernels):
                  e[1], bw_t),
                 ("magnet_transpose_kernel", "csrc/magnets_adjoint.cuh",
                  "titan_tpu/ops/adjoint.py:1433", counts["transpose"],
-                 e[1], tp_t)):
+                 max(e[1], tp_err), dict(tp_t, registers=info["registers"],
+                                         blocks_per_sm=info["blocks_per_sm"]
+                                         ))):
             kernels.append(dict(
                 name=f"{kname} ({path})", route="cuda",
                 source=f"titan_tpu_torch/{src}", replaces=replaces,
@@ -4785,16 +4979,17 @@ def time_glue(name, shape, state, fb_ms):
                 dev[g] = (t0 + t, c0 + e.count)
     m, cut, cap = state.masses, shape.config.magnet_cutoff, \
         shape.magnet_binned[1]
+    # the plain versions over one step each: at 64^3 each takes seconds
     step_plain = event_ms(lambda k: tiled_step.tiled_chunk_plain(
-        shape, state, k), 2, reps=1)
+        shape, state, k), 1, reps=1)
     tr_plain = event_ms(lambda k: at.tiled_trace_run_plain(shape, state, k),
-                        2, reps=1)
-    p_trace = at.tiled_trace_run_plain(shape, state, 2)
+                        1, reps=1)
+    p_trace = at.tiled_trace_run_plain(shape, state, 1)
     bw_plain = event_ms(lambda k: at.tiled_bwd_run_plain(
-        shape, state, p_trace, *cts, inv), 2, reps=1)
+        shape, state, p_trace, *cts, inv), 1, reps=1)
     del p_trace
     grid_plain = event_ms(lambda k: [magnets_grid.grid_magnet_forces_plain(
-        m, cut, cap) for _ in range(k)], 2, reps=1)
+        m, cut, cap) for _ in range(k)], 1, reps=1)
     pairs, inside = grid_pairs(state, cap, cut)
     per = 5 if rk2 else 2
     mode = "rk2a" if rk2 else shape.config.integrator.name.lower()
@@ -4899,11 +5094,15 @@ def glue_phase(titan, kernels):
                                 max_abs_err=err, **tm, library_ms=None))
 
 
-def mag_grad_phases(titan, kernels):
-    """Phases z6-z9: the magnet gradients' and the tiled glue's kernels."""
+def mag_grad_phases(titan, kernels, phase_done):
+    """Phases z6-z9: the magnet gradients' and the tiled glue's kernels;
+    ``phase_done(label)`` after each part."""
     mag_small_scenes(titan)
+    phase_done("z6")
     link_grad_phase(titan, kernels)
+    phase_done("z7")
     glue_phase(titan, kernels)
+    phase_done("z8-z9")
 
 
 def main() -> int:
@@ -4916,6 +5115,14 @@ def main() -> int:
     import titan_tpu_torch as titan
     from titan_tpu_torch.ops import fused_step
 
+    t_start = time.perf_counter()
+
+    def phase_done(label):
+        # the command time is bounded: where each phase ends, for the next
+        # slice's trimming
+        print(f"chip_smoke: phases {label} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"{torch.cuda.get_device_name(0)}, devices: "
           f"{torch.cuda.device_count()}")
@@ -4925,6 +5132,7 @@ def main() -> int:
     build_kernels(("fused_step", "adjoint", "magnets", "magnets_grid",
                    "tiled_step", "tiled_adjoint"))
     print_coop_blocks(titan)
+    phase_done("1, a, f, m, q (build)")
 
     # 2. kernel vs plain, small scenes, 100 steps each
     for variant in VARIANTS:
@@ -4942,9 +5150,19 @@ def main() -> int:
             check(static > 0 and static == inside,
                   "static friction did not hold the resting masses")
 
-    # b. the adjoint kernels against their plain versions, small scenes
-    for variant in VARIANTS:
-        adjoint_vs_plain(*variant_scene(titan, variant), 20, variant)
+    phase_done("2")
+
+    # b. the adjoint kernels against their plain versions, small scenes;
+    # the damped, breathing, actuated and non-uniform-k ones on the
+    # backward's general body, the others on its plain-spring loop
+    for variant in ADJOINT_VARIANTS:
+        shape, state = variant_scene(titan, variant)
+        want = "general" if variant in GENERAL_VARIANTS else "plain"
+        check(spring_path(shape) == want, f"{variant}: the fused backward "
+              f"takes the {spring_path(shape)} path, not the {want} one")
+        adjoint_vs_plain(shape, state, 20, variant)
+
+    phase_done("b")
 
     # 3. the main paths through the public API, then kernel vs plain from
     # each one's landed (contact) state; 4. timing from that state
@@ -4973,11 +5191,13 @@ def main() -> int:
             launches=launches, max_abs_err=err,
             **time_path(name, shape, state), library_ms=None))
 
+    phase_done("3-4")
+
     # c. the gradient path from each landed state; d. system id at 43^3;
     # e. timing
     for i, (name, shape, state) in enumerate(landed):
-        tr_launches, bwd_launches, (tr_err, abs_err, rel_err) = grad_path(
-            name, shape, state)
+        tr_launches, bwd_launches, (tr_err, abs_err, rel_err), path = \
+            grad_path(name, shape, state)
         if i == 0:
             system_id(shape, state)
         tr_t, bwd_t = time_adjoint(name, shape, state, fast=i == 0)
@@ -4991,32 +5211,38 @@ def main() -> int:
                 launches=n_launch,
                 max_abs_err=tr_err if kname == "adjoint_trace" else abs_err,
                 **({} if kname == "adjoint_trace"
-                   else dict(max_rel_err=rel_err)),
+                   else dict(max_rel_err=rel_err, path=path)),
                 **t, library_ms=None))
 
     # g-l. the magnet field kernels, the fused step's magnet route, the
     # RobotLink and magnetic-swarm main paths, gradient routing
+    phase_done("c-e")
     magnet_phases(titan, kernels)
+    phase_done("g-l")
 
     # n-p. the tiled kernels, the 100^3 stress config, timing
     landed_stress = tiled_phases(titan, kernels)
+    phase_done("n-p")
 
     # r-t. the tiled adjoint's kernels, the 100^3 gradient path, timing
     tiled_adjoint_phases(titan, kernels, *landed_stress)
+    phase_done("r-t")
 
     # u-y. local constraints: every kernel's branch on small scenes, the
     # 43^3 and 100^3 scenes with slots, their gradient paths, timing
     local_phases(titan, kernels)
+    phase_done("u-y")
 
     # z1-z5. remainder springs: every kernel's branch on small scenes, the
     # route rule, 43^3 + 1,024 links and 100^3 + 512 links, their gradient
     # paths with per-spring gradients, timing
     remainder_phases(titan, kernels)
+    phase_done("z1-z5")
 
     # z6-z9. magnet gradients and the tiled magnet glue: every new branch
     # on small scenes, the RobotLink gradient path, the 64^3 magnet lattice
     # through Simulation and its gradient paths, timing
-    mag_grad_phases(titan, kernels)
+    mag_grad_phases(titan, kernels, phase_done)
 
     # 5. result lines
     smi = subprocess.run(

@@ -9,7 +9,10 @@ Needs the CUDA toolkit (``nvcc``, ``cuobjdump``); no GPU.  Builds
 with that checkout's own ``_build.py`` and flags, disassembles both
 libraries with ``cuobjdump -sass`` and prints one line per function of
 ROOT_A: IDENTICAL (the same instructions, addresses and encodings left
-out), DIFFERS (with both instruction counts) or MISSING in ROOT_B.
+out), PARAMS-ONLY (every instruction the same but for constant-bank
+operands, all of those that differ moved by one shift: an argument
+structure that grew at its end moves the kernel parameters after it),
+DIFFERS (with both instruction counts) or MISSING in ROOT_B.
 Function names are matched after two normalisations: the hash in an
 anonymous namespace's mangled name, which changes with the translation
 unit, is dropped, and a function that ROOT_B lacks under ROOT_A's name is
@@ -58,6 +61,26 @@ def anon(name: str) -> str:
     return re.sub(r"\d+_GLOBAL__N__\w*?_cu_[0-9a-f]+", "ANON", name)
 
 
+PARAM = re.compile(r"c\[0x0\]\[(0x[0-9a-f]+)\]")
+
+
+def param_shift(a: list, b: list):
+    """The byte shift by which every differing constant-bank operand of
+    ``b`` follows ``a``'s, where the two differ in nothing else; else
+    None."""
+    if len(a) != len(b):
+        return None
+    shifts = set()
+    for x, y in zip(a, b):
+        if x == y:
+            continue
+        if PARAM.sub("c[0x0][P]", x) != PARAM.sub("c[0x0][P]", y):
+            return None
+        shifts.update(int(oy, 16) - int(ox, 16) for ox, oy in
+                      zip(PARAM.findall(x), PARAM.findall(y)) if ox != oy)
+    return shifts.pop() if len(shifts) == 1 else None
+
+
 def widened(name: str) -> str:
     """ROOT_B's name with a trailing ``Lb0E`` template argument removed."""
     return anon(re.sub(r"(Lb[01]E)Lb0EE", r"\1E", name))
@@ -77,6 +100,9 @@ def main() -> int:
                 state = "MISSING"
             elif other == ins:
                 state = "IDENTICAL"
+            elif param_shift(ins, other) is not None:
+                state = (f"PARAMS-ONLY ({len(ins)} instructions; parameter "
+                         f"offsets moved by {param_shift(ins, other):+d} B)")
             else:
                 state = f"DIFFERS ({len(ins)} vs {len(other)} instructions)"
             print(f"  {state} {name}")

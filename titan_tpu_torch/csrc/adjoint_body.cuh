@@ -44,15 +44,17 @@
 // The plain-spring path.  A scene whose springs are plain (no damping,
 // breathing or actuation) and whose k is family-uniform (ops/fused_step.py::
 // takes_plain_spring_path: every main path) takes loops compiled for it in
-// the kernels' PLAIN instantiation, which needs the tiled staging's family
-// scalars and existence bits (TiledBwdArgs): the force phase recomputes
-// the family sum with step_body.cuh::plain_family_sum, and the spring phase
-// transposes it with plain_family_transpose.  k is kscal[f] x bit f of the
-// left endpoint's word, partner indices are clamped into [0, N) and each
+// the kernels' PLAIN instantiation: the force phase recomputes the family
+// sum with step_body.cuh::plain_family_sum, and the spring phase transposes
+// it with plain_family_transpose.  k is kscal[f] x bit f of the left
+// endpoint's word, partner indices are clamped into [0, N) and each
 // spring's share is taken only where its partner exists, so that neither
 // loop branches per spring; with no damping the springs add no velocity
-// cotangent and read no partner velocity.  The fused adjoint's backward
-// (BwdChunkArgs, no family scalars) keeps the general body.
+// cotangent and read no partner velocity.  Both argument structs carry the
+// existence bits as `bits` and answer the family scalars through
+// scalars(row): row 0 the k scalars (kscal), row 1 the rest scalars, or
+// null where rest rides as the [F, N] plane `rest` (always, in the fused
+// adjoint's BwdChunkArgs).
 
 #ifndef TITAN_ADJOINT_BODY_CUH_
 #define TITAN_ADJOINT_BODY_CUH_
@@ -140,8 +142,8 @@ __device__ float3 spring_sum(const A& a, int i, const float* pos,
   const int n = a.n;
   float3 f = ld3(a.cforce, i, n);
   if constexpr (PLAIN) {
-    f = titan::plain_family_sum(a.deltas, pos, a.bits, i, n, a.nf, a.fparams,
-                                a.rest, a.fparams + a.nf, p, f);
+    f = titan::plain_family_sum(a.deltas, pos, a.bits, i, n, a.nf,
+                                a.scalars(0), a.rest, a.scalars(1), p, f);
   } else {
     const float3 zero = make_float3(0.f, 0.f, 0.f);
     for (int fi = 0; fi < a.nf; ++fi) {
@@ -731,7 +733,7 @@ __device__ __forceinline__ void bwd_spring_mass(const A& a, const float* pos,
     static_cast<void>(zero);    // no damping: no velocity is read
     static_cast<void>(v);
     gp = plain_family_transpose(a.deltas, pos, a.bits, gf_in, i, n, a.nf,
-                                a.fparams, a.rest, a.fparams + a.nf, p, gfi,
+                                a.scalars(0), a.rest, a.scalars(1), p, gfi,
                                 gp, a.gk, a.grest);
   } else {
     for (int fi = 0; fi < a.nf; ++fi) {

@@ -189,6 +189,10 @@ struct TiledBwdArgs {
   __device__ float bomega_at(int fi, int, size_t s) const {
     return bomega != nullptr ? bomega[s] : fparams[4 * nf + fi];
   }
+  // the plain-spring loops' family scalars: row 0 k, row 1 rest
+  __device__ const float* scalars(int row) const {
+    return fparams + row * nf;
+  }
 };
 
 // B8's block on the plain-spring path and the blocks an SM its

@@ -15,7 +15,10 @@ segments; each segment is a ``torch.autograd.Function``:
 ``trace_run`` and ``bwd_run`` launch the hand-written kernels of
 ``csrc/adjoint.cu`` for state on the card and run their plain PyTorch
 versions (``trace_run_plain``, ``bwd_run_plain``) for state on the CPU;
-anything else raises.
+anything else raises.  A scene on ``fused_step.takes_plain_spring_path``
+(plain springs, family-uniform k: every main path) runs the backward's
+plain-spring loops (k from ``fused_step.bits_k``) and, without magnets,
+folds each reversed step's phases into one launch (``bwd_launch_count``).
 
 The math below is the JAX package's, as plain functions on [.., N]
 tensors with a roll pair (``rg`` reads index n + d, ``rs`` is its
@@ -81,9 +84,10 @@ from ..config import ACTUATED_CONTRACT, ACTUATED_EXPAND, Integrator
 from ..state import SceneShape, SimState
 from . import forces as F
 from .fused_step import (_ChunkArgs, _LocalSlots, _Remainder, _checked,
-                         _chunk_args, _magnet_passes, cf_rows, deltas_on,
-                         fused_chunk, fused_reject_reason, local_struct,
-                         magnet_field_fn, prep_invariants, remainder_struct,
+                         _chunk_args, _magnet_passes, bits_k, cf_rows,
+                         deltas_on, fused_chunk, fused_reject_reason,
+                         local_struct, magnet_field_fn, prep_invariants,
+                         remainder_struct, takes_plain_spring_path,
                          trace_rows)
 from .magnets import (magnet_transpose_plain, pairwise_field_lanes,
                       pairwise_params)
@@ -1003,6 +1007,9 @@ def _lib():
     lib.titan_adjoint_bwd.argtypes = [ctypes.POINTER(_BwdArgs),
                                       ctypes.c_void_p]
     lib.titan_adjoint_bwd.restype = ctypes.c_int
+    lib.titan_adjoint_bwd_kernel_info.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.titan_adjoint_bwd_kernel_info.restype = ctypes.c_int
     return lib
 
 
@@ -1079,7 +1086,54 @@ class _BwdArgs(ctypes.Structure):
             "gvel", "gacc", "gk", "grest", "gdamp", "gomega", "garate",
             "gcf", "gminv", "gdrag", "gf", "gpc", "gvc", "pos_h",
             "vel_h", "grem", "mag", "gmag")]
-        + [("local", _LocalSlots), ("rem", _Remainder)])
+        + [("local", _LocalSlots), ("rem", _Remainder)]
+        + [(f, ctypes.c_void_p) for f in ("gf_odd", "kscal", "bits")])
+
+
+def bwd_launch_count(shape: SceneShape, seg: int) -> tuple:
+    """(launches, launches on the plain-spring loop) of one segment's
+    backward sweep of ``seg`` steps.  The general body: two a step, five
+    under RK2 (the midpoint, then the force and spring phases of pass 2
+    and of pass 1).  The plain-spring path
+    (``fused_step.takes_plain_spring_path``) without magnets folds the
+    phases that only a mass's own data joins into one launch: seg + 1
+    (each launch step t's spring phase, then step t - 1's force phase),
+    under RK2 3 seg + 1 (the last step's midpoint, then a step's pass-2
+    force phase, its pass-2 spring and pass-1 force phases, its pass-1
+    spring phase and step t - 1's midpoint); with magnets, whose transpose
+    reads every mass's gf between the phases, the general body's
+    count."""
+    rk2 = shape.config.integrator is Integrator.RK2
+    plain = takes_plain_spring_path(shape)
+    if plain and not shape.has_magnets:
+        n = 3 * seg + 1 if rk2 else seg + 1
+    else:
+        n = seg * (5 if rk2 else 2)
+    return n, n if plain else 0
+
+
+#: bwd_kernel_info's kernel names and the C entry's numbers
+BWD_KERNELS = {"force": 1, "spring": 2, "mid": 3, "fold": 4, "fold_rk2": 5}
+
+
+def bwd_kernel_info(kernel: str, shape: SceneShape) -> dict:
+    """What one kernel of the fused backward launches with on the current
+    card as ``shape``'s sweep launches it: threads a block, registers and
+    local-memory bytes a thread, its co-resident blocks an SM.
+    ``kernel``: a ``BWD_KERNELS`` name ("fold" and "fold_rk2" are the
+    folded sweep's launches of a plain-spring scene without magnets); the
+    instantiation (plain-spring, remainder) and the block (the folded
+    sweep's or the unfolded one's) are the scene's."""
+    plain = takes_plain_spring_path(shape)
+    fold = plain and not shape.has_magnets
+    out = (ctypes.c_int * 4)()
+    rc = _lib().titan_adjoint_bwd_kernel_info(
+        BWD_KERNELS[kernel], int(plain), int(fold), int(shape.has_remainder),
+        torch.cuda.current_device(), out)
+    if rc != 0:
+        raise RuntimeError(f"bwd_kernel_info: CUDA error {rc}")
+    return dict(threads=out[0], registers=out[1], local_bytes=out[2],
+                blocks_per_sm=out[3])
 
 
 def magnet_args(a, shape: SceneShape, state: SimState, g: dict, empty,
@@ -1131,7 +1185,10 @@ def _bwd_run_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
     g.update({k: empty(fam) for k in keys})
     if shape.has_drag:
         g["drag"] = empty((n,))
-    scratch = [empty(vec) for _ in range(5)]     # gf, gpc, gvc, pos_h, vel_h
+    plain = takes_plain_spring_path(shape)
+    fold = plain and not shape.has_magnets
+    # gf, gpc, gvc, pos_h, vel_h (and the folded sweep's second gf)
+    scratch = [empty(vec) for _ in range(5 + fold)]
 
     a = _BwdArgs()
     a.n, a.nf, a.seg = n, nf, seg
@@ -1177,7 +1234,15 @@ def _bwd_run_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
         if key in g:
             setattr(a, field, g[key].data_ptr())
     a.gcf, a.gminv = g["cf"].data_ptr(), g["minv"].data_ptr()
-    a.gf, a.gpc, a.gvc, a.pos_h, a.vel_h = (t.data_ptr() for t in scratch)
+    a.gf, a.gpc, a.gvc, a.pos_h, a.vel_h = (t.data_ptr()
+                                            for t in scratch[:5])
+    if plain:
+        kscal, bits = bits_k(shape, state, inv)
+        a.kscal = _checked("kscal", kscal, (nf,), kernel="adjoint")
+        a.bits = _checked("bits", bits, (n,), torch.int32, kernel="adjoint")
+        keep += [kscal, bits]
+    if fold:
+        a.gf_odd = scratch[5].data_ptr()
     a.local = local_struct(shape, inv)
     a.rem = remainder_struct(shape, inv, closed=True)
     grem, rem_g = rem_bars(shape, empty)
@@ -1192,7 +1257,9 @@ def _bwd_run_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
         raise RuntimeError(f"adjoint backward kernel launch failed: CUDA "
                            f"error {rc}")
     passes = 2 if cfg.integrator is Integrator.RK2 else 1
-    bwd_run.launches += seg * (5 if passes == 2 else 2)
+    launches, on_loop = bwd_launch_count(shape, seg)
+    bwd_run.launches += launches
+    bwd_run.plain_launches += on_loop
     if shape.has_magnets:
         bwd_run.mag_launches += seg * passes
     g["pair_ok"] = inv["pair_ok"]
@@ -1205,8 +1272,9 @@ def bwd_run(shape: SceneShape, state: SimState, trace, gpos, gvel,
     state on the card, ``bwd_run_plain`` for state on the CPU (the same
     keys).  ``inv`` is ``prep_invariants(shape, state)`` where the caller
     has it already.  ``bwd_run.launches`` counts the step kernels'
-    launches (two per step, five for RK2), ``bwd_run.mag_launches`` the
-    magnet transpose's (B5: one per force pass of a magnet scene)."""
+    launches (``bwd_launch_count``), ``bwd_run.plain_launches`` those on
+    the plain-spring loop, ``bwd_run.mag_launches`` the magnet
+    transpose's (B5: one per force pass of a magnet scene)."""
     dev = state.masses.pos.device
     if dev.type == "cpu":
         return bwd_run_plain(shape, state, trace, gpos, gvel, gacc, inv)
@@ -1216,6 +1284,7 @@ def bwd_run(shape: SceneShape, state: SimState, trace, gpos, gvel,
 
 
 bwd_run.launches = 0
+bwd_run.plain_launches = 0
 bwd_run.mag_launches = 0
 
 

@@ -28,11 +28,13 @@ is in ``ops/magnets_grid.py``.
 The adjoints' magnet branch: the pairwise field's transpose for one force
 pass is the CUDA kernel ``csrc/magnets_adjoint.cuh`` (B5), which the
 adjoints' sweeps launch (``magnet_transpose`` launches it alone, for tests
-and timing); ``magnet_transpose_plain`` is its plain version and
-``pairwise_field_lanes`` the field, both in the kernels' summation order
-(each lane's partners in index order, then the shuffle tree), so that
-both kernels are bitwise their plain versions; ``binned_field_vjp`` is the
-binned pass's vjp, the tiled glue's transpose on a binned scene.
+and timing); ``magnet_transpose_plain`` is its plain version, in its
+summation order (each slot of sources summed in source order, then the
+slots in order), and ``pairwise_field_lanes`` the field's, in
+``csrc/magnets.cu``'s (each lane's partners in index order, then the
+shuffle tree), so that both kernels are bitwise their plain versions;
+``binned_field_vjp`` is the binned pass's vjp, the tiled glue's transpose
+on a binned scene.
 """
 
 from __future__ import annotations
@@ -357,21 +359,66 @@ def _pair_bar(d, d2, dist, safe, md, inter, stiff_r, maxf_r, scale_s, g):
     return gd, ginter, gstiff, gmaxf, gscale
 
 
-def magnet_transpose_plain(pos, prm, fixed, gf, cutoff: float):
+#: the transpose kernel's slots of sources (its warps a block x blocks a
+#: cluster, ``csrc/magnets_adjoint.cuh``: kSlots = kWarps x kCluster, held
+#: equal by tests/test_torch_fused_bwd_plain.py)
+MAG_SLOTS = 32
+
+
+def transpose_chunk(n: int, slots: int = MAG_SLOTS) -> int:
+    """The sources a slot of the transpose kernel takes for ``n`` masses:
+    ceil(n / slots) rounded up to whole pieces of 32
+    (``csrc/magnets_adjoint.cuh::transpose_chunk``)."""
+    per = -(-n // slots)
+    return -(-per // 32) * 32
+
+
+def magnet_transpose_plain(pos, prm, fixed, gf, cutoff: float,
+                           slots: int = MAG_SLOTS, chunk: int = None):
     """Plain version of the pairwise field's transpose
     (``csrc/magnets_adjoint.cuh``, ``titan_tpu/ops/adjoint.py:935-1017``)
     for one force pass, in the kernel's summation order: the field's
-    cotangent is ``gf * (1 - fixed)``; each mass sums, per lane, its
-    receiver row (gpos += gd; its radius, stiffness and maxf gradients)
-    and its source column (gpos -= gd; its radius and scale gradients),
-    then the shuffle tree.  Returns (gpos [3, N], [4, N] gradients of
-    rad, stiffness, maxf, scale)."""
+    cotangent is ``gf * (1 - fixed)``; slot q of ``slots`` takes the
+    sources [q chunk, (q + 1) chunk) (``chunk`` defaults to
+    ``transpose_chunk(n, slots)``, the kernel's), and each mass sums, slot
+    by slot in source order from zero, the terms of the sources that act
+    with it: as a receiver (gpos += gd; its radius, stiffness and maxf
+    gradients) and as a source (gpos -= gd; its radius and scale
+    gradients); then the slots' sums in slot order.  A pair acts where
+    both masses are valid, i != j and, in float32, ``d2 <
+    cutoff_threshold(cutoff)`` (exactly ``sqrt(d2) < cutoff``, as the
+    kernel decides it), in another dtype ``sqrt(d2) < cutoff``.  Returns
+    (gpos [3, N], [4, N] gradients of rad, stiffness, maxf, scale)."""
+    from .magnets_grid import cutoff_threshold
     n = pos.shape[1]
+    chunk = chunk or transpose_chunk(n, slots)
+    if slots * chunk < n:
+        raise ValueError(f"{slots} slots of {chunk} sources do not cover "
+                         f"{n} masses")
+    dev = pos.device
     fixed = fixed.reshape(n)
     gfm = gf * (1.0 - fixed)
-    acc = pos.new_zeros((7, n, _LANES))
-    for jc, d, d2, dist, safe, md, inter, ok in _lane_blocks(pos, prm,
-                                                             cutoff):
+    valid = prm[4] != 0
+    iota = torch.arange(n, device=dev)
+    q = torch.arange(slots, device=dev)
+    thr = pos.new_full((), cutoff_threshold(cutoff))
+    acc = pos.new_zeros((7, n, slots))
+    for o in range(min(chunk, n)):
+        j = q * chunk + o
+        live = j < n
+        jc = torch.clamp(j, max=n - 1)
+        d = pos[:, :, None] - pos[:, jc][:, None, :]
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        pos_d = d2 > 0
+        # guarded: autograd through sqrt at 0 would give NaN
+        dist = torch.where(pos_d, torch.sqrt(torch.where(pos_d, d2, 1.0)),
+                           0.0)
+        near = d2 < thr if pos.dtype == torch.float32 else dist < cutoff
+        ok = (live[None, :] & (iota[:, None] != j[None, :])
+              & valid[:, None] & valid[jc][None, :] & near)
+        safe = torch.where(dist > 0, dist, 1.0)
+        md = torch.clamp(d2, min=1e-12)
+        inter = dist - (prm[0][:, None] + prm[0][jc][None, :])
         r = _pair_bar(d, d2, dist, safe, md, inter, prm[1][:, None],
                       prm[2][:, None], prm[3][jc][None, :], gfm[:, :, None])
         s = _pair_bar(-d, d2, dist, safe, md, inter, prm[1][jc][None, :],
@@ -382,7 +429,9 @@ def magnet_transpose_plain(pos, prm, fixed, gf, cutoff: float):
                          (acc[4] + r[2])[None], (acc[5] + r[3])[None],
                          (acc[6] + s[4])[None]])
         acc = torch.where(ok, new, acc)
-    out = _xor_tree(acc)
+    out = pos.new_zeros((7, n))
+    for k in range(slots):
+        out = out + acc[:, :, k]
     return out[:3], out[3:]
 
 
@@ -422,6 +471,24 @@ def magnet_transpose(pos, prm, fixed, gf, cutoff: float):
 
 
 magnet_transpose.launches = 0
+
+
+def transpose_info() -> dict:
+    """What the transpose kernel (B5) launches with on the current card:
+    threads a block, registers and local-memory bytes a thread,
+    co-resident blocks an SM, its slots of sources (``slots``, the
+    ``magnet_transpose_plain`` argument of its order) and blocks a
+    cluster."""
+    from .. import _build
+    fn = _build.load("adjoint").titan_magnet_transpose_info
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    rc = fn(torch.cuda.current_device(), out)
+    if rc != 0:
+        raise RuntimeError(f"transpose_info: CUDA error {rc}")
+    return dict(zip(("threads", "registers", "local_bytes", "blocks_per_sm",
+                     "slots", "cluster"), out))
 
 
 def binned_field_vjp(masses: MassState, shape, pos, gfm,
