@@ -31,7 +31,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      reports;
   b. hold both adjoint kernels against their plain versions on the 12 small
      scenes and a non-uniform-k one over a 20-step segment: the trace bitwise against
-     trace_run_plain, the backward against bwd_run_plain fed the same trace
+     trace_run_plain, its last entry bitwise the state fused_chunk reaches
+     after seg - 1 steps, its path adjoint.trace_path's (the plain-spring
+     loop exactly where the scene takes it) and its launches and those on
+     the loop exactly adjoint.trace_launch_count's (trace_vs_plain, as on
+     every fused trace below), the backward against bwd_run_plain fed the same trace
      and seeded cotangents, bitwise under Euler and Verlet and within
      TOL_BWD of max |plain| for every output under RK2, its launches
      exactly adjoint.bwd_launch_count's, the damped, breathing, actuated
@@ -43,11 +47,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      vel, k, rest, m, extern_force and g, with every launch count and the
      eager step count set to 0 just before and read just after; each kernel
      must launch, no eager step may run, every gradient must be finite, and
-     the backward's launches must be the folded sweep's exactly, all on the
-     plain-spring loop (its path printed with each kernel's registers and
-     blocks an SM: fused_bwd_path).
+     the replay's and the backward's launches must be exactly what the
+     segments give (the folded sweep's), all on the plain-spring loop (the
+     paths printed with each kernel's registers and blocks an SM, the
+     replay's grid too: fused_bwd_path, report_trace_path).
      Then both adjoint kernels against their plain versions on one
-     100-step segment's trace from that state;
+     100-step segment's trace from that state, and the replay under
+     Verlet and RK2 over 20 steps (trace_integrators);
   d. a system-id fit at 43^3 (examples/system_id.py's idea): a
      two-material k_true, 3 Adam iterations on log k, each loss over 2
      segments of 100 steps; the loss must fall;
@@ -188,8 +194,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      direction on one bottom edge and a ball on one side face, through
      Simulation until it lands (drive: the fused step, no tiled launch, no
      eager step), the fused step, trace and backward against their plain
-     versions from the landed state, the gradient path (the fused adjoint,
-     phase c's checks), and how many masses each slot type acts on;
+     versions from the landed state (the trace under Verlet and RK2 too),
+     the gradient path (the fused adjoint, phase c's checks), and how many
+     masses each slot type acts on;
   w. stress 100^3 + local: the same slots at 100^3 (placed to act from
      step 0) through Simulation for 2,000 Euler steps from t = 0, every
      count set to 0 just before and read just after: the tiled route, the
@@ -804,12 +811,14 @@ def seeded_cotangents(n, device, seed=5):
 
 
 def fused_bwd_path(name, shape):
-    """Print the fused backward's path on `shape` (the plain-spring loop,
-    folded or not, or the general body) and, for each kernel it launches,
-    its threads a block, registers and local-memory bytes a thread and
-    co-resident blocks an SM; a 13-family lattice must take the loop.
-    Returns "plain" or "general"."""
+    """Print the fused replay's path (report_trace_path) and the fused
+    backward's on `shape` (the plain-spring loop, folded or not, or the
+    general body) and, for each kernel it launches, its threads a block,
+    registers and local-memory bytes a thread and co-resident blocks an
+    SM; a 13-family lattice must take the loop.  Returns "plain" or
+    "general"."""
     from titan_tpu_torch.ops import adjoint
+    report_trace_path(name, shape)
     path = spring_path(shape)
     plain = path == "plain"
     if len(shape.stencil_deltas) == 13:
@@ -847,21 +856,89 @@ def check_fused_bwd_launches(name, shape, seg, n_seg, launches, on_loop):
           f"({n_seg * want_plain})")
 
 
-def adjoint_vs_plain(shape, state, seg, label):
-    """Both adjoint kernels against their plain versions from `state`: the
-    trace bitwise, the backward (its launches counted: check_fused_bwd_
-    launches) bitwise under Euler and Verlet and within TOL_BWD per output
-    under RK2 on the kernel's trace.  Returns the trace's max |d| and the
-    backward's max |d| and max |d| / max |plain|."""
+def trace_vs_plain(shape, state, seg, label, field=None):
+    """The fused replay over `seg` steps from `state`, its counts set to 0
+    just before and read just after: its path adjoint.trace_path's (the
+    plain-spring loop exactly where the scene takes it, spring_path), its
+    launches and those on the loop exactly adjoint.trace_launch_count's;
+    the trace against trace_run_plain (fed `field`, the field kernel's, on
+    a magnet scene) and its last entry against the state fused_chunk
+    reaches after seg - 1 steps from `state`.  Returns (trace, max |d|
+    against the plain version, whether both are bitwise, "path, launches,
+    on the loop" for the caller's line)."""
     import torch
-    from titan_tpu_torch.ops import adjoint
+    from titan_tpu_torch.ops import adjoint, fused_step
+    path = adjoint.trace_path(shape)
+    check(path == spring_path(shape), f"{label}: the fused replay takes "
+          f"the {path} path, the scene the {spring_path(shape)} one")
+    run = adjoint.trace_run
+    run.launches = run.plain_launches = 0
     trace = adjoint.trace_run(shape, state, seg)
-    want = adjoint.trace_run_plain(shape, state, seg)
+    got = (run.launches, run.plain_launches)
+    want_n = adjoint.trace_launch_count(shape, seg)
+    check(got == want_n, f"{label}: {got[0]} replay launches ({got[1]} on "
+          f"the plain-spring loop), trace_launch_count gives {want_n}")
+    want = adjoint.trace_run_plain(shape, state, seg, field=field)
+    last = fused_step.fused_chunk(shape, state, seg - 1)
     torch.cuda.synchronize()
     dtr = float((trace - want).abs().max())
-    check(torch.equal(trace, want),
-          f"{label}: trace kernel differs from trace_run_plain by {dtr:.3e}")
-    del want
+    same = bool(torch.equal(trace, want)) and bool(torch.equal(
+        trace[-1, :6], torch.cat([last.masses.pos, last.masses.vel])))
+    return (trace, dtr, same,
+            f"{path} path, {got[0]} launches, {got[1]} on the loop")
+
+
+def trace_integrators(name, shape, state, bad):
+    """The fused replay (trace_vs_plain) over BWD_STEPS steps from `state`
+    under Verlet and RK2 (the gradient path runs it under the scene's
+    Euler); failures appended to `bad`.  Returns the max |d|."""
+    from titan_tpu_torch.config import Integrator
+    err = 0.0
+    for integ in (Integrator.VERLET, Integrator.RK2):
+        label = f"{name}, {integ.name}"
+        _, dtr, same, took = trace_vs_plain(
+            integrator_shape(shape, integ), state, BWD_STEPS, label)
+        print(f"fused replay vs plain [{label}, {BWD_STEPS} steps]: {took}; "
+              + ("bitwise, its last entry the forward chunk's" if same
+                 else f"DIFFERS ({dtr:.3e})"))
+        if not same:
+            bad.append(f"{label}: trace differs from plain by {dtr:.3e}")
+        err = max(err, dtr)
+    return err
+
+
+def report_trace_path(name, shape):
+    """Print the fused replay's path on `shape` and its kernel's threads a
+    block, registers and local-memory bytes a thread, co-resident blocks
+    an SM and grid (adjoint.trace_kernel_info); a 13-family lattice must
+    take the plain-spring loop."""
+    from titan_tpu_torch.ops import adjoint
+    path = adjoint.trace_path(shape)
+    if len(shape.stencil_deltas) == 13:
+        check(path == "plain", f"{name}: the fused replay does not take the "
+              "plain-spring loop")
+    i = adjoint.trace_kernel_info(shape)
+    print(f"path {name}, fused replay: "
+          + ("the plain-spring loop" if path == "plain" else
+             "the general body")
+          + f"; adjoint_trace_kernel {i['threads']} threads a block, "
+          f"{i['registers']} registers and {i['local_bytes']} B of local "
+          f"memory a thread, {i['blocks_per_sm']} blocks an SM, grid "
+          f"{i['grid']}")
+
+
+def adjoint_vs_plain(shape, state, seg, label):
+    """Both adjoint kernels against their plain versions from `state`: the
+    trace bitwise (trace_vs_plain: its path and launches, its last entry
+    the forward chunk's), the backward (its launches counted: check_fused_
+    bwd_launches) bitwise under Euler and Verlet and within TOL_BWD per
+    output under RK2 on the kernel's trace.  Returns the trace's max |d|
+    and the backward's max |d| and max |d| / max |plain|."""
+    import torch
+    from titan_tpu_torch.ops import adjoint
+    trace, dtr, same_tr, took = trace_vs_plain(shape, state, seg, label)
+    check(same_tr, f"{label}: trace kernel differs from trace_run_plain "
+          f"(or its last entry from the forward chunk) by {dtr:.3e}")
     cts = seeded_cotangents(shape.n_masses, trace.device)
     run = adjoint.bwd_run
     run.launches = run.plain_launches = 0
@@ -886,7 +963,8 @@ def adjoint_vs_plain(shape, state, seg, label):
             bad.append(f"{key} {rel[key]:.3e}")
     if not rk2 and not same:
         bad.append("not bitwise under " + shape.config.integrator.name)
-    print(f"adjoint vs plain [{label}, {seg} steps]: trace bitwise; "
+    print(f"adjoint vs plain [{label}, {seg} steps]: trace ({took}) "
+          f"bitwise, its last entry the forward chunk's; "
           f"backward ({spring_path(shape)} path, {launches} launches, "
           f"{on_loop} on the plain-spring loop) "
           + ("bitwise" if same else "max |d| / max |plain|: "
@@ -966,9 +1044,11 @@ def grad_path(name, shape, state):
     adjoint_vs_plain."""
     import torch
     from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import adjoint
     path = fused_bwd_path(name, shape)
     fwd, tr, bwd, eager = counters()
-    fwd.launches = tr.launches = bwd.launches = bwd.plain_launches = 0
+    fwd.launches = tr.launches = tr.plain_launches = 0
+    bwd.launches = bwd.plain_launches = 0
     eager.steps = 0
     t0 = time.perf_counter()
     loss, grads = run_grad(
@@ -976,8 +1056,10 @@ def grad_path(name, shape, state):
         lambda sh, st, k: diff.grad_rollout(sh, st, k, segment=SEG))
     wall = time.perf_counter() - t0
     got = (fwd.launches, tr.launches, bwd.launches, eager.steps)
+    tr_plain = tr.plain_launches
     print(f"gradient path {name}: {GRAD_STEPS} steps in segments of {SEG}: "
-          f"fused_step launches {got[0]}, adjoint trace launches {got[1]}, "
+          f"fused_step launches {got[0]}, adjoint trace launches {got[1]} "
+          f"({tr_plain} on the plain-spring loop), "
           f"adjoint backward launches {got[2]} ({bwd.plain_launches} on the "
           f"plain-spring loop, the {path} path), eager steps {got[3]}; "
           f"{wall:.3f} s wall (first call)")
@@ -986,6 +1068,10 @@ def grad_path(name, shape, state):
     check(got[3] == 0, f"{name}: the gradient path ran {got[3]} eager steps")
     check_fused_bwd_launches(name, shape, SEG, GRAD_STEPS // SEG, got[2],
                              bwd.plain_launches)
+    want_tr = [GRAD_STEPS // SEG * v
+               for v in adjoint.trace_launch_count(shape, SEG)]
+    check([got[1], tr_plain] == want_tr, f"{name}: {got[1]} replay launches "
+          f"({tr_plain} on the loop), the segments give {want_tr}")
     names = ("pos", "vel", "k", "rest", "m", "extern_force", "g")
     for nm, g in zip(names, grads):
         check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm} is "
@@ -994,7 +1080,7 @@ def grad_path(name, shape, state):
           + ", ".join(f"{nm} {float(g.abs().max()):.3e}"
                       for nm, g in zip(names, grads)))
     err = adjoint_vs_plain(shape, state, SEG, f"{name} landed")
-    return got[1], got[2], err, path
+    return (got[1], tr_plain), got[2], err, path
 
 
 def system_id(shape, state, iters=3, lr=0.08):
@@ -2667,6 +2753,7 @@ def adjoint_counters():
             "bwd_step": (tb, "step_launches"),
             "fused": (fused_step.fused_chunk, "launches"),
             "adjoint_trace": (adjoint.trace_run, "launches"),
+            "adjoint_trace_plain": (adjoint.trace_run, "plain_launches"),
             "adjoint_bwd": (adjoint.bwd_run, "launches"),
             "adjoint_bwd_plain": (adjoint.bwd_run, "plain_launches"),
             "eager": (tstep.run_eager, "steps")}
@@ -3458,9 +3545,10 @@ def local_scene(titan, nx):
 
 def fused_local_vs_plain(shape, state, label, bad, steps=100):
     """The fused step over `steps` steps, the adjoint's trace over
-    BWD_STEPS steps and its backward on that trace against their plain
-    versions: bitwise, the RK2 backward per element (bwd_diffs).  Appends
-    failures to `bad`; returns (step, trace, backward) max |d|."""
+    BWD_STEPS steps (trace_vs_plain: its path, launches and last entry
+    too) and its backward on that trace against their plain versions:
+    bitwise, the RK2 backward per element (bwd_diffs).  Appends failures
+    to `bad`; returns (step, trace, backward) max |d|."""
     import torch
     from titan_tpu_torch.ops import adjoint, fused_step
     rk2 = shape.config.integrator.name == "RK2"
@@ -3468,12 +3556,7 @@ def fused_local_vs_plain(shape, state, label, bad, steps=100):
     want = fused_step.fused_chunk_plain(shape, state, steps)
     torch.cuda.synchronize()
     d, same = state_diffs(got, want, rest=shape.has_actuated)
-    trace = adjoint.trace_run(shape, state, BWD_STEPS)
-    twant = adjoint.trace_run_plain(shape, state, BWD_STEPS)
-    torch.cuda.synchronize()
-    dtr = float((trace - twant).abs().max())
-    tsame = bool(torch.equal(trace, twant))
-    del twant
+    trace, dtr, tsame, took = trace_vs_plain(shape, state, BWD_STEPS, label)
     cts = seeded_cotangents(shape.n_masses, trace.device)
     g = adjoint.bwd_run(shape, state, trace, *cts)
     ref = adjoint.bwd_run_plain(shape, state, trace, *cts)
@@ -3481,8 +3564,9 @@ def fused_local_vs_plain(shape, state, label, bad, steps=100):
     dbw, rel, bitwise, fails = bwd_diffs(g, ref, rk2)
     print(f"fused local vs plain [{label}]: step ({steps} steps) "
           + ("bitwise" if same else f"DIFFERS {d}") + f"; trace "
-          f"({BWD_STEPS} steps) " + ("bitwise" if tsame else
-                                     f"DIFFERS ({dtr:.3e})")
+          f"({BWD_STEPS} steps, {took}) "
+          + ("bitwise, its last entry the forward chunk's" if tsame
+             else f"DIFFERS ({dtr:.3e})")
           + "; backward " + ("bitwise" if bitwise else "per element: "
                              + ", ".join(f"{k} {v:.2e}"
                                          for k, v in rel.items()))
@@ -3599,9 +3683,10 @@ def local_bench_path(titan, kernels):
     report_activity(name, "the landed state", act)
     bad = []
     err = fused_local_vs_plain(shape, state, f"{name} landed", bad, steps=200)
+    tr_int = trace_integrators(f"{name} landed", shape, state, bad)
     check(not bad, "; ".join(bad))
-    tr_launches, bwd_launches, (tr_err, abs_err, rel_err), path = \
-        grad_path(name, shape, state)
+    (tr_launches, tr_plain), bwd_launches, (tr_err, abs_err, rel_err), \
+        path = grad_path(name, shape, state)
     with uncounted():
         end = fused_step.fused_chunk(shape, state, TIMED_STEPS)
         act_end = slot_activity(shape, end)
@@ -3617,14 +3702,16 @@ def local_bench_path(titan, kernels):
         max_abs_err=err[0], slot_masses=act, **t, library_ms=None))
     tr_t, bwd_t = time_adjoint(name, shape, state)
     for kname, line, n_launch, tm, e in (
-            ("adjoint_trace", 1283, tr_launches, tr_t, max(tr_err, err[1])),
+            ("adjoint_trace", 1283, tr_launches, tr_t,
+             max(tr_err, err[1], tr_int)),
             ("adjoint_bwd", 1384, bwd_launches, bwd_t, max(abs_err, err[2]))):
         kernels.append(dict(
             name=f"{kname} ({name})", route="cuda",
             source="titan_tpu_torch/csrc/adjoint.cu",
             replaces=f"titan_tpu/ops/adjoint.py:{line}", launches=n_launch,
-            max_abs_err=e, **({} if kname == "adjoint_trace"
-                              else dict(max_rel_err=rel_err, path=path)),
+            max_abs_err=e, path=path, **(
+                dict(plain_launches=tr_plain) if kname == "adjoint_trace"
+                else dict(max_rel_err=rel_err)),
             **tm, library_ms=None))
 
 
@@ -4031,9 +4118,11 @@ def rem_grad_path(name, shape, state, segment, route):
     if route == "adjoint":
         fused_bwd_path(name, shape)
         n_bwd, n_plain = adjoint.bwd_launch_count(shape, segment)
+        n_tr, n_tr_plain = adjoint.trace_launch_count(shape, segment)
         want = dict.fromkeys(adjoint_counters(), 0)
         want.update(fused=GRAD_STEPS * passes,
-                    adjoint_trace=GRAD_STEPS * passes,
+                    adjoint_trace=GRAD_STEPS // segment * n_tr,
+                    adjoint_trace_plain=GRAD_STEPS // segment * n_tr_plain,
                     adjoint_bwd=GRAD_STEPS // segment * n_bwd,
                     adjoint_bwd_plain=GRAD_STEPS // segment * n_plain)
     else:
@@ -4129,10 +4218,8 @@ def rem_bench_path(titan, kernels):
             name=f"{kname} ({name} gradient path, EULER, {GRAD_STEPS} "
             "steps)", route="cuda", source="titan_tpu_torch/csrc/adjoint.cu",
             replaces=f"titan_tpu/ops/adjoint.py:{line}", launches=n_launch,
-            max_abs_err=e, **tm, **({} if kname == "adjoint_trace" else dict(
-                path=spring_path(shape),
-                plain_launches=c["adjoint_bwd_plain"])),
-            library_ms=None))
+            max_abs_err=e, **tm, path=spring_path(shape),
+            plain_launches=c[f"{kname}_plain"], library_ms=None))
     return shape, state
 
 
@@ -4349,7 +4436,8 @@ def mag_fused_vs_plain(shape, state, label, bad, steps=BWD_STEPS):
     """B4 and B5 in the sweep: the fused trace of a magnet scene (field
     kernel, then the replay kernel, per pass) bitwise trace_run_plain fed
     the field kernel's field and its last entry bitwise the forward
-    chunk's state; the backward (with one transpose per force pass) on
+    chunk's state, its path and launches checked (trace_vs_plain); the
+    backward (with one transpose per force pass) on
     that trace against bwd_run_plain (bwd_diffs: Euler and Verlet bitwise,
     RK2 per element), its launches and those on the plain-spring loop
     exactly adjoint.bwd_launch_count's (check_fused_bwd_launches), over
@@ -4358,14 +4446,8 @@ def mag_fused_vs_plain(shape, state, label, bad, steps=BWD_STEPS):
     from titan_tpu_torch.ops import adjoint, fused_step
     rk2 = shape.config.integrator.name == "RK2"
     field = fused_step.magnet_field_fn(shape, state, plain=False)
-    trace = adjoint.trace_run(shape, state, steps)
-    want = adjoint.trace_run_plain(shape, state, steps, field=field)
-    last = fused_step.fused_chunk(shape, state, steps - 1)
-    torch.cuda.synchronize()
-    dtr = float((trace - want).abs().max())
-    tsame = bool(torch.equal(trace, want)) and bool(torch.equal(
-        trace[-1, :6], torch.cat([last.masses.pos, last.masses.vel])))
-    del want
+    trace, dtr, tsame, took = trace_vs_plain(shape, state, steps, label,
+                                             field=field)
     cts = seeded_cotangents(shape.n_masses, trace.device)
     run = adjoint.bwd_run
     run.launches = run.plain_launches = 0
@@ -4377,7 +4459,7 @@ def mag_fused_vs_plain(shape, state, label, bad, steps=BWD_STEPS):
     dbw, rel, bitwise, fails = bwd_diffs(g, ref, rk2)
     live = int((ref["mag"] != 0).any(0).sum())
     print(f"fused magnet adjoint vs plain [{label}]: trace ({steps} "
-          f"steps, {trace.shape[1]} rows) "
+          f"steps, {trace.shape[1]} rows, {took}) "
           + ("bitwise" if tsame else f"DIFFERS ({dtr:.3e})")
           + f"; backward ({spring_path(shape)} path, {launches} launches, "
           f"{on_loop} on the plain-spring loop) "
@@ -4660,7 +4742,9 @@ def mag_grad_counts(shape, n_steps, route):
     if route == "adjoint":
         # a magnet scene's sweep does not fold: the count of any segment
         n_bwd, n_plain = adjoint.bwd_launch_count(shape, n_steps)
-        want.update(fused=n_steps * passes, adjoint_trace=n_steps * passes,
+        n_tr, n_tr_plain = adjoint.trace_launch_count(shape, n_steps)
+        want.update(fused=n_steps * passes, adjoint_trace=n_tr,
+                    adjoint_trace_plain=n_tr_plain,
                     adjoint_bwd=n_bwd, adjoint_bwd_plain=n_plain,
                     transpose=n_steps * passes)
     else:
@@ -4850,7 +4934,10 @@ def link_grad_phase(titan, kernels):
             kernels.append(dict(
                 name=f"{kname} ({path})", route="cuda",
                 source=f"titan_tpu_torch/{src}", replaces=replaces,
-                launches=n_launch, max_abs_err=err, **t, **fb,
+                launches=n_launch, max_abs_err=err, **t, **fb, **(
+                    dict(path=spring_path(sh),
+                         plain_launches=counts["adjoint_trace_plain"])
+                    if kname == "adjoint_trace_kernel" else {}),
                 library_ms=None))
 
 
@@ -5196,8 +5283,12 @@ def main() -> int:
     # c. the gradient path from each landed state; d. system id at 43^3;
     # e. timing
     for i, (name, shape, state) in enumerate(landed):
-        tr_launches, bwd_launches, (tr_err, abs_err, rel_err), path = \
-            grad_path(name, shape, state)
+        (tr_launches, tr_plain), bwd_launches, (tr_err, abs_err, rel_err), \
+            path = grad_path(name, shape, state)
+        bad = []
+        tr_err = max(tr_err, trace_integrators(f"{name} landed", shape,
+                                               state, bad))
+        check(not bad, "; ".join(bad))
         if i == 0:
             system_id(shape, state)
         tr_t, bwd_t = time_adjoint(name, shape, state, fast=i == 0)
@@ -5210,8 +5301,9 @@ def main() -> int:
                 replaces=f"titan_tpu/ops/adjoint.py:{line}",
                 launches=n_launch,
                 max_abs_err=tr_err if kname == "adjoint_trace" else abs_err,
-                **({} if kname == "adjoint_trace"
-                   else dict(max_rel_err=rel_err, path=path)),
+                path=path, **(
+                    dict(plain_launches=tr_plain) if kname == "adjoint_trace"
+                    else dict(max_rel_err=rel_err)),
                 **t, library_ms=None))
 
     # g-l. the magnet field kernels, the fused step's magnet route, the

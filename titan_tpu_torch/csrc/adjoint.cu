@@ -12,6 +12,18 @@
 // that it is bitwise the forward chunk; the first evaluation of step t also
 // writes its input (pos_t, vel_t) to trace[t] ([seg, 6, N]: pos rows, then
 // vel rows).  ACTUATED rest advances step by step here, as in the forward.
+// A scene on the plain-spring path (below) replays the forward's
+// plain-spring step (plain_family_sum, step_tail) at 128 threads a block,
+// the trace stored evict-first (__stcs): a 100-step 43^3 trace is 191 MB,
+// four times the L2, where the ~2.9 MB of state the next pass gathers
+// should stay; other scenes keep the general body at 256.  Magnet scenes
+// launch it pass by pass (titan_adjoint_trace_pass), the field kernels
+// between the passes.  The whole segment in one cooperative launch, a
+// grid barrier after each pass, was bitwise and measured on an H100
+// (scripts/cuda_trace_ab.py): 12.2 us a 43^3 step against 11.5-12.1 for
+// the per-pass launches, 8.4 against 9.2 at 20^3; per-block flags in place
+// of the barrier and a two-level barrier were slower (13.4), so it was
+// not kept (PERF.md section 6).
 //
 // Backward.  One thread per mass; for each step t from seg - 1 down to 0:
 //   A (bwd_force_kernel): thread i recomputes its force from trace[t]
@@ -69,7 +81,9 @@
 // the general body took 48.9 us a 43^3 step and 40.8 at 20^3; the
 // plain-spring loops 30.2 and 22.8 unfolded, the folded sweep 27.0 and
 // 20.3 (PERF.md section 6).  The trace kernel is the forward step plus a
-// 24 B per mass store, so the 0.57 us of trace writes bound it.
+// 24 B per mass store, so the 0.57 us of trace writes bound it; its
+// plain-spring kernel took 11.1 us a 43^3 step and 8.2 at 20^3, the
+// general body 14.9 and 12.7.
 //
 // Rounding.  Built with -fmad=false and without --use_fast_math, as
 // fused_step.cu.  The backward sums each step's RK2 pass-2 and pass-1
@@ -180,12 +194,98 @@ struct BwdChunkArgs {
 #define TITAN_FUSED_BWD_BLOCKS 5
 #endif
 
+// Threads a block of the plain-spring replay (the forward's plain-spring
+// step kernel's, csrc/fused_step.cu) and of the general body.
+constexpr int kTracePlainThreads = 128;
+constexpr int kTraceThreads = 256;
+
 namespace {
 
+// The general body (a scene off the plain-spring path), one launch per
+// force pass at kTraceThreads a block.
 template <bool REM>
 __global__ void adjoint_trace_kernel(titan::StepArgs a, int mode,
                                      float* trace) {
   titan::step_body<REM>(a, mode, trace);
+}
+
+// (x, y, z) into rows i, n + i, 2 n + i, evict-first (st.global.cs): the
+// trace is written once here and read once by the sweep, and a
+// segment's trace outgrows the L2, where the state the next pass gathers
+// should stay.
+__device__ __forceinline__ void st3_stream(float* a, int i, int n, float3 v) {
+  __stcs(a + i, v.x);
+  __stcs(a + n + i, v.y);
+  __stcs(a + 2 * static_cast<size_t>(n) + i, v.z);
+}
+
+// The plain-spring path, one launch per force pass, one thread per mass:
+// the forward's plain-spring step (fused_step.cu::fused_step_kernel<REM,
+// true>: the family loop, then step_tail), so that the replay is bitwise
+// the forward chunk; the step's first pass (`trace` set) streams its
+// state (p, v) to the trace entry first.  An overload, so that the
+// general instantiations keep their names and machine code.
+template <bool REM, bool PLAIN>
+__global__ void adjoint_trace_kernel(titan::StepArgs a, int mode,
+                                     float* trace) {
+  static_assert(PLAIN, "the general body is adjoint_trace_kernel<REM>");
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = a.n;
+  if (i >= n) return;
+  const float3 p = titan::ld3(a.fpos, i, n);
+  const float3 v = titan::ld3(a.fvel, i, n);
+  if (trace != nullptr) {
+    st3_stream(trace, i, n, p);
+    st3_stream(trace + 3 * static_cast<size_t>(n), i, n, v);
+  }
+  const float3 f = titan::plain_family_sum(
+      a.deltas, a.fpos, a.bits, i, n, a.nf, a.kscal, a.rest_src, nullptr, p,
+      titan::ld3(a.cforce, i, n));
+  titan::step_tail<REM>(a, mode, i, titan::step_clock(a), p, v, f);
+}
+
+// The replay's kernel of `plain` (the plain-spring loop, else the general
+// body; REM its remainder instantiation).
+template <bool REM>
+const void* trace_entry(bool plain) {
+  using PassFn = void (*)(titan::StepArgs, int, float*);
+  if (plain) {
+    const PassFn fn = adjoint_trace_kernel<REM, true>;
+    return reinterpret_cast<const void*>(fn);
+  }
+  const PassFn fn = adjoint_trace_kernel<REM>;
+  return reinterpret_cast<const void*>(fn);
+}
+
+// One force pass of the replay: the plain-spring kernel at
+// kTracePlainThreads where a.kscal is set, else the general body at
+// kTraceThreads a block; the REM instantiation where the scene has
+// remainder springs.  Returns cudaGetLastError().
+template <bool REM>
+cudaError_t launch_pass(cudaStream_t st, const titan::StepArgs& a, int mode,
+                        float* entry) {
+  if (a.kscal != nullptr) {
+    const int blocks = (a.n + kTracePlainThreads - 1) / kTracePlainThreads;
+    adjoint_trace_kernel<REM, true><<<blocks, kTracePlainThreads, 0, st>>>(
+        a, mode, entry);
+  } else {
+    const int blocks = (a.n + kTraceThreads - 1) / kTraceThreads;
+    adjoint_trace_kernel<REM><<<blocks, kTraceThreads, 0, st>>>(a, mode,
+                                                                entry);
+  }
+  return cudaGetLastError();
+}
+cudaError_t launch_pass(cudaStream_t st, const titan::StepArgs& a, int mode,
+                        float* entry) {
+  return a.rem.inc != nullptr ? launch_pass<true>(st, a, mode, entry)
+                              : launch_pass<false>(st, a, mode, entry);
+}
+
+// A plain-spring replay (c->kscal set) needs the existence bits and a
+// scene of plain springs.
+bool plain_refused(const ChunkArgs* c) {
+  return c->kscal != nullptr && (c->bits == nullptr || c->has_damping ||
+                                 c->has_breathing || c->has_actuated);
 }
 
 constexpr int kFusedBwdThreads = TITAN_FUSED_BWD_THREADS;
@@ -323,46 +423,65 @@ const void* bwd_entry(int which, bool plain) {
 }  // namespace
 
 // Enqueue the segment's replay on `stream`, writing step t's input
-// (pos_t, vel_t) to trace + t * 6 N.  Returns 0 or the first CUDA error.
+// (pos_t, vel_t) to trace + t * 6 N: one launch per force pass, the
+// plain-spring kernel where c->kscal and c->bits are set (the plain-spring
+// path), else the general body.  A plain-spring replay without bits or of
+// a scene with damping, breathing or actuation is refused
+// (cudaErrorInvalidValue) before anything is enqueued.  Returns 0 or the
+// first CUDA error.
 extern "C" int titan_adjoint_trace(const ChunkArgs* c, float* trace,
                                    void* stream) {
+  if (plain_refused(c)) return (int)cudaErrorInvalidValue;
   const size_t slot = 6 * static_cast<size_t>(c->n);
   return titan::enqueue_chunk(
       c, stream,
-      [=](int blocks, int threads, cudaStream_t st, const titan::StepArgs& a,
-          int mode, int s, bool first) -> cudaError_t {
-        float* entry = first ? trace + s * slot : nullptr;
-        if (a.rem.inc != nullptr) {
-          adjoint_trace_kernel<true><<<blocks, threads, 0, st>>>(a, mode,
-                                                                 entry);
-        } else {
-          adjoint_trace_kernel<false><<<blocks, threads, 0, st>>>(a, mode,
-                                                                  entry);
-        }
-        return cudaGetLastError();
+      [=](int, int, cudaStream_t st, const titan::StepArgs& a, int mode,
+          int s, bool first) -> cudaError_t {
+        return launch_pass(st, a, mode, first ? trace + s * slot : nullptr);
       });
 }
 
 // One force pass of a magnet scene's replay (the forward's
 // titan_fused_pass with p->cforce = const_f + the pass's field), writing
-// the step's input to p->trace where it is set (the step's first pass).
+// the step's input to p->trace where it is set (the step's first pass);
+// the plain-spring kernel where c->kscal is set (refused as
+// titan_adjoint_trace refuses it).
 extern "C" int titan_adjoint_trace_pass(const ChunkArgs* c,
                                         const titan::PassArgs* p,
                                         void* stream) {
+  if (plain_refused(c)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(c->device);
   if (err != cudaSuccess) return (int)err;
-  const titan::StepArgs a = titan::pass_step_args(c, p);
-  const int threads = 256;
-  const int blocks = (c->n + threads - 1) / threads;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.rem.inc != nullptr) {
-    adjoint_trace_kernel<true><<<blocks, threads, 0, st>>>(a, p->mode,
-                                                           p->trace);
-  } else {
-    adjoint_trace_kernel<false><<<blocks, threads, 0, st>>>(a, p->mode,
-                                                            p->trace);
+  return (int)launch_pass(static_cast<cudaStream_t>(stream),
+                          titan::pass_step_args(c, p), p->mode, p->trace);
+}
+
+// What the replay's kernel launches with on a scene of n masses (`plain`
+// the plain-spring kernel, else the general body; `rem` the remainder
+// instantiation): out[0] threads a block, out[1] registers a thread,
+// out[2] local-memory bytes a thread, out[3] co-resident blocks an SM,
+// out[4] blocks in the grid.  Returns 0 or a CUDA error.
+extern "C" int titan_adjoint_trace_kernel_info(int plain, int rem, int n,
+                                               int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const void* entry =
+      rem ? trace_entry<true>(plain != 0) : trace_entry<false>(plain != 0);
+  const int threads = plain ? kTracePlainThreads : kTraceThreads;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, entry)) != cudaSuccess) {
+    return (int)err;
   }
-  return (int)cudaGetLastError();
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, entry, threads,
+                                                      0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = threads;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = per_sm;
+  out[4] = (n + threads - 1) / threads;
+  return 0;
 }
 
 // Enqueue the reverse sweep over the trace on `stream`.  The general body

@@ -16,9 +16,10 @@ segments; each segment is a ``torch.autograd.Function``:
 ``csrc/adjoint.cu`` for state on the card and run their plain PyTorch
 versions (``trace_run_plain``, ``bwd_run_plain``) for state on the CPU;
 anything else raises.  A scene on ``fused_step.takes_plain_spring_path``
-(plain springs, family-uniform k: every main path) runs the backward's
-plain-spring loops (k from ``fused_step.bits_k``) and, without magnets,
-folds each reversed step's phases into one launch (``bwd_launch_count``).
+(plain springs, family-uniform k: every main path) runs the replay's and
+the backward's plain-spring loops (k from ``fused_step.bits_k``;
+``trace_path``, ``trace_launch_count``) and, without magnets, folds each
+reversed step's phases into one launch (``bwd_launch_count``).
 
 The math below is the JAX package's, as plain functions on [.., N]
 tensors with a roll pair (``rg`` reads index n + d, ``rs`` is its
@@ -1010,7 +1011,42 @@ def _lib():
     lib.titan_adjoint_bwd_kernel_info.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.titan_adjoint_bwd_kernel_info.restype = ctypes.c_int
+    lib.titan_adjoint_trace_kernel_info.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.titan_adjoint_trace_kernel_info.restype = ctypes.c_int
     return lib
+
+
+def trace_path(shape: SceneShape) -> str:
+    """The replay's kernel on the card, a rule of the scene alone: "plain"
+    on the plain-spring path (``takes_plain_spring_path``: the forward's
+    plain-spring step with the trace stored, at 128 threads a block),
+    else "general" (the general body, 256).  Either way one launch per
+    force pass; a magnet scene's field kernels run between the passes."""
+    return "plain" if takes_plain_spring_path(shape) else "general"
+
+
+def trace_launch_count(shape: SceneShape, seg: int) -> tuple:
+    """(launches, launches on the plain-spring loop) of one segment's
+    replay of ``seg`` steps: one per force pass, two a step under RK2."""
+    n = seg * (2 if shape.config.integrator is Integrator.RK2 else 1)
+    return n, n if trace_path(shape) == "plain" else 0
+
+
+def trace_kernel_info(shape: SceneShape) -> dict:
+    """What the replay's kernel of ``shape`` (``trace_path``, its
+    remainder instantiation where the scene has remainder springs)
+    launches with on the current card: threads a block, registers and
+    local-memory bytes a thread, co-resident blocks an SM and blocks in
+    the grid."""
+    out = (ctypes.c_int * 5)()
+    rc = _lib().titan_adjoint_trace_kernel_info(
+        int(trace_path(shape) == "plain"), int(shape.has_remainder),
+        shape.n_masses, torch.cuda.current_device(), out)
+    if rc != 0:
+        raise RuntimeError(f"trace_kernel_info: CUDA error {rc}")
+    return dict(threads=out[0], registers=out[1], local_bytes=out[2],
+                blocks_per_sm=out[3], grid=out[4])
 
 
 def _trace_run_cuda(shape: SceneShape, state: SimState, seg: int, inv):
@@ -1029,6 +1065,8 @@ def _trace_run_cuda(shape: SceneShape, state: SimState, seg: int, inv):
     if shape.has_magnets:
         # the forward's passes (fused_step._magnet_passes), each with the
         # replay kernel and its constant force kept in the trace
+        plain = int(trace_path(shape) == "plain")
+
         def run(p):
             rc = lib.titan_adjoint_trace_pass(ctypes.byref(a),
                                               ctypes.byref(p), stream)
@@ -1036,6 +1074,7 @@ def _trace_run_cuda(shape: SceneShape, state: SimState, seg: int, inv):
                 raise RuntimeError(f"adjoint trace kernel launch failed: "
                                    f"CUDA error {rc}")
             trace_run.launches += 1
+            trace_run.plain_launches += plain
         _magnet_passes(shape, state, seg, keep[0],
                        magnet_field_fn(shape, state, plain=False), run,
                        trace=trace)
@@ -1045,8 +1084,9 @@ def _trace_run_cuda(shape: SceneShape, state: SimState, seg: int, inv):
     if rc != 0:
         raise RuntimeError(f"adjoint trace kernel launch failed: CUDA error "
                            f"{rc}")
-    trace_run.launches += seg * (2 if shape.config.integrator
-                                 is Integrator.RK2 else 1)
+    launches, on_loop = trace_launch_count(shape, seg)
+    trace_run.launches += launches
+    trace_run.plain_launches += on_loop
     return trace
 
 
@@ -1056,9 +1096,10 @@ def trace_run(shape: SceneShape, state: SimState, seg: int,
     state on the card (a magnet scene replays the forward's passes, each
     field kernel's field with the replay kernel), ``trace_run_plain`` for
     state on the CPU.  ``inv`` is ``prep_invariants(shape, state)`` where
-    the caller has it already (the kernel reads it).
-    ``trace_run.launches`` counts the replay kernel's launches (one per
-    step, two for RK2)."""
+    the caller has it already (the kernel reads it).  The route is
+    ``trace_path(shape)``; ``trace_run.launches`` counts the replay
+    kernel's launches (``trace_launch_count``), ``trace_run.plain_launches``
+    those on the plain-spring loop."""
     dev = state.masses.pos.device
     if dev.type == "cpu":
         return trace_run_plain(shape, state, seg)
@@ -1068,6 +1109,7 @@ def trace_run(shape: SceneShape, state: SimState, seg: int,
 
 
 trace_run.launches = 0
+trace_run.plain_launches = 0
 
 
 class _BwdArgs(ctypes.Structure):
@@ -1237,7 +1279,9 @@ def _bwd_run_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
     a.gf, a.gpc, a.gvc, a.pos_h, a.vel_h = (t.data_ptr()
                                             for t in scratch[:5])
     if plain:
-        kscal, bits = bits_k(shape, state, inv)
+        # the replay's, where it ran on this inv (_chunk_args)
+        kscal, bits = ((inv["kscal"], inv["bits"]) if "bits" in inv
+                       else bits_k(shape, state, inv))
         a.kscal = _checked("kscal", kscal, (nf,), kernel="adjoint")
         a.bits = _checked("bits", bits, (n,), torch.int32, kernel="adjoint")
         keep += [kscal, bits]

@@ -511,15 +511,14 @@ def deltas_on(deltas: tuple, device: torch.device) -> torch.Tensor:
 
 
 def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
-                inv: dict = None, plain_springs: bool = False):
+                inv: dict = None):
     """(``_ChunkArgs``, what it points into) for ``n_steps`` steps of the
     step kernel from ``state``; the second item holds every tensor the
     launch reads or writes, starting with the invariants and the outputs
     pos, vel, acc and rest.  ``inv`` is ``prep_invariants(shape, state)``
-    where the caller has it already.  ``plain_springs``: the step kernel's
-    own launches, which take the plain-spring path where the scene does
-    (``takes_plain_spring_path``; its k as ``bits_k``); the adjoint's
-    replay passes False."""
+    where the caller has it already.  A scene on the plain-spring path
+    (``takes_plain_spring_path``) gets its k as ``bits_k``, kept in
+    ``inv`` for the adjoint's backward."""
     cfg = shape.config
     m = state.masses
     dev = m.pos.device
@@ -574,7 +573,7 @@ def _chunk_args(shape: SceneShape, state: SimState, n_steps: int,
         a.arate = _checked("arate", inv["arate"], fam)
         a.abound = _checked("abound", inv["abound"], fam)
     a.drag = _checked("drag", m.drag, (n,))
-    if plain_springs and takes_plain_spring_path(shape):
+    if takes_plain_spring_path(shape):
         inv["kscal"], inv["bits"] = bits_k(shape, state, inv)
         a.kscal = _checked("kscal", inv["kscal"], (nf,))
         a.bits = _checked("bits", inv["bits"], (n,), torch.int32)
@@ -642,7 +641,7 @@ def _fused_chunk_cuda(shape: SceneShape, state: SimState, n_steps: int,
     """The kernel chunk.  A magnet scene runs ``_magnet_passes`` with
     ``field`` (default ``magnet_field_fn(shape, state, plain=False)``)."""
     lib = _lib()
-    a, keep = _chunk_args(shape, state, n_steps, plain_springs=True)
+    a, keep = _chunk_args(shape, state, n_steps)
     inv, pos_out, vel_out, acc_out, rest_out, rem_out = keep[:6]
     stream = torch.cuda.current_stream(pos_out.device).cuda_stream
     if shape.has_magnets:
