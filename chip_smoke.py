@@ -295,6 +295,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      grid and replay kernel must be the instantiation of the scene's path
      (check_profiled_path); the tiled step and replay entries of the
      kernels line carry "path";
+  rl1. RL (titan_tpu_torch.rl): walker_env(n_envs=1024), BASELINE config
+     5's width (27,648 masses, 161,792 springs), 10 control steps of 500
+     steps with seeded per-env actions, every count set to 0 just before
+     and read just after: the fused route on its general body (breathing),
+     exactly 500 launches a control step, no tiled launch, no eager step,
+     finite rewards that tell the envs apart, each control step held
+     against fused_chunk_plain from the same input (compare); then the
+     episodic form (episode_length 4, reset_noise): done exactly at the
+     truncation step, positions rewound, fresh velocity noise;
+  rl2. walker_env(n_envs=16384) with per-env actions: the tiled route with
+     omega per lane (BatchedEnv.step_shape), exact resident-grid and
+     per-step launches, one control step bitwise tiled_chunk_plain and
+     within TOL_CROSS of fused_chunk_plain, while the marshalled shape
+     (omega one scalar a family) falls outside it; both shapes timed in
+     turns;
+  rl3. pusher2_env(n_envs=1024), 10 control steps: its route and its path
+     through the fused step (the plain-spring loop: no action writes a
+     stencil field), exact launches, the last control step against
+     fused_chunk_plain;
+  rl4. examples/batched_rl_envs.py's 1,024 3^3 lattices with a seeded per-env
+     k sweep, set_env_gravity and set_env_plane through Simulation (start
+     -> pause -> checkpoint save -> resume -> pause -> getAll -> stop),
+     one fused launch a step, no eager step; measure_throughput's
+     env-steps/s beside the bound; the checkpoint loaded on the card and
+     resumed bitwise the uninterrupted run;
+  rl5. BatchedScenes (torch.func.vmap of the eager step) at 1,024 envs, 20
+     steps, against the flat-packed fused route on the same scene within
+     TOL_STATE; its eager steps (its design) printed;
+  rl6. backprop through physics (examples/train_backprop_policy.py's
+     recipe): 1,024 damped 3^3 lattices, an nn.Module policy whose thrust
+     enters as extern_force, 2 segments of 40 steps through grad_rollout,
+     3 Adam steps: the replay's and the backward's launches exactly
+     trace_launch_count / bwd_launch_count, on the general bodies, no
+     eager step, finite gradients; both adjoint kernels against their
+     plain versions from a segment's input, and their timing;
   5. print the kernels line (one entry per kernel and path), the card's
      name and power limit, and last the result line.
 
@@ -5192,6 +5227,576 @@ def mag_grad_phases(titan, kernels, phase_done):
     phase_done("z8-z9")
 
 
+# ---------------------------------------------------------------------------
+# RL and batching (phases rl1-rl7): the vectorized RL envs, the flat-packed
+# batch through Simulation with its throughput and checkpoint, the vmapped
+# BatchedScenes, and backprop through physics into a policy
+# ---------------------------------------------------------------------------
+
+RL_ENVS = 1024              # BASELINE config 5's width
+RL_TILED_ENVS = 16384       # a walker batch past the fused residency rule
+RL_CONTROL_STEPS = 10
+RL_EPISODE = 4              # the episodic walker's episode_length
+RL_SEG, RL_SEGMENTS, RL_ITERS = 40, 2, 3     # the policy's backprop
+
+
+def rl_actions(shape, seed=0, low=0.25, high=4.0):
+    """Seeded per-env actions on the card, [RL_CONTROL_STEPS, *shape]."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.uniform(
+        low, high, (RL_CONTROL_STEPS,) + tuple(shape)).astype(
+            np.float32)).cuda()
+
+
+def rl_control_steps(env, acts, label):
+    """RL_CONTROL_STEPS legacy control steps from env.reset(), every
+    stepping count set to 0 just before and read just after.  Returns
+    (the input state of each step, the final state, the rewards
+    [steps, n_envs], the counts, host seconds)."""
+    import torch
+    state, _ = env.reset()
+    with uncounted():            # the first call stages the chunk's shape
+        env.step(state, acts[0])
+        torch.cuda.synchronize()
+    inputs, rews = [], []
+    zero_tiled_counts()
+    t0 = time.perf_counter()
+    for a in acts:
+        inputs.append(state)
+        state, obs, rew = env.step(state, a)
+        rews.append(rew)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_tiled_counts()
+    rews = torch.stack(rews)
+    n = len(acts)
+    spc = env.steps_per_control
+    print(f"main path {label}: {n} control steps of {spc} steps "
+          f"({env.n_envs} envs, {env.n_per_env * env.n_envs} masses, "
+          f"{env.s_per_env * env.n_envs} springs) in {wall:.3f} s host "
+          f"clock: {n / wall:.2f} control steps/s, "
+          f"{env.n_envs * spc * n / wall:.4e} env-steps/s, "
+          f"{(counts['fused'] + counts['mega'] + counts['step']) / n:.0f} "
+          f"launches a control step; fused launches {counts['fused']}, "
+          f"tiled {counts['mega']} resident-grid + {counts['step']} per-step,"
+          f" eager steps {counts['eager']}")
+    check(bool(torch.isfinite(rews).all()) and bool(
+        torch.isfinite(obs).all()), f"{label}: non-finite reward or obs")
+    check(counts["eager"] == 0, f"{label}: {counts['eager']} eager steps")
+    return inputs, state, rews, counts, wall
+
+
+def rl_vs_plain(env, inputs, outputs, acts, label):
+    """Each control step again through fused_chunk_plain on the card, from
+    the same input state and action, held to the kernel's output with
+    compare (row 1's tolerance).  Returns the max |d|."""
+    from titan_tpu_torch.ops import fused_step
+    err = 0.0
+    with uncounted():
+        for i, (s_in, a) in enumerate(zip(inputs, acts)):
+            acted = env._apply(s_in, a, env)
+            want = fused_step.fused_chunk_plain(
+                env.step_shape(acted), acted, env.steps_per_control)
+            errs, bad = compare(outputs[i], want, False)
+            check(not bad, f"{label}: control step {i} disagrees with "
+                  f"fused_chunk_plain: {bad}")
+            err = max(err, *errs.values())
+    print(f"{label}: {len(inputs)} control steps each held against "
+          f"fused_chunk_plain from the same input: max |d| {err:.3e}")
+    return err
+
+
+def rl_walker(titan, kernels):
+    """Phase rl1: walker_env(n_envs=1024), 10 control steps with seeded
+    per-env actions (fused route, the general body, 500 launches a control
+    step), held per control step against fused_chunk_plain; then the
+    episodic form, whose auto-resets come at the truncation step."""
+    import torch
+    from titan_tpu_torch import rl
+    from titan_tpu_torch.ops import fused_step
+    from titan_tpu_torch.ops.step import chunk_route
+    name = f"RL walker {RL_ENVS}"
+    env = rl.walker_env(n_envs=RL_ENVS)
+    spc = env.steps_per_control
+    check((env.n_per_env * RL_ENVS, env.s_per_env * RL_ENVS, spc)
+          == (27_648, 161_792, 500), f"{name}: not BASELINE config 5's "
+          "batch at the env's defaults")
+    acts = rl_actions((RL_ENVS,))
+    inputs, final, rews, counts, _ = rl_control_steps(env, acts, name)
+    acted = env._apply(inputs[-1], acts[-1], env)
+    shape = env.step_shape(acted)
+    route = chunk_route(shape)[0]
+    plain = fused_step.takes_plain_spring_path(shape)
+    print(f"path {name}: route {route}, fused_step_kernel "
+          + ("the plain-spring loop" if plain else "the general body")
+          + f"; omega per lane {not shape.stencil_uniform[4]}")
+    check(route == "fused" and not plain, f"{name}: route {route}, plain "
+          f"{plain}; the breathing batch takes the fused general body")
+    check(counts["fused"] == RL_CONTROL_STEPS * spc
+          and counts["mega"] + counts["step"] == 0,
+          f"{name}: launches {counts}, want {RL_CONTROL_STEPS * spc} fused")
+    total = rews.sum(0)
+    check(torch.unique(total).numel() > RL_ENVS // 2,
+          f"{name}: the actions did not tell the envs apart")
+    err = rl_vs_plain(env, inputs, inputs[1:] + [final], acts, name)
+    kernels.append(dict(
+        name=f"fused_step ({name})", route="cuda",
+        source="titan_tpu_torch/csrc/fused_step.cu",
+        replaces="titan_tpu/ops/pallas_step.py:185",
+        launches=counts["fused"], max_abs_err=err, path="general",
+        **time_path(name, shape, acted), library_ms=None))
+
+    epi = rl.walker_env(n_envs=RL_ENVS, episode_length=RL_EPISODE,
+                        reset_noise=0.05)
+    es, _ = epi.reset(0)
+    zero_tiled_counts()
+    flags = []
+    for i in range(RL_EPISODE + 1):
+        es, obs, rew, done, info = epi.step(es, acts[i])
+        flags.append((bool(done.any()), bool(done.all()),
+                      bool(info["terminated"].any()), es.t.tolist()))
+        if i == RL_EPISODE - 1:
+            reset_pos = torch.equal(es.sim.masses.pos,
+                                    epi._state0.masses.pos)
+            fresh_vel = not torch.equal(es.sim.masses.vel,
+                                        epi._state0.masses.vel)
+    torch.cuda.synchronize()
+    counts = read_tiled_counts()
+    print(f"main path {name} episodic (episode_length {RL_EPISODE}, "
+          f"reset_noise 0.05): done any/all per step "
+          f"{[f[:2] for f in flags]}, fused launches {counts['fused']}, "
+          f"eager steps {counts['eager']}")
+    want_done = [(False, False)] * (RL_EPISODE - 1) + [(True, True),
+                                                       (False, False)]
+    check([f[:2] for f in flags] == want_done and not any(
+        f[2] for f in flags), f"{name}: auto-resets not exactly at the "
+        f"truncation step: {flags}")
+    check(set(flags[RL_EPISODE - 1][3]) == {0} and set(
+        flags[RL_EPISODE][3]) == {1}, f"{name}: episode counters {flags}")
+    check(reset_pos and fresh_vel, f"{name}: the auto-reset did not rewind "
+          "positions and draw fresh velocity noise")
+    check(counts["fused"] == (RL_EPISODE + 1) * spc and counts["eager"] == 0
+          and counts["mega"] + counts["step"] == 0,
+          f"{name} episodic: launches {counts}")
+
+
+def rl_tiled_walker(titan, kernels):
+    """Phase rl2: walker_env(n_envs=16384) with per-env actions takes the
+    tiled route with omega per lane; one control step (the feet reach the
+    friction plane) bitwise tiled_chunk_plain, and against
+    fused_chunk_plain on the card within TOL_CROSS (the two routes' f32
+    rounding, amplified by the contact, as in phase o); the same chunk
+    with the marshalled shape (omega one scalar per family, the fault
+    this slice repairs) must fall outside it; both timed in turns."""
+    import torch
+    from titan_tpu_torch import rl
+    from titan_tpu_torch.ops import fused_step, tiled_step
+    from titan_tpu_torch.ops.step import chunk_route
+    name = f"RL walker {RL_TILED_ENVS}"
+    env = rl.walker_env(n_envs=RL_TILED_ENVS)
+    spc = env.steps_per_control
+    state, _ = env.reset()
+    acts = rl_actions((RL_TILED_ENVS,), seed=1)
+    acted = env._apply(state, acts[0], env)
+    shape = env.step_shape(acted)
+    route = chunk_route(shape)[0]
+    print(f"path {name}: {env.n_per_env * RL_TILED_ENVS} masses, route "
+          f"{route}, {spring_path(shape)} body; omega flag marshalled "
+          f"{env.shape.stencil_uniform[4]}, stepped "
+          f"{shape.stencil_uniform[4]}")
+    check(route == "tiled" and env.shape.stencil_uniform[4]
+          and not shape.stencil_uniform[4],
+          f"{name}: route {route}, omega flags {env.shape.stencil_uniform}"
+          f" -> {shape.stencil_uniform}")
+    zero_tiled_counts()
+    out, _, rew = env.step(state, acts[0])
+    torch.cuda.synchronize()
+    counts = read_tiled_counts()
+    mega, step = tiled_step.launch_counts(shape, spc,
+                                          tiled_step.mega_seg(shape))
+    print(f"main path {name}: 1 control step: tiled {counts['mega']} "
+          f"resident-grid + {counts['step']} per-step launches ("
+          f"{counts['plain']} on the plain-spring loop), fused "
+          f"{counts['fused']}, eager {counts['eager']}")
+    check((counts["mega"], counts["step"], counts["plain"], counts["fused"],
+           counts["eager"]) == (mega, step, 0, 0, 0),
+          f"{name}: launches {counts}, want {mega} + {step} tiled")
+    check(bool(torch.isfinite(rew).all()), f"{name}: non-finite reward")
+    with uncounted():
+        plain = tiled_step.tiled_chunk_plain(shape, acted, spc)
+        same = all(torch.equal(getattr(out.masses, f),
+                               getattr(plain.masses, f))
+                   for f in ("pos", "vel", "acc"))
+        print(f"{name}: the tiled kernels vs tiled_chunk_plain over {spc} "
+              f"steps, omega per lane: bitwise {same}")
+        check(same, f"{name}: the tiled kernels differ from "
+              "tiled_chunk_plain")
+        errs, _ = compare(out, plain, False)
+        want = fused_step.fused_chunk_plain(shape, acted, spc)
+        _, worst = cross_check(out, want, f"{name}: the tiled route vs "
+                               f"fused_chunk_plain over {spc} steps")
+        old = tiled_step.tiled_chunk(env.shape, acted, spc)
+        _, old_worst = cross_check(
+            old, want, f"{name}: the marshalled shape (omega one scalar a "
+            "family) vs fused_chunk_plain", tol=float("inf"))
+        check(old_worst > TOL_CROSS, f"{name}: the marshalled shape's scalar"
+              " omega agreed with per-lane omega: the check cannot see the "
+              "fault")
+
+        def run(sh):
+            return lambda k: tiled_step.tiled_chunk(sh, acted, k)
+        run(shape)(spc)
+        torch.cuda.synchronize()
+        times = {"before": [], "after": []}
+        for which in ("before", "after", "after", "before"):
+            times[which].append(event_ms(run(
+                env.shape if which == "before" else shape), spc))
+        plain_ms = event_ms(lambda k: tiled_step.tiled_chunk_plain(
+            shape, acted, k), 5, reps=1)
+    before, after = (min(times[k]) for k in ("before", "after"))
+    us = {k: [round(t * 1e3, 3) for t in v] for k, v in times.items()}
+    (bound, by), _, _ = bound_ms_per_step(shape, acted, spc)
+    print(f"timing {name} tiled chunk ({spc}-step chunks, CUDA events, "
+          f"turns before/after/after/before): omega per lane "
+          f"{after * 1e3:.3f} us/step {us['after']}, the marshalled scalar "
+          f"omega {before * 1e3:.3f} us/step {us['before']}; bound "
+          f"{bound * 1e3:.4f} us/step by {by}; plain version "
+          f"{plain_ms * 1e3:.1f} us/step")
+    kernels.append(dict(
+        name=f"tiled_step ({name})", route="cuda",
+        source="titan_tpu_torch/csrc/tiled_step.cu",
+        replaces="titan_tpu/ops/pallas_tiled.py:205",
+        launches=counts["mega"] + counts["step"],
+        max_abs_err=max(errs.values()), max_rel_err_vs_fused=worst,
+        path="general", ms=after,
+        ms_scalar_omega=before, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None))
+
+
+def rl_pusher2(titan, kernels):
+    """Phase rl3: pusher2_env(n_envs=1024), 10 control steps; its route
+    and its path through the fused step (no action writes a stencil
+    field, so the marshalled shape and its plain-spring loop)."""
+    from titan_tpu_torch import rl
+    from titan_tpu_torch.ops import fused_step
+    from titan_tpu_torch.ops.step import chunk_route
+    name = f"RL pusher2 {RL_ENVS}"
+    env = rl.pusher2_env(n_envs=RL_ENVS)
+    spc = env.steps_per_control
+    acts = rl_actions((RL_ENVS, 4), seed=2, low=-1.5, high=1.5)
+    inputs, final, _, counts, _ = rl_control_steps(env, acts, name)
+    acted = env._apply(inputs[-1], acts[-1], env)
+    shape = env.step_shape(acted)
+    route = chunk_route(shape)[0]
+    plain = fused_step.takes_plain_spring_path(shape)
+    print(f"path {name}: route {route}, stepped with the marshalled shape "
+          f"{shape is env.shape}, fused_step_kernel "
+          + ("the plain-spring loop" if plain else "the general body"))
+    check(route == "fused" and counts["fused"] == RL_CONTROL_STEPS * spc
+          and counts["mega"] + counts["step"] == 0,
+          f"{name}: route {route}, launches {counts}")
+    err = rl_vs_plain(env, inputs[-1:], [final], acts[-1:], name)
+    kernels.append(dict(
+        name=f"fused_step ({name})", route="cuda",
+        source="titan_tpu_torch/csrc/fused_step.cu",
+        replaces="titan_tpu/ops/pallas_step.py:185",
+        launches=counts["fused"], max_abs_err=err,
+        path="plain" if plain else "general",
+        **time_path(name, shape, acted), library_ms=None))
+
+
+def rl_template(titan, nx=3):
+    """examples/batched_rl_envs.py's env: a 3^3 lattice on a friction
+    plane."""
+    src = titan.Simulation()
+    src.createLattice(titan.Vec(0, 0, 0.6), titan.Vec(1, 1, 1), nx, nx, nx)
+    src.createPlane(titan.Vec(0, 0, 1), 0, 0.4, 0.6)
+    src.setGlobalAcceleration(titan.Vec(0, 0, -9.8))
+    src.setTimeStep(0.0001)
+    return src
+
+
+def rl_flat_batch(titan, kernels):
+    """Phase rl4: examples/batched_rl_envs.py's 1,024 envs with a seeded
+    per-env k sweep, set_env_gravity and set_env_plane, through
+    Simulation (start -> pause -> checkpoint save -> resume -> pause ->
+    getAll -> stop), every count set to 0 just before and read just after;
+    measure_throughput at the pause beside the bound; the checkpoint
+    loaded on the card and resumed must be bitwise the uninterrupted
+    run."""
+    import tempfile
+    import numpy as np
+    import torch
+    from titan_tpu_torch.parallel import (replicate_scene, set_env_gravity,
+                                          set_env_plane)
+    from titan_tpu_torch.runtime import checkpoint, profiling
+    name = f"flat batch {RL_ENVS} x 3^3"
+    big, envs = replicate_scene(rl_template(titan), RL_ENVS,
+                                spacing=titan.Vec(3, 0, 0))
+    rng = np.random.default_rng(0)
+    for env in envs:
+        env.setSpringConstants(float(rng.uniform(5_000, 20_000)))
+    g = -9.8 * rng.uniform(0.5, 1.5, RL_ENVS)
+    floors = rng.uniform(-0.05, 0.05, RL_ENVS)
+    set_env_gravity(big, envs, [titan.Vec(0, 0, gz) for gz in g])
+    set_env_plane(big, envs, titan.Vec(0, 0, 1), floors, fk=0.4, fs=0.6)
+    t_save, t_end = 0.15, 0.3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flat.npz")
+        zero_tiled_counts()
+        t0 = time.perf_counter()
+        big.start()
+        big.pause(t_save)
+        checkpoint.save(big, path)
+        big.resume()
+        big.pause(t_end)
+        big.getAll()
+        wall = time.perf_counter() - t0
+        counts = read_tiled_counts()
+        shape, state = big._shape, big._snapshot()
+        n = big._store.n_masses
+        pos, vel = big._store.pos[:n].copy(), big._store.vel[:n].copy()
+        steps = round(t_end / big.getTimeStep())
+        print(f"main path {name} through Simulation: {steps} steps in "
+              f"{wall:.2f} s wall (marshal and the checkpoint's save "
+              f"included); fused launches {counts['fused']}, tiled "
+              f"{counts['mega'] + counts['step']}, eager {counts['eager']};"
+              f" fused_step_kernel "
+              + ("the plain-spring loop" if spring_path(shape) == "plain"
+                 else "the general body") + f" (uniform k "
+              f"{shape.stencil_uniform[0]}), {shape.cap_cp} contact-plane "
+              "slot a mass")
+        check(counts["fused"] == steps and counts["eager"] == 0
+              and counts["mega"] + counts["step"] == 0,
+              f"{name}: launches {counts}, want {steps} fused")
+        check(np.isfinite(pos).all() and np.isfinite(vel).all(),
+              f"{name}: non-finite state")
+        lo = pos[:, 2].reshape(RL_ENVS, -1).min(1) - floors
+        check(lo.min() > -0.02 and (lo < 0.01).any(),
+              f"{name}: lowest mass above its env's floor by "
+              f"{lo.min():.4f} .. {lo.max():.4f}")
+        with uncounted():
+            rep = profiling.measure_throughput(big, steps=2000,
+                                               warmup_steps=200)
+            err, _ = kernel_vs_plain(shape, state, 200, f"{name} at "
+                                     f"t={t_end}")
+            timing = time_path(name, shape, state)
+        big.stop()
+        (bound, by), _, _ = bound_ms_per_step(shape, state, 2000)
+        print(f"throughput {name} (measure_throughput, 2,000 steps from "
+              f"the pause, synchronized): {rep}; "
+              f"{RL_ENVS * rep.steps_per_sec:.4e} env-steps/s against a "
+              f"bound of {RL_ENVS / (bound * 1e-3):.4e} ({by})")
+        zero_tiled_counts()
+        sim = checkpoint.load(path)
+        check(abs(sim.time() - t_save) < 1e-12 and sim._device.type == "cuda",
+              f"{name}: loaded at t={sim.time()} on {sim._device}")
+        sim.resume()
+        sim.pause(t_end)
+        sim.getAll()
+        counts = read_tiled_counts()
+        same = (np.array_equal(sim._store.pos[:n], pos)
+                and np.array_equal(sim._store.vel[:n], vel))
+        sim.stop()
+    print(f"checkpoint {name}: saved at t={t_save}, loaded on the card, "
+          f"resumed to t={t_end} ({counts['fused']} fused launches, "
+          f"{counts['eager']} eager): bitwise the uninterrupted run {same}")
+    check(same and counts["eager"] == 0, f"{name}: the resumed checkpoint "
+          "is not bitwise the uninterrupted run")
+    kernels.append(dict(
+        name=f"fused_step ({name}, Simulation)", route="cuda",
+        source="titan_tpu_torch/csrc/fused_step.cu",
+        replaces="titan_tpu/ops/pallas_step.py:185",
+        launches=steps, max_abs_err=err, path=spring_path(shape),
+        env_steps_per_s=RL_ENVS * rep.steps_per_sec, **timing,
+        library_ms=None))
+
+
+def rl_batched_scenes(titan):
+    """Phase rl5: BatchedScenes (the vmap of the eager step) at 1,024
+    envs for 20 steps against the flat-packed fused route on the same
+    scene, same globals.  Its eager steps are the design of that path:
+    printed, and counted against no flat path."""
+    import torch
+    from titan_tpu_torch.ops import fused_step
+    from titan_tpu_torch.ops import step as tstep
+    from titan_tpu_torch.parallel import BatchedScenes, replicate_scene
+    steps = 20
+    b = BatchedScenes.from_simulation(rl_template(titan), RL_ENVS)
+    big, _ = replicate_scene(rl_template(titan), RL_ENVS)
+    big._T = 0.0
+    big._marshal()
+    n = rl_template(titan)._store.n_masses
+    with uncounted():
+        tstep.run_eager.steps = 0
+        b.run(steps)
+        torch.cuda.synchronize()
+        eager = tstep.run_eager.steps
+        flat = fused_step.fused_chunk(big._shape, big._state, steps)
+        got = b.positions()[:, :, :n]
+        want = flat.masses.pos[:, : RL_ENVS * n].reshape(
+            3, RL_ENVS, n).permute(1, 0, 2)
+        d = (got - want).abs()
+        bad = d > TOL_STATE + TOL_STATE * want.abs()
+        vmap_ms = event_ms(lambda k: tstep.run_eager(b._step, b.state, k),
+                           steps)
+        flat_ms = event_ms(lambda k: fused_step.fused_chunk(
+            big._shape, big._state, k), steps)
+    print(f"BatchedScenes {RL_ENVS} envs (torch.func.vmap of the eager "
+          f"step): {eager} eager steps (its design), positions vs the "
+          f"flat-packed fused route after {steps} steps max |d| "
+          f"{float(d.max()):.3e}; {vmap_ms * 1e3:.1f} us/step against the "
+          f"fused route's {flat_ms * 1e3:.3f} us/step (CUDA events)")
+    check(eager == steps, f"BatchedScenes: {eager} eager steps for {steps}")
+    check(not bool(bad.any()), f"BatchedScenes: {int(bad.sum())} positions "
+          f"beyond {TOL_STATE} of the flat-packed route")
+
+
+def rl_backprop(titan, kernels):
+    """Phase rl6: examples/train_backprop_policy.py's recipe without
+    optax: 1,024 damped 3^3 lattices flat-packed, a small nn.Module
+    policy whose thrust enters as extern_force, 2 segments of 40 steps
+    through diff.grad_rollout (gradients truncated between segments; the
+    objective the mean tracking error at both segment ends), 3 Adam
+    steps; every count set to 0 just before and read just after:
+    the replay's and the backward's launches exactly trace_launch_count /
+    bwd_launch_count a segment, on the general bodies (damped springs),
+    no eager step, finite gradients."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import adjoint, fused_step
+    from titan_tpu_torch.ops import step as tstep
+    from titan_tpu_torch.parallel import replicate_scene
+    name = f"RL backprop policy {RL_ENVS}"
+    src = titan.Simulation(titan.SimConfig(velocity_clamp=False))
+    body = src.createLattice(titan.Vec(0, 0, 0.45),
+                             titan.Vec(0.8, 0.8, 0.8), 3, 3, 3)
+    body.setSpringConstants(2000.0)
+    src._store.damping[: src._store.n_springs] = 1.0
+    n_per = src._store.n_masses
+    big, _ = replicate_scene(src, RL_ENVS, spacing=titan.Vec(4, 0, 0))
+    big.createPlane(titan.Vec(0, 0, 1), 0, 0.5, 0.7)
+    big.setTimeStep(1e-3)
+    big.setGlobalAcceleration(titan.Vec(0, 0, -9.8))
+    shape, state = diff.scene(big)
+    check(diff.grad_route(shape)[0] == "adjoint",
+          f"{name}: gradient route {diff.grad_route(shape)}")
+    E, N, dev = RL_ENVS, shape.n_masses, state.masses.pos.device
+
+    def env_mean(x):
+        return x[: E * n_per].reshape(E, n_per).mean(1)
+
+    z0 = float(env_mean(state.masses.pos[2])[0])
+    targets = z0 + 0.15 + 0.35 * torch.arange(E, device=dev) / (E - 1)
+    amax = 2.0 * float(state.masses.m[:n_per].sum()) * 9.8
+    rng = np.random.RandomState(0)
+    policy = torch.nn.Sequential(torch.nn.Linear(4, 32), torch.nn.Tanh(),
+                                 torch.nn.Linear(32, 1), torch.nn.Tanh())
+    with torch.no_grad():
+        for lin in (policy[0], policy[2]):
+            lin.weight.copy_(torch.from_numpy(rng.normal(
+                0, 0.4, tuple(lin.weight.shape)).astype(np.float32)))
+            lin.bias.zero_()
+    policy = policy.to(dev)
+    opt = torch.optim.Adam(policy.parameters(), lr=0.01)
+    zeros = torch.zeros(N, device=dev)
+
+    def apply_thrust(st, act):
+        fz = torch.cat([(amax / n_per * act).repeat_interleave(n_per),
+                        zeros[E * n_per:]])
+        return dataclasses.replace(st, masses=dataclasses.replace(
+            st.masses, extern_force=torch.stack([zeros, zeros, fz])))
+
+    def loss_fn():
+        st, errs, costs = state, [], []
+        for _ in range(RL_SEGMENTS):
+            st = pytree.tree_map(lambda x: x.detach(), st)
+            mz = env_mean(st.masses.pos[2])
+            obs = torch.stack([mz, env_mean(st.masses.vel[2]), targets,
+                               targets - mz], dim=1)
+            act = policy(obs)[:, 0]
+            st = apply_thrust(st, act)
+            seg_in = st
+            st = diff.grad_rollout(shape, st, RL_SEG, segment=RL_SEG)
+            err = env_mean(st.masses.pos[2]) - targets
+            errs.append((err * err).mean())
+            costs.append((act * act).mean())
+        # every segment's end enters the objective, so every segment's
+        # backward runs
+        track = torch.stack(errs).mean()
+        return track + 1e-3 * torch.stack(costs).mean(), track, seg_in
+
+    fwd, tr, bwd, eager = counters()
+    fwd.launches = tr.launches = tr.plain_launches = 0
+    bwd.launches = bwd.plain_launches = 0
+    eager.steps = 0
+    losses, finite = [], True
+    t0 = time.perf_counter()
+    for _ in range(RL_ITERS):
+        opt.zero_grad()
+        loss, track, seg_in = loss_fn()
+        loss.backward()
+        finite &= all(bool(torch.isfinite(p.grad).all())
+                      for p in policy.parameters())
+        opt.step()
+        losses.append(float(track.detach()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (fwd.launches, tr.launches, tr.plain_launches, bwd.launches,
+           bwd.plain_launches, eager.steps)
+    n_seg = RL_ITERS * RL_SEGMENTS
+    want = (n_seg * RL_SEG,
+            *(n_seg * v for v in adjoint.trace_launch_count(shape, RL_SEG)),
+            *(n_seg * v for v in adjoint.bwd_launch_count(shape, RL_SEG)), 0)
+    print(f"main path {name}: {RL_ITERS} Adam steps of {RL_SEGMENTS} "
+          f"segments x {RL_SEG} steps through grad_rollout in {wall:.3f} s; "
+          f"fused_step launches {got[0]}, adjoint trace {got[1]} ({got[2]} "
+          f"on the plain-spring loop), backward {got[3]} ({got[4]} on the "
+          f"plain-spring loop), eager {got[5]}; want {want}; tracking mse "
+          f"{[round(x, 6) for x in losses]}; gradients finite {finite}")
+    check(got == want, f"{name}: launches {got}, the segments give {want}")
+    check(adjoint.trace_path(shape) == "general"
+          and not fused_step.takes_plain_spring_path(shape),
+          f"{name}: the damped batch must take the general bodies")
+    check(finite and all(np.isfinite(losses)), f"{name}: non-finite "
+          "gradient or loss")
+    st = pytree.tree_map(lambda x: x.detach(), seg_in)
+    tr_err, abs_err, rel_err = adjoint_vs_plain(shape, st, RL_SEG, name)
+    tr_t, bwd_t = time_adjoint(name, shape, st)
+    for kname, line, n_launch, t in (
+            ("adjoint_trace", 1283, got[1], tr_t),
+            ("adjoint_bwd", 1384, got[3], bwd_t)):
+        kernels.append(dict(
+            name=f"{kname} ({name})", route="cuda",
+            source="titan_tpu_torch/csrc/adjoint.cu",
+            replaces=f"titan_tpu/ops/adjoint.py:{line}",
+            launches=n_launch, path="general",
+            max_abs_err=tr_err if kname == "adjoint_trace" else abs_err,
+            **(dict(max_rel_err=rel_err) if kname == "adjoint_bwd" else {}),
+            **t, library_ms=None))
+
+
+def rl_phases(titan, kernels, phase_done):
+    """Phases rl1-rl6, ``phase_done(label)`` after each."""
+    rl_walker(titan, kernels)
+    phase_done("rl1")
+    rl_tiled_walker(titan, kernels)
+    phase_done("rl2")
+    rl_pusher2(titan, kernels)
+    phase_done("rl3")
+    rl_flat_batch(titan, kernels)
+    phase_done("rl4")
+    rl_batched_scenes(titan)
+    phase_done("rl5")
+    rl_backprop(titan, kernels)
+    phase_done("rl6")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5335,6 +5940,12 @@ def main() -> int:
     # on small scenes, the RobotLink gradient path, the 64^3 magnet lattice
     # through Simulation and its gradient paths, timing
     mag_grad_phases(titan, kernels, phase_done)
+
+    # rl1-rl6. RL and batching: the walker and pusher2 envs, the tiled
+    # walker batch with per-env omega, the flat-packed batch through
+    # Simulation with throughput and checkpoint, BatchedScenes, backprop
+    # through physics into a policy
+    rl_phases(titan, kernels, phase_done)
 
     # 5. result lines
     smi = subprocess.run(

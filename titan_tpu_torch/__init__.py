@@ -29,5 +29,7 @@ from .entities import Mass, Spring  # noqa: F401
 from .containers import Container, Cube, Lattice, Beam, RobotLink  # noqa: F401
 from .runtime.simulation import Simulation  # noqa: F401
 from . import diff  # noqa: F401  (differentiable rollouts)
+from . import models  # noqa: F401  (cloth/rope/walker/truss archetypes)
+from . import parallel  # noqa: F401  (flat-packed and vmapped batches)
 
 __version__ = "0.1.0"

@@ -257,3 +257,22 @@ def shape_from_fields(shape, device) -> SceneShape:
     vals = {f.name: getattr(shape, f.name)
             for f in dataclasses.fields(SceneShape) if f.name != "config"}
     return SceneShape(config=_config_from_fields(shape.config, device), **vals)
+
+
+def _register_pytrees() -> None:
+    """Register the state dataclasses as pytrees (``torch.utils._pytree``),
+    so that ``torch.func.vmap`` maps over a ``SimState``
+    (``parallel/batched.py``), as JAX maps over the JAX package's state."""
+    import torch.utils._pytree as pytree
+    for cls in (MassState, SpringState, GlobalConstraints, LocalConstraints,
+                StencilState, Topology, SimState):
+        names = tuple(f.name for f in dataclasses.fields(cls))
+        pytree.register_pytree_node(
+            cls,
+            lambda x, names=names: ([getattr(x, n) for n in names], None),
+            lambda leaves, _, cls=cls, names=names: cls(
+                **dict(zip(names, leaves))),
+            serialized_type_name=f"titan_tpu_torch.state.{cls.__name__}")
+
+
+_register_pytrees()
