@@ -330,6 +330,44 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      trace_launch_count / bwd_launch_count, on the general bodies, no
      eager step, finite gradients; both adjoint kernels against their
      plain versions from a segment's input, and their timing;
+  h1. build titan_tpu_torch/native (g++ -O3 -shared -fPIC, into _build/):
+     its lattice emitter at 43^3 and 100^3 bitwise the numpy emitter
+     (984,438 and 12,731,796 springs), host seconds of each; its inside
+     test against STLFile.inside and the truth on tests/test_native.py's
+     unit cube;
+  h2. bench.py's 43^3 scene through Simulation: at t = 0.5 (in the air)
+     its 13 slabs of smallest x (30.2% of the masses) deleted and
+     compact()ed, then resumed to t = 3.5, every count set to 0 just
+     before and read just after: fused launches only, exactly the chunks'
+     steps (chunk_recorder), 0 eager; 13 families; surviving handles read
+     their rows; landed; the landed state against fused_chunk_plain over
+     200 steps.  At that pause getProjectionMatrix against its closed form
+     (1e-12), fps() -1 without and > 0 with a Recorder, then reset() and a
+     fresh 10^3 lattice that runs 500 fused steps;
+  h3. importFromSTL of a non-convex L-shaped prism written as a binary STL
+     into a temporary directory (density 159.02: a 43^3 lattice), host
+     seconds of the import: holes exactly where culled, the missing
+     quadrant culled and the solid kept; through Simulation to t = 5.5
+     with the counts zeroed: 13 families, fused launches only, exactly the
+     chunks', 0 eager; landed; against fused_chunk_plain over 200 steps;
+  h4. incremental edits at a pause, at 43^3 (fused) and 100^3 (tiled), on
+     twins built from phase 3's and phase o's landed states: (a) a spring
+     deleted and created again (fills its freed slot), (b) one cross link
+     (the remainder), (c) a mass and a spring to it, (d) a spring deleted
+     and created again with damping (a feature flip).  Each applied by the
+     incremental path on one twin and by the forced full re-marshal
+     (journal.force_full) on the other, with the host ms of each; each
+     resumed run of 100 steps with its counts zeroed: launches exactly its
+     chunks' on the route chunk_route names, 0 eager, a 100^3 remainder
+     scene per-step launches only (ROADMAP C4); the twins bitwise where
+     both put every spring in the same slot, else within TOL_STATE; the
+     edited state against the plain version;
+  h5. LiveViewer on the running 43^3 scene (h4's incremental twin) over
+     loopback, cadence 0.05 s, in turns with and without it: frames
+     fetched over HTTP finite, their times rising, each within the page's
+     rounding of the snapshot of its time, each recorded frame bitwise its
+     snapshot; steps/s with and without; and ROADMAP C7's scene on the
+     card (a reused make_observe callback);
   5. print the kernels line (one entry per kernel and path), the card's
      name and power limit, and last the result line.
 
@@ -5797,6 +5835,729 @@ def rl_phases(titan, kernels, phase_done):
     phase_done("rl6")
 
 
+# ---------------------------------------------------------------------------
+# The host layer (phases h1-h5): the native emitter, the control plane with
+# compaction, the STL import, incremental topology edits, the live viewer
+# ---------------------------------------------------------------------------
+
+# the 43^3 scene's slabs of smallest x that phase h2 deletes: 13 of 43
+# (24,037 of 79,507 masses, 30.2%), a block of leading rows, so that every
+# surviving row moves and every spring keeps its lattice delta
+H2_SLABS = 13
+# the edited scenes' steps after each edit, and the viewer's run
+H4_STEPS, H5_SIM_SECONDS, H5_CADENCE = 100, 3.0, 0.05
+# phase h3's import: the L prism's bounding box (2, 1, 2) scaled to 10 gives
+# num_pts = int(cbrt(density * 125 * 4)) lattice sites a side
+H3_NUM_PTS, H3_DENSITY = 43, 159.02
+
+
+def box_tris(lo, hi):
+    """12 triangles of an axis-aligned box (tests/test_stl.py's)."""
+    import numpy as np
+    lo, hi = np.asarray(lo, float), np.asarray(hi, float)
+    v = np.array([[lo[0], lo[1], lo[2]], [hi[0], lo[1], lo[2]],
+                  [hi[0], hi[1], lo[2]], [lo[0], hi[1], lo[2]],
+                  [lo[0], lo[1], hi[2]], [hi[0], lo[1], hi[2]],
+                  [hi[0], hi[1], hi[2]], [lo[0], hi[1], hi[2]]])
+    quads = [(0, 3, 2, 1), (4, 5, 6, 7), (0, 1, 5, 4),
+             (2, 3, 7, 6), (1, 2, 6, 5), (3, 0, 4, 7)]
+    return np.array([t for a, b, c, d in quads
+                     for t in ([v[a], v[b], v[c]], [v[a], v[c], v[d]])])
+
+
+def ell_prism_tris():
+    """A non-convex prism: the L of (0,0) (2,0) (2,1) (1,1) (1,2) (0,2) in
+    x-z, extruded over y in [0, 1]; two caps of 4 triangles and 6 sides of
+    2, outward normals."""
+    import numpy as np
+    ell = [(0, 0), (2, 0), (2, 1), (1, 1), (1, 2), (0, 2)]
+    front = [np.array([x, 0.0, z]) for x, z in ell]
+    back = [np.array([x, 1.0, z]) for x, z in ell]
+    tris = []
+    for a, b, c in ((0, 1, 2), (0, 2, 3), (0, 3, 5), (3, 4, 5)):
+        tris.append([front[a], front[b], front[c]])   # normal -y
+        tris.append([back[a], back[c], back[b]])      # normal +y
+    for i in range(6):
+        j = (i + 1) % 6
+        tris.append([front[i], back[j], front[j]])
+        tris.append([front[i], back[i], back[j]])
+    return np.array(tris)
+
+
+def write_binary_stl(path, tris):
+    """tris [F, 3, 3] as a binary STL (tests/test_stl.py's writer)."""
+    import struct
+    import numpy as np
+    tris = np.asarray(tris, dtype=np.float32)
+    with open(path, "wb") as fh:
+        fh.write(b"\x00" * 80)
+        fh.write(struct.pack("<I", tris.shape[0]))
+        for t in tris:
+            nv = np.cross(t[1] - t[0], t[2] - t[0])
+            ln = np.linalg.norm(nv)
+            fh.write(struct.pack("<3f", *(nv / ln if ln > 0 else nv)))
+            for v in t:
+                fh.write(struct.pack("<3f", *v))
+            fh.write(struct.pack("<H", 0))
+
+
+class chunk_recorder:
+    """Records (shape, steps, output state) of every chunk that `sims` run
+    while it is on: their current chunks wrapped, and
+    runtime.simulation._chunk_for wrapped for the chunks picked meanwhile,
+    so that each launch count can be held against the chunks' lengths."""
+
+    def __init__(self, *sims):
+        self.sims, self.chunks = sims, []
+
+    def _wrap(self, shape, fn):
+        def chunk(state, n_steps):
+            out = fn(state, n_steps)
+            self.chunks.append((shape, int(n_steps), out))
+            return out
+        chunk.inner = fn
+        return chunk
+
+    def __enter__(self):
+        from titan_tpu_torch.runtime import simulation as rsim
+        self.rsim, self.orig = rsim, rsim._chunk_for
+        rsim._chunk_for = lambda shape: self._wrap(shape, self.orig(shape))
+        for sim in self.sims:
+            if sim._chunk is not None:
+                sim._chunk = self._wrap(sim._shape, sim._chunk)
+        return self
+
+    def __exit__(self, *exc):
+        self.rsim._chunk_for = self.orig
+        for sim in self.sims:
+            while hasattr(sim._chunk, "inner"):
+                sim._chunk = sim._chunk.inner
+
+    def expected(self, start=0, stop=None):
+        """The launches the chunks [start:stop] give on their routes:
+        {"fused", "mega", "step", "plain"}."""
+        from titan_tpu_torch.ops import tiled_step
+        from titan_tpu_torch.ops.step import chunk_route
+        want = dict(fused=0, mega=0, step=0, plain=0)
+        for shape, n, _ in self.chunks[start:stop]:
+            route = chunk_route(shape)[0]
+            check(route in ("fused", "tiled"), f"route {route}")
+            if route == "fused":
+                want["fused"] += n
+                continue
+            seg = tiled_step.mega_seg(shape)
+            mega, step = (n // seg, n % seg) if seg else (0, n)
+            want["mega"] += mega
+            want["step"] += step
+            want["plain"] += tiled_step.plain_launch_count(shape, mega, step)
+        return want
+
+
+def check_counts(label, counts, want):
+    """The stepping counts of a run against its chunks' (chunk_recorder):
+    equal, and no eager step."""
+    got = {k: counts[k] for k in want}
+    print(f"{label}: launches {got}, eager steps {counts['eager']}; the "
+          f"chunks' lengths give {want}")
+    check(got == want and counts["eager"] == 0,
+          f"{label}: launches {counts} against the chunks' {want}")
+
+
+def native_phase(titan):
+    """Phase h1: build titan_tpu_torch/native (g++), the lattice emitter at
+    43^3 and 100^3 bitwise the numpy emitter, and the native inside test
+    against STLFile.inside on tests/test_native.py's unit cube."""
+    import numpy as np
+    from titan_tpu_torch import builders, native, stl
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"build native/topology.cpp (g++ {' '.join(native.FLAGS)}): "
+          f"{time.perf_counter() - t0:.2f} s -> {lib.name}")
+    for nx in (43, STRESS_NX):
+        count = {43: 984438, 100: 12731796}.get(
+            nx, native.get_lib().titan_lattice_spring_count(nx, nx, nx))
+        t0 = time.perf_counter()
+        got = native.lattice_springs(nx, nx, nx)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = builders.lattice_springs_numpy(nx, nx, nx)
+        t_numpy = time.perf_counter() - t0
+        same = all(np.array_equal(a, b) and a.dtype == b.dtype
+                   for a, b in zip(got, want))
+        print(f"native lattice_springs {nx}^3: {len(got[0])} springs in "
+              f"{t_native:.4f} s (host), numpy {t_numpy:.4f} s: "
+              + ("bitwise" if same else "DIFFER"))
+        check(same and len(got[0]) == count,
+              f"native lattice_springs {nx}^3 differs from numpy")
+    tris = box_tris([0, 0, 0], [1, 1, 1])
+    pts = np.random.default_rng(3).uniform(-0.5, 1.5, size=(200, 3))
+    truth = np.all(pts > 0, axis=1) & np.all(pts < 1, axis=1)
+    got = native.stl_inside(tris, pts, num_rays=9)
+    want = stl.STLFile(header=b"", normals=np.zeros((12, 3)),
+                       tris=tris).inside(pts, num_rays=9)
+    print(f"native stl_inside on the unit cube: {int(got.sum())} of 200 "
+          f"points inside, STLFile.inside {int(want.sum())}, truth "
+          f"{int(truth.sum())}")
+    check(np.array_equal(got, want) and np.array_equal(got, truth),
+          "native stl_inside disagrees with STLFile.inside")
+
+
+def look_at_projection(cam, look, up):
+    """The closed form of a gluPerspective(45 deg, 4:3, 0.01, 200) times
+    gluLookAt(cam, look, up) matrix, written out element by element."""
+    import numpy as np
+    f = 1.0 / math.tan(math.radians(45.0) / 2)
+    near, far = 0.01, 200.0
+    proj = np.array([[f / (4.0 / 3.0), 0, 0, 0], [0, f, 0, 0],
+                     [0, 0, (far + near) / (near - far),
+                      2 * far * near / (near - far)], [0, 0, -1, 0]])
+    z = (cam - look) / np.linalg.norm(cam - look)
+    x = np.cross(up, z)
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    view = np.array([[*x, -x @ cam], [*y, -y @ cam], [*z, -z @ cam],
+                     [0, 0, 0, 1]])
+    return proj @ view
+
+
+def compaction_phase(titan, kernels):
+    """Phase h2: a 43^3 lattice through Simulation; at a pause in the air
+    its 13 slabs of smallest x (30.2% of the masses) deleted and
+    compact()ed, then resumed until it lands, every count set to 0 just
+    before and read just after: fused launches only (exactly the chunks'
+    steps), 0 eager steps; surviving handles read their rows; the landed
+    state against fused_chunk_plain over 200 steps.  Then the control
+    plane: getProjectionMatrix against its closed form, fps() through a
+    Recorder, and reset() to a fresh simulation that runs again."""
+    import numpy as np
+    import torch
+    from titan_tpu_torch.runtime.viewer import Recorder
+    name = "compacted 43^3"
+    sim = bench_scene(titan)
+    st = sim._store
+    n0 = st.n_masses
+    nx = round(n0 ** (1 / 3))
+    cut = H2_SLABS * nx * nx
+    keep_rows = (cut, cut + 2 * nx + 3, n0 // 2, n0 - 1)
+    handles = [sim.masses[r] for r in keep_rows]
+    zero_tiled_counts()
+    with chunk_recorder(sim) as rec:
+        sim.start()
+        sim.wait(0.5)
+        sim.getAll()
+        before = st.pos[list(keep_rows)].copy()
+        t0 = time.perf_counter()
+        for i in range(cut):
+            sim.deleteMass(sim.masses[i])
+        t_delete = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sim.compact()
+        t_compact = time.perf_counter() - t0
+        check(st.n_masses == n0 - cut, f"{name}: {st.n_masses} masses "
+              f"after compact(), not {n0 - cut}")
+        for h, r, p in zip(handles, keep_rows, before):
+            check(h.index == r - cut and np.array_equal(h.pos.numpy(), p),
+                  f"{name}: the handle of row {r} reads row {h.index}")
+        t0 = time.perf_counter()
+        sim.resume()
+        t_resume = time.perf_counter() - t0
+        sim.wait(3.0)
+        sim.getAll()
+        landed = (sim._shape, sim._snapshot())
+        torch.cuda.synchronize()
+        counts = read_tiled_counts()
+    shape, state = landed
+    print(f"main path {name}: {cut} masses deleted at t=0.5 in "
+          f"{t_delete:.2f} s, compact() {t_compact:.2f} s, the resume's "
+          f"full re-marshal {t_resume:.2f} s (host); {st.n_masses} masses "
+          f"(N = {shape.n_masses}), {st.n_springs} springs in "
+          f"{len(shape.stencil_deltas)} families, t={sim.time():.4f}")
+    check(len(shape.stencil_deltas) == 13 and not shape.has_remainder
+          and int(state.stencil.mask.sum()) == st.n_springs,
+          f"{name}: the compacted lattice left its 13 families")
+    check_counts(f"main path {name}", counts, rec.expected())
+    check(counts["mega"] + counts["step"] == 0 and counts["fused"] > 0,
+          f"{name}: not on the fused step alone: {counts}")
+    n = st.n_masses
+    pos = st.pos[:n]
+    inside, _ = contact_counts(shape, state)
+    check(np.isfinite(pos).all() and -0.1 < pos[:, 2].min() < 0.2
+          and inside > 0, f"{name}: did not land ({pos[:, 2].min():.4f}, "
+          f"{inside} in contact)")
+    report_path(name, shape, "fused")
+    err, _ = kernel_vs_plain(shape, state, 200, f"{name} landed")
+    # the control plane at this pause
+    cam = (np.array([10.0, -4.0, 6.0]), np.array([0.0, 0.5, 1.5]),
+           np.array([0.0, 0.1, 1.0]))
+    sim.setViewport(*(titan.Vec(*c) for c in cam))
+    sim.moveViewport(titan.Vec(0.5, 0.0, -0.25))
+    got = sim.getProjectionMatrix()
+    want = look_at_projection(cam[0] + np.array([0.5, 0.0, -0.25]),
+                              cam[1], cam[2])
+    d_proj = float(np.abs(got - want).max())
+    print(f"{name}: getProjectionMatrix against the closed form: max |d| "
+          f"{d_proj:.3e}")
+    check(d_proj < 1e-12, f"{name}: projection matrix off by {d_proj}")
+    check(sim.fps() == -1.0, f"{name}: fps() {sim.fps()} with no recorder")
+    recorder = Recorder(sim, cadence=0.01)
+    with uncounted():
+        sim.resume()
+        recorder.run_until(sim.time() + 0.03)
+    fps = sim.fps()
+    print(f"{name}: Recorder captured {len(recorder.frames)} frames, "
+          f"fps() {fps:.1f}")
+    check(len(recorder.frames) == 4 and fps > 0,
+          f"{name}: fps() {fps} after {len(recorder.frames)} frames")
+    sim.stop()
+    sim.reset()
+    check(len(sim.masses) == 0 and sim.time() == 0.0 and sim._state is None,
+          f"{name}: reset() left {len(sim.masses)} masses")
+    sim.createLattice(titan.Vec(0, 0, 1), titan.Vec(1, 1, 1), 10, 10, 10)
+    sim.createPlane(titan.Vec(0, 0, 1), 0)
+    zero_tiled_counts()
+    sim.start()
+    sim.wait(0.05)
+    sim.getAll()
+    c = read_tiled_counts()
+    sim.stop()
+    check(c["fused"] == 500 and c["eager"] == 0
+          and np.isfinite(sim._store.pos[:1000]).all(),
+          f"{name}: the reset simulation ran {c}")
+    print(f"{name}: reset() then a 10^3 lattice for 500 steps: {c['fused']} "
+          "fused launches, 0 eager")
+    kernels.append(dict(
+        name=f"fused_step ({name})", route="cuda",
+        source="titan_tpu_torch/csrc/fused_step.cu",
+        replaces="titan_tpu/ops/pallas_step.py:185",
+        launches=counts["fused"], max_abs_err=err,
+        **time_path(name, shape, state), library_ms=None))
+
+
+def stl_phase(titan, kernels):
+    """Phase h3: importFromSTL of a non-convex L-shaped prism, written as a
+    binary STL into a temporary directory, at a density that gives a 43^3
+    lattice; through Simulation until it lands, every count set to 0 just
+    before and read just after: 13 families, holes exactly where culled,
+    the fused step alone with 0 eager steps; the landed state against
+    fused_chunk_plain over 200 steps."""
+    import tempfile
+    import numpy as np
+    import torch
+    name = f"STL import, L prism {H3_NUM_PTS}^3"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ell_prism.stl")
+        write_binary_stl(path, ell_prism_tris())
+        sim = titan.Simulation(titan.SimConfig())
+        t0 = time.perf_counter()
+        c = sim.importFromSTL(path, density=H3_DENSITY)
+        t_import = time.perf_counter() - t0
+    st = sim._store
+    n = st.n_masses
+    valid, hole = st.valid[:n].copy(), st.hole[:n].copy()
+    pos0 = st.pos[:n].copy()
+    # the L's missing quadrant is x > 0, z > 10 in the lattice's frame
+    # (x in [-5, 5], y in [-2.5, 2.5], z in [5, 15]); away from the faces
+    inner = np.abs(pos0[:, 1]) < 2.0
+    quadrant = inner & (pos0[:, 0] > 0.3) & (pos0[:, 2] > 10.3)
+    solid = (inner & (pos0[:, 0] > -4.5) & (pos0[:, 0] < -0.3)
+             & (pos0[:, 2] > 5.5) & (pos0[:, 2] < 9.7))
+    print(f"{name}: imported in {t_import:.2f} s (host): {n} lattice sites, "
+          f"{len(c.masses)} kept, {int(hole.sum())} holes, "
+          f"{st.n_springs} springs")
+    check(n == H3_NUM_PTS ** 3 and np.array_equal(hole, ~valid)
+          and len(c.masses) == int(valid.sum()),
+          f"{name}: {n} sites, holes not the culled sites")
+    check(quadrant.any() and not valid[quadrant].any()
+          and solid.any() and valid[solid].all(),
+          f"{name}: culled the wrong sites")
+    sim.createPlane(titan.Vec(0, 0, 1), 0)
+    sim.setTimeStep(1e-4)
+    zero_tiled_counts()
+    with chunk_recorder(sim) as rec:
+        sim.start()
+        sim.wait(5.5)
+        sim.getAll()
+        landed = (sim._shape, sim._snapshot())
+        torch.cuda.synchronize()
+        counts = read_tiled_counts()
+    shape, state = landed
+    check(len(shape.stencil_deltas) == 13 and not shape.has_remainder,
+          f"{name}: families {shape.stencil_deltas}, remainder "
+          f"{shape.has_remainder}")
+    check_counts(f"main path {name}", counts, rec.expected())
+    check(counts["fused"] > 0 and counts["mega"] + counts["step"] == 0,
+          f"{name}: not on the fused step alone: {counts}")
+    pos = st.pos[:n][valid]
+    inside, _ = contact_counts(shape, state)
+    print(f"main path {name}: t={sim.time():.2f} s, lowest z "
+          f"{pos[:, 2].min():.4f}, {inside} masses in contact")
+    check(np.isfinite(pos).all() and -0.1 < pos[:, 2].min() < 0.2
+          and inside > 0, f"{name}: did not land")
+    report_path(name, shape, "fused")
+    err, _ = kernel_vs_plain(shape, state, 200, f"{name} landed")
+    sim.stop()
+    kernels.append(dict(
+        name=f"fused_step ({name})", route="cuda",
+        source="titan_tpu_torch/csrc/fused_step.cu",
+        replaces="titan_tpu/ops/pallas_step.py:185",
+        launches=counts["fused"], max_abs_err=err,
+        **time_path(name, shape, state), library_ms=None))
+
+
+def edit_twin(titan, nx, landed_state):
+    """bench.py's nx^3 scene with a landed state's positions, velocities and
+    accelerations in its store, started and paused after 20 steps."""
+    sim = bench_scene(titan, nx)
+    st, n = sim._store, sim._store.n_masses
+    m = landed_state.masses
+    st.pos[:n] = m.pos[:, :n].T.cpu().numpy()
+    st.vel[:n] = m.vel[:, :n].T.cpu().numpy()
+    st.acc[:n] = m.acc[:, :n].T.cpu().numpy()
+    sim.start()
+    sim.wait(0.002)
+    return sim
+
+
+def edit_cycles(titan, sim):
+    """The four edits of phase h4 as functions of a paused simulation: (a)
+    delete a stencil spring and create it again (fills the freed slot),
+    (b) one cross link (the remainder), (c) a mass above the last site and
+    a spring to it (a free slot of the delta-1 family), (d) a spring
+    deleted and created again with damping (a feature flip; demotes the
+    family-uniform damping)."""
+    import numpy as np
+    st = sim._store
+    n, s = st.n_masses, st.n_springs
+    nz = round(n ** (1 / 3))
+
+    def refill(j, damping=0.0):
+        def edit(sim):
+            st = sim._store
+            li, ri = int(st.left[j]), int(st.right[j])
+            k, rest = float(st.k[j]), float(st.rest[j])
+            sim.deleteSpring(sim.springs[j])
+            sp = sim.createSpring(sim.masses[li], sim.masses[ri])
+            sp._k, sp._rest = k, rest
+            if damping:
+                sp._damping = damping
+        return edit
+
+    def cross_link(sim):
+        p = n // 3
+        q = p + 2 * nz * nz + 5
+        sp = sim.createSpring(sim.masses[p], sim.masses[q])
+        sp._k = 500.0
+        sp._rest = 0.9 * sp._rest
+
+    def mass_and_spring(sim):
+        top = sim.masses[n - 1]
+        sim.get(top)
+        m = sim.createMass(titan.Vec(*(top.pos.numpy()
+                                       + np.array([0.0, 0.0, 0.1]))))
+        sim.createSpring(top, m)
+    return (("a: a spring deleted and created again", refill(s // 2)),
+            ("b: one cross link", cross_link),
+            ("c: a mass and a spring to it", mass_and_spring),
+            ("d: a damped spring in a freed slot",
+             refill(s // 3, damping=5.0)))
+
+
+def same_placement(a, b):
+    """Whether two simulations hold every spring in the same slot (family
+    order, slots, remainder order): then their steps sum in the same
+    order."""
+    import numpy as np
+    return (a._shape.stencil_deltas == b._shape.stencil_deltas
+            and np.array_equal(a._sp_family, b._sp_family)
+            and np.array_equal(a._sp_slot, b._sp_slot))
+
+
+def edit_phase(titan, kernels, nx, landed_state):
+    """Phase h4 at nx^3: twins from one landed state; each of edit_cycles'
+    edits made at a pause on both, one resumed through the incremental
+    path, the other with journal.force_full set; each run of H4_STEPS
+    steps with every count set to 0 just before and read just after (the
+    incremental twin's launches exactly its chunks', 0 eager; a remainder
+    scene at 100^3 on per-step launches only); the twins bitwise where
+    both put every spring in the same slot (and were bitwise before), else
+    within TOL_STATE; the host ms of each apply.  Returns the incremental
+    twin, paused."""
+    import numpy as np
+    import torch
+    from titan_tpu_torch.ops.step import chunk_route
+    from titan_tpu_torch.runtime import simulation as rsim
+    name = f"edited {nx}^3"
+    t0 = time.perf_counter()
+    inc = edit_twin(titan, nx, landed_state)
+    full = edit_twin(titan, nx, landed_state)
+    print(f"{name}: twins built, marshalled and paused in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+    applied = []
+    orig = rsim.apply_structural_edits
+
+    def timed(sim):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = orig(sim)
+        torch.cuda.synchronize()
+        applied.append((path, time.perf_counter() - t))
+        return path
+
+    totals = dict(fused=0, mega=0, step=0, plain=0)
+    exact, grid_scene = True, None
+    rsim.apply_structural_edits = timed
+    try:
+        for (label, edit), (_, edit_full) in zip(edit_cycles(titan, inc),
+                                                edit_cycles(titan, full)):
+            edit(inc)
+            edit_full(full)
+            full._journal.force_full = True
+            with chunk_recorder(inc, full) as rec:
+                zero_tiled_counts()
+                inc.resume()
+                inc.wait(H4_STEPS * 1e-4)
+                torch.cuda.synchronize()
+                counts = read_tiled_counts()
+                cut = len(rec.chunks)
+                full.resume()
+                full.wait(H4_STEPS * 1e-4)
+                torch.cuda.synchronize()
+            (p_inc, t_inc), (p_full, t_full) = applied[-2:]
+            shape = inc._shape
+            route = chunk_route(shape)[0]
+            print(f"{name} ({label}): applied by the {p_inc} path in "
+                  f"{t_inc * 1e3:.2f} ms, the forced full re-marshal in "
+                  f"{t_full * 1e3:.2f} ms (host, synchronized); route "
+                  f"{route}, {spring_path(shape)} path, remainder "
+                  f"{shape.has_remainder}, damping {shape.has_damping}, "
+                  f"uniform {shape.stencil_uniform}")
+            check(p_inc == "incremental" and p_full == "full",
+                  f"{name} ({label}): paths {p_inc}, {p_full}")
+            check_counts(f"{name} ({label})", counts, rec.expected(0, cut))
+            if route == "tiled" and shape.has_remainder:
+                check(counts["mega"] == 0 and counts["step"] == H4_STEPS,
+                      f"{name} ({label}): a remainder scene took resident-"
+                      f"grid launches: {counts}")
+            if counts["mega"] and grid_scene is None:
+                grid_scene = (shape, inc._snapshot())
+            for key in totals:
+                totals[key] += counts[key]
+            a, b = inc._snapshot(), full._snapshot()
+            d, same = state_diffs(a, b, fields=("pos", "vel", "acc"))
+            inc.getAll()
+            full.getAll()
+            s = inc._store.n_springs
+            d_rest = float(np.abs(inc._store.rest[:s]
+                                  - full._store.rest[:s]).max())
+            same = same and d_rest == 0.0
+            exact = exact and same_placement(inc, full)
+            _, bad = compare(a, b, False)
+            print(f"{name} ({label}): incremental vs forced full after "
+                  f"{H4_STEPS} steps: "
+                  + ("bitwise" if same else "max |d| " + ", ".join(
+                      f"{f} {v:.3e}" for f, v in d.items())
+                     + f", rest {d_rest:.3e}")
+                  + ("; every spring in the same slot" if exact else
+                     "; placements or earlier states differ (held within "
+                     "TOL_STATE)"))
+            if exact:
+                check(same, f"{name} ({label}): the twins differ though "
+                      f"every spring sits in the same slot: {d}")
+            else:
+                check(not bad and d_rest <= TOL_STATE,
+                      f"{name} ({label}): {bad}, rest {d_rest}")
+            exact = exact and same
+    finally:
+        rsim.apply_structural_edits = orig
+    full.stop()
+    print(f"{name}: launches over the four edited runs {totals}")
+    shape, state = inc._shape, inc._snapshot()
+    src = "titan_tpu_torch/csrc/"
+    if chunk_route(shape)[0] == "fused":
+        err, _ = kernel_vs_plain(shape, state, H4_STEPS, f"{name} final")
+        kernels.append(dict(
+            name=f"fused_step ({name})", route="cuda",
+            source=src + "fused_step.cu",
+            replaces="titan_tpu/ops/pallas_step.py:185",
+            launches=totals["fused"], max_abs_err=err,
+            **time_path(name, shape, state), library_ms=None))
+        return inc
+    bad = []
+    with uncounted():
+        err, _ = tiled_vs_plain(shape, state, H4_STEPS, f"{name} final",
+                                bad)
+        t = time_tiled(name, shape, state)
+    kernels.append(dict(
+        name=f"tiled_step_kernel ({name})", route="cuda",
+        source=src + "tiled_step.cu",
+        replaces="titan_tpu/ops/pallas_tiled.py:1051",
+        launches=totals["step"], max_abs_err=err,
+        **t["tiled_step_kernel"], library_ms=None))
+    if grid_scene is not None:
+        g_name = f"{name}, the first edit"
+        with uncounted():
+            g_err, _ = tiled_vs_plain(*grid_scene, H4_STEPS, g_name, bad)
+            t = time_tiled(g_name, *grid_scene)
+        kernels.append(dict(
+            name=f"tiled_mega_kernel ({g_name})", route="cuda",
+            source=src + "tiled_step.cu",
+            replaces="titan_tpu/ops/pallas_tiled.py:1134",
+            launches=totals["mega"], max_abs_err=g_err,
+            **t["tiled_mega_kernel"], library_ms=None))
+    check(not bad, "; ".join(bad))
+    return inc
+
+
+# phase h5's HTTP client, a process of its own as a browser would be: it
+# fetches /frame every 20 ms into numbered files until the stop file exists
+H5_CLIENT = """
+import os, sys, time, urllib.request
+url, out, stop = sys.argv[1:4]
+k = 0
+while not os.path.exists(stop):
+    with urllib.request.urlopen(url + "frame", timeout=10) as r:
+        body = r.read()
+    with open(os.path.join(out, "%06d.json" % k), "wb") as fh:
+        fh.write(body)
+    k += 1
+    time.sleep(0.02)
+"""
+
+
+def live_phase(titan, sim):
+    """Phase h5: LiveViewer on the running 43^3 scene (phase h4's edited
+    twin) over loopback, cadence H5_CADENCE, in turns of H5_SIM_SECONDS of
+    simulated time: the viewer with an HTTP client in a process of its own
+    fetching frames, no viewer, the viewer sampling alone, and again in
+    reverse.  The fetched frames finite, their times rising, each within
+    the page's rounding (4 decimals) of the snapshot of its time; each
+    frame the viewer recorded bitwise its snapshot; steps/s of each turn.
+    Then ROADMAP C7's scene on the card: one make_observe callback used
+    with a 2-env and then a 3-env walker batch, bitwise a fresh
+    callback's."""
+    import bisect
+    import glob
+    import json
+    import tempfile
+    import numpy as np
+    import torch
+    from titan_tpu_torch import rl
+    from titan_tpu_torch.runtime.live import LiveViewer
+    name = "live 43^3"
+    snaps = {}
+    inner = sim._chunk
+
+    def chunk(state, n_steps):
+        t_end = sim._T + n_steps * sim._dt    # the worker's own sum
+        out = inner(state, n_steps)
+        snaps[t_end] = out.masses.pos
+        return out
+    sim._chunk = chunk
+    snaps[sim.time()] = sim._snapshot().masses.pos
+    lv = LiveViewer(sim, cadence=H5_CADENCE, record=True)
+    n = min(sim._store.n_masses, lv.max_masses)
+    turns = ("viewer + client", "no viewer", "viewer alone",
+             "viewer alone", "no viewer", "viewer + client")
+    rates = {turn: [] for turn in turns}
+    fetched = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for k, turn in enumerate(turns):
+                client = None
+                if turn != "no viewer":
+                    lv.start()
+                if turn == "viewer + client":
+                    out, stop = os.path.join(tmp, str(k)), \
+                        os.path.join(tmp, f"stop{k}")
+                    os.mkdir(out)
+                    client = subprocess.Popen([sys.executable, "-c",
+                                               H5_CLIENT, lv.url, out, stop])
+                t_sim0 = sim.time()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sim.setBreakpoint(t_sim0 + H5_SIM_SECONDS)
+                sim.resume()
+                sim.waitForEvent()
+                wall = time.perf_counter() - t0
+                if client is not None:
+                    open(stop, "w").close()
+                    try:
+                        client.wait(timeout=30)
+                    finally:
+                        if client.poll() is None:
+                            client.kill()
+                            client.wait()
+                    check(client.returncode == 0,
+                          f"{name}: the HTTP client exited "
+                          f"{client.returncode}")
+                    for path in sorted(glob.glob(os.path.join(out,
+                                                              "*.json"))):
+                        with open(path) as fh:
+                            f = json.load(fh)
+                        if f["t"] is not None and (
+                                not fetched or f["t"] > fetched[-1][0]):
+                            fetched.append((f["t"], np.array(f["pos"])))
+                if turn != "no viewer":
+                    lv.stop()
+                rates[turn].append((sim.time() - t_sim0) / sim._dt / wall)
+        finally:
+            sim._chunk = inner
+    keys = sorted(snaps)
+    worst = 0.0
+    for t, pos in fetched:
+        i = bisect.bisect_left(keys, t - 5e-7)
+        check(i < len(keys) and abs(keys[i] - t) < 5e-7,
+              f"{name}: a frame at t={t} matches no snapshot")
+        want = snaps[keys[i]][:, :n].T.cpu().numpy()
+        check(pos.shape == want.shape and np.isfinite(pos).all(),
+              f"{name}: frame shape {pos.shape}")
+        worst = max(worst, float(np.abs(pos - want).max()))
+    times = [t for t, _ in fetched]
+    check(len(fetched) >= 4 and times == sorted(set(times)),
+          f"{name}: {len(fetched)} frames over HTTP, times {times[:8]}")
+    check(worst <= 5e-5 + 1e-6, f"{name}: a frame is {worst} off the "
+          "snapshot of its time")
+    for t, frame in zip(lv.times, lv.frames):
+        check(t in snaps and np.array_equal(
+            frame, snaps[t][:, :n].T.cpu().numpy()),
+            f"{name}: the frame recorded at t={t} is not its snapshot")
+    print(f"{name}: {len(fetched)} frames over HTTP (t {times[0]:.4f} -> "
+          f"{times[-1]:.4f} s), each within {worst:.2e} of the snapshot of "
+          f"its time (the page rounds to 4 decimals); {len(lv.frames)} "
+          f"recorded frames bitwise their snapshots")
+    print(f"{name}: steps/s (host clock, turns of {H5_SIM_SECONDS} s "
+          f"simulated, cadence {H5_CADENCE} s, in the order "
+          + ", ".join(turns) + "): "
+          + "; ".join(f"{turn} " + ", ".join(f"{r:.0f}" for r in rs)
+                      for turn, rs in rates.items()))
+    obs = rl.make_observe(com=False, mass_indices=[0, 5])
+    for n_envs in (2, 3):
+        _, got = rl.walker_env(n_envs=n_envs, observe=obs).reset()
+        _, want = rl.walker_env(n_envs=n_envs, observe=rl.make_observe(
+            com=False, mass_indices=[0, 5])).reset()
+        check(tuple(got.shape) == (n_envs, 12) and got.is_cuda
+              and torch.equal(got, want), f"C7: a reused make_observe gave "
+              f"{tuple(got.shape)} on a {n_envs}-env batch")
+    print("C7 on the card: one make_observe callback on a 2-env and a 3-env "
+          "walker batch: (2, 12) and (3, 12), bitwise a fresh callback's")
+
+
+def host_phases(titan, kernels, phase_done, bench_landed, stress_landed):
+    """Phases h1-h5, ``phase_done(label)`` after each."""
+    native_phase(titan)
+    phase_done("h1")
+    compaction_phase(titan, kernels)
+    phase_done("h2")
+    stl_phase(titan, kernels)
+    phase_done("h3")
+    live = edit_phase(titan, kernels, 43, bench_landed)
+    edit_phase(titan, kernels, STRESS_NX, stress_landed).stop()
+    phase_done("h4")
+    live_phase(titan, live)
+    live.stop()
+    phase_done("h5")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5946,6 +6707,11 @@ def main() -> int:
     # Simulation with throughput and checkpoint, BatchedScenes, backprop
     # through physics into a policy
     rl_phases(titan, kernels, phase_done)
+
+    # h1-h5. the host layer: the native emitter, compaction and the control
+    # plane at 43^3, the STL import, incremental edits at 43^3 (from phase
+    # 3's landed state) and 100^3 (from phase o's), the live viewer
+    host_phases(titan, kernels, phase_done, landed[0][2], landed_stress[1])
 
     # 5. result lines
     smi = subprocess.run(

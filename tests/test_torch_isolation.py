@@ -30,14 +30,21 @@ def _imported_roots(path):
             yield str(node.args[0].value).split(".")[0]
 
 
-# The RL slice's modules are held by test_torch_isolation_rl.py, so that
-# this file stays under tests/test_adjoint_tiled.py's 34 tests:
-# --dist loadfile starts the files with the most tests first, and one
-# more file ahead of that longest file would start it only after another
-# file's end (ROADMAP, test budget).
+# The RL slice's modules are held by test_torch_isolation_rl.py, and the
+# host layer's (STL import, viewers, incremental edits, the native
+# emitter, the test helpers) by test_torch_isolation_host.py, so that this
+# file stays under tests/test_adjoint_tiled.py's 34 tests: --dist loadfile
+# starts the files with the most tests first, and one more file ahead of
+# that longest file would start it only after another file's end
+# (ROADMAP, test budget).
 RL_SLICE = ("titan_tpu_torch/models/", "titan_tpu_torch/parallel/",
             "titan_tpu_torch/rl.py", "titan_tpu_torch/runtime/checkpoint.py",
             "titan_tpu_torch/runtime/profiling.py")
+HOST_SLICE = ("titan_tpu_torch/native/", "titan_tpu_torch/stl.py",
+              "titan_tpu_torch/testutil.py",
+              "titan_tpu_torch/runtime/incremental.py",
+              "titan_tpu_torch/runtime/live.py",
+              "titan_tpu_torch/runtime/viewer.py")
 
 
 def _all_port_files():
@@ -46,10 +53,15 @@ def _all_port_files():
             + sorted((ROOT / "scripts").glob("cuda_*.py")))
 
 
-def _port_files(rl_slice=False):
-    """The port's files outside the RL slice, or (``rl_slice``) in it."""
-    return [p for p in _all_port_files()
-            if str(p.relative_to(ROOT)).startswith(RL_SLICE) == rl_slice]
+def _port_files(rl_slice=False, host_slice=False):
+    """The port's files outside the RL and host slices, or those in the RL
+    slice (``rl_slice``) or in the host slice (``host_slice``)."""
+    def group(p):
+        rel = str(p.relative_to(ROOT))
+        return ("rl" if rel.startswith(RL_SLICE)
+                else "host" if rel.startswith(HOST_SLICE) else "core")
+    want = "rl" if rl_slice else "host" if host_slice else "core"
+    return [p for p in _all_port_files() if group(p) == want]
 
 
 @pytest.mark.parametrize("path", _port_files(),

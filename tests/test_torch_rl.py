@@ -327,3 +327,21 @@ def test_make_observe_matches_jax():
     close(to, jo, OBS_TOL, "obs")
     contact = to[:, -1].numpy()
     assert np.all(contact > 0) and np.all(contact < 1)
+
+
+def test_make_observe_reused_in_a_second_env_matches_jax():
+    """One ``make_observe`` callback used with a 2-env walker batch, then
+    with a 3-env one (ROADMAP C7): the port cached the observed lanes by
+    device only, so the second env read the first env's lanes ([3, 8]
+    where JAX gives [3, 12]).  Shape and values must equal JAX's exactly
+    at ``reset()``."""
+    obs = {pkg: pkg.make_observe(com=False, mass_indices=[0, 5])
+           for pkg in (jrl, rl)}
+    for n_envs in (2, 3):
+        jenv = jrl.walker_env(n_envs=n_envs, observe=obs[jrl])
+        tenv = rl.walker_env(n_envs=n_envs, observe=obs[rl],
+                             config=titan_tpu_torch.SimConfig(device="cpu"))
+        _, jo = jenv.reset()
+        _, to = tenv.reset()
+        assert tuple(to.shape) == tuple(jo.shape) == (n_envs, 12)
+        close(to, jo, 0, f"obs of the {n_envs}-env batch")

@@ -8,9 +8,9 @@ identical emission order, so index-based user code (e.g. the multi-agent test
 wiring masses[100] of one lattice to masses[0] of the next,
 test/physics/multiagent_unittest.cpp:29-35) behaves the same.
 
-A copy of ``titan_tpu/builders.py`` for the PyTorch port.  The JAX
-package's optional C++ lattice emitter (``titan_tpu/native``) is not ported
-yet, so every scene uses these numpy versions, which emit the same order.
+A copy of ``titan_tpu/builders.py`` for the PyTorch port.  Lattices of
+64,000 sites and up take the C++ emitter of ``titan_tpu_torch/native``, as
+the JAX package's do; it emits the same springs in the same order.
 """
 
 from __future__ import annotations
@@ -50,6 +50,16 @@ def lattice_springs(nx: int, ny: int, nz: int) -> Tuple[np.ndarray, np.ndarray]:
       F12: (i,j+1,k+1)->(i+1,j,k)
       F13: (i,j+1,k)->(i+1,j,k)        [j<ny-1, i<nx-1]
     """
+    if nx * ny * nz >= 64_000:  # the C++ emitter for big scenes
+        from . import native
+        return native.lattice_springs(nx, ny, nz)
+    return lattice_springs_numpy(nx, ny, nz)
+
+
+def lattice_springs_numpy(nx: int, ny: int,
+                          nz: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``lattice_springs`` in numpy at any size (the C++ emitter's
+    reference)."""
     I, J, K = np.meshgrid(
         np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij"
     )

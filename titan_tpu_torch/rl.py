@@ -325,7 +325,9 @@ def make_observe(com: bool = True, mass_indices=None,
     """
     idx = None if mass_indices is None else np.asarray(mass_indices,
                                                        np.int64)
-    lanes_on = {}       # device -> [n_envs, k] lane tensor, made once
+    # (device, n_envs, n_per_env) -> [n_envs, k] lane tensor, made once
+    # for each env shape the callback is used with
+    lanes_on = {}
 
     def observe(state, env):
         parts = []
@@ -334,9 +336,10 @@ def make_observe(com: bool = True, mass_indices=None,
             parts.append(env.env_means(pos).T)
             parts.append(env.env_means(state.masses.vel).T)
         if idx is not None:
-            lanes = lanes_on.get(pos.device)
+            key = (pos.device, env.n_envs, env.n_per_env)
+            lanes = lanes_on.get(key)
             if lanes is None:
-                lanes = lanes_on[pos.device] = torch.as_tensor(
+                lanes = lanes_on[key] = torch.as_tensor(
                     np.arange(env.n_envs)[:, None] * env.n_per_env
                     + idx[None, :], device=pos.device)
             for field in (pos, state.masses.vel):

@@ -13,10 +13,11 @@
   times.  A breakpoint inserted while a chunk is in flight takes effect at
   the next chunk boundary.
 
-Not ported yet (ROADMAP queue A): ``distribute`` (multi-device), the viewport
-and STL import, and the JAX package's journaled incremental topology edits
--- a structural edit at a pause here re-marshals the whole scene at resume
-(an ``addConstraint`` or ``clearConstraints`` too).
+- Structural edits made at a pause are journaled and applied at resume by
+  row-level surgery on the device state where the JAX package applies them
+  so, else by a full re-marshal (``runtime/incremental.py``).
+
+Not ported yet (ROADMAP queue A9): ``distribute`` (multi-device).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from ..state import (GlobalConstraints, LocalConstraints, MassState,
                      Topology, pad_to)
 from ..store import HostStore
 from ..vec import Vec
+from .incremental import EditJournal, apply_structural_edits
 from .logging import get_logger
 
 # chunk-function cache: one chunk fn per static scene shape
@@ -60,41 +62,6 @@ def _chunk_for(shape: SceneShape):
         fn = build_chunk_fn(shape)
         _CHUNK_CACHE[shape] = fn
     return fn
-
-
-def _cat_rows(*parts) -> np.ndarray:
-    arrs = [np.fromiter(p, dtype=np.int64, count=len(p))
-            if isinstance(p, set)
-            else np.asarray(p, dtype=np.int64).ravel() for p in parts]
-    return np.unique(np.concatenate(arrs)) if arrs else np.zeros(0, np.int64)
-
-
-class EditJournal:
-    """Rows the user wrote at a pause since the last (re)marshal, so that
-    the full pull before a re-marshal does not clobber them."""
-
-    #: mass-store fields the device evolves or getAll() pulls; user writes
-    #: to these are tracked per row so they win over the device value
-    M_WRITTEN_FIELDS = ("pos", "vel", "T", "m", "extern_force")
-
-    def __init__(self):
-        self.touched_m = set()      # existing mass rows edited via handles
-        self.m_arrays = []          # bulk row-index arrays (container ops)
-        self.m_written = {f: [] for f in self.M_WRITTEN_FIELDS}
-        self.s_rest_written = []    # row arrays with user-written rest
-        self.store_fresh = False    # store already holds live state
-        self.skip_pull = set()      # store fields a bulk write owns
-
-    def mass_rows(self, n0: int) -> np.ndarray:
-        """Touched EXISTING mass rows (< n0), sorted unique."""
-        rows = _cat_rows(self.touched_m, *self.m_arrays)
-        return rows[rows < n0]
-
-    def written_rows(self, field: str) -> np.ndarray:
-        return _cat_rows(*self.m_written[field])
-
-    def rest_written_rows(self) -> np.ndarray:
-        return _cat_rows(*self.s_rest_written)
 
 
 class Simulation:
@@ -123,10 +90,19 @@ class Simulation:
         self._state: Optional[SimState] = None
         self._diverged_at: Optional[float] = None
         self._shape: Optional[SceneShape] = None
+        # incremental topology-edit bookkeeping (runtime/incremental.py):
+        # the paused-time edit journal and marshal-time placement mirrors
         self._journal: Optional[EditJournal] = None
         self._n_marshaled = 0      # device-resident real mass rows
         self._s_marshaled = 0      # springs covered by _sp_family/_sp_slot
+        self._rem_count = 0        # live remainder spring count
+        self._rem_left = np.zeros(0, np.int64)   # remainder slot -> endpoint
+        self._rem_right = np.zeros(0, np.int64)
+        self._st_mask = np.zeros((0, 0), bool)   # host stencil-mask mirror
         self._fam_scalars = {}     # uniform-field family scalars (or None)
+        # (state, CUDA event recorded at the end of the chunk that made it):
+        # runtime/live.LiveViewer copies that state on a side stream
+        self._state_ready = None
         self._chunk = None
         self._rate: Optional[float] = None   # measured steps/s of _chunk
         self._timed_chunks = 0               # dispatches since _chunk built
@@ -175,6 +151,7 @@ class Simulation:
         (m = 1.0, origin, mass.cu:8-19); positional form Mass(pos) (m = 0.1,
         mass.h:18)."""
         self._check_can_edit()
+        self._sync_store_before_structural_edit()
         if pos is None:
             i = self._store.add_mass((0.0, 0.0, 0.0), m=1.0)
         else:
@@ -186,6 +163,7 @@ class Simulation:
                      m2: Optional[Mass] = None) -> Spring:
         """Reference sim.cu:325-345; two-mass form sets rest = distance."""
         self._check_can_edit()
+        self._sync_store_before_structural_edit()
         if m1 is None or m2 is None:
             i = self._store.add_spring()
         else:
@@ -206,12 +184,14 @@ class Simulation:
         """Soft delete (reference valid flag, mass.h:120); springs with an
         invalid endpoint exert no force (sim.cu:1163)."""
         self._check_can_edit()
+        self._sync_store_before_structural_edit()
         self._store.valid[m._i] = False
         self._touch_mass(m._i)
         self._mark_dirty()
 
     def deleteSpring(self, s: Spring) -> None:
         self._check_can_edit()
+        self._sync_store_before_structural_edit()
         self._store.s_valid[s._i] = False
         self._touch_spring(s._i)
         self._mark_dirty()
@@ -219,6 +199,7 @@ class Simulation:
     def deleteContainer(self, c: Container) -> None:
         """Reference sim.cu:416-564 (bulk invalidate + compaction)."""
         self._check_can_edit()
+        self._sync_store_before_structural_edit()
         self._store.valid[c._mass_idx] = False
         self._store.s_valid[c._spring_idx] = False
         self._touch_mass(c._mass_idx)
@@ -251,18 +232,21 @@ class Simulation:
     def createCube(self, center, side_length: float = 1.0) -> Cube:
         self._check_not_ended("New objects cannot be created.")
         self._check_can_edit()
+        self._sync_store_before_structural_edit()
         return self._register_built(Cube(self, center, side_length))
 
     def createLattice(self, center, dims, nx: int = 10, ny: int = 10,
                       nz: int = 10) -> Lattice:
         self._check_not_ended("New objects cannot be created.")
         self._check_can_edit()
+        self._sync_store_before_structural_edit()
         return self._register_built(Lattice(self, center, dims, nx, ny, nz))
 
     def createBeam(self, center, dims, nx: int = 10, ny: int = 10,
                    nz: int = 10) -> Beam:
         self._check_not_ended("New objects cannot be created.")
         self._check_can_edit()
+        self._sync_store_before_structural_edit()
         return self._register_built(Beam(self, center, dims, nx, ny, nz))
 
     def createRobotLink(self, pos1, pos2, mass: float, max_exp_length: float,
@@ -273,9 +257,20 @@ class Simulation:
         actuated spring (reference object.h:290-330)."""
         self._check_not_ended("New objects cannot be created.")
         self._check_can_edit()
+        self._sync_store_before_structural_edit()
         return self._register_built(RobotLink(
             self, pos1, pos2, mass, max_exp_length, min_exp_length,
             expansion_rate, k, magnetic_force, radius))
+
+    def importFromSTL(self, path: str, density: float = 10.0,
+                      num_rays: int = 5) -> Container:
+        """Reference sim.cu:2085-2151; implementation in ``stl.py``."""
+        self._check_not_ended("Cannot import new STL objects")
+        self._check_can_edit()
+        self._sync_store_before_structural_edit()
+        from ..stl import import_from_stl
+        return self._register_built(import_from_stl(self, path, density,
+                                                    num_rays))
 
     # ------------------------------------------------------- global constraints
     def createPlane(self, abc, d: float, friction_k: float = 0.0,
@@ -286,19 +281,19 @@ class Simulation:
         n = _np3(abc)
         n = n / math.sqrt(float(np.dot(n, n)))
         self._planes.append((n, float(d), float(friction_k), float(friction_s)))
-        self._mark_dirty()
+        self._mark_dirty(gcon=True)
 
     def createBall(self, center, r: float) -> None:
         """Reference sim.cu:2278-2288."""
         self._check_not_ended("New constraints cannot be added.")
         self._balls.append((_np3(center), float(r)))
-        self._mark_dirty()
+        self._mark_dirty(gcon=True)
 
     def clearConstraints(self) -> None:
         """Clears global constraints only (reference sim.cu:2290-2293)."""
         self._planes.clear()
         self._balls.clear()
-        self._mark_dirty()
+        self._mark_dirty(gcon=True)
 
     # ------------------------------------------------------------- bulk setters
     def setAllSpringConstantValues(self, k: float) -> None:
@@ -458,8 +453,8 @@ class Simulation:
             drag=sc(st.drag),
             mag_rad=sc(st.mag_rad), mag_stiffness=sc(st.mag_stiffness),
             mag_maxf=sc(st.mag_maxf), mag_scale=sc(st.mag_scale))
-        springs, topo = _build_remainder_states(st, rem_idx, N, S, max_deg,
-                                                dt, cfg, self._tensor)
+        springs, topo, rem_left, rem_right = _build_remainder_states(
+            st, rem_idx, N, S, max_deg, dt, cfg, self._tensor)
         self._shape = shape
         self._state = SimState(
             t=self._tensor(np.float64(self._T)),
@@ -471,8 +466,13 @@ class Simulation:
         self._chunk = _chunk_for(shape)
         self._rate = None
         self._timed_chunks = 0
+        # mirrors and a fresh journal for the incremental edit path
+        # (runtime/incremental.py)
         self._n_marshaled = n
         self._s_marshaled = s
+        self._rem_count = s_rem
+        self._rem_left, self._rem_right = rem_left, rem_right
+        self._st_mask = mask_np
         self._fam_scalars = {f: fam_scalars.get(f) for f in _UNIFORM_FIELDS}
         self._journal = EditJournal()
         self._structure_dirty = False
@@ -533,6 +533,10 @@ class Simulation:
                 state, chunk = self._state, self._chunk
             t0 = time.perf_counter()
             new_state = chunk(state, n)
+            ready = None
+            if new_state.t.is_cuda:
+                ready = torch.cuda.Event()
+                ready.record()
             # one chunk in flight: wait for it, so that the time the host
             # reports counts finished steps only, and time the chunk
             _sync(new_state)
@@ -557,6 +561,7 @@ class Simulation:
                     new_state = dataclasses.replace(
                         new_state, dt=self._tensor(np.float64(self._dt)))
                 self._state = new_state
+                self._state_ready = (new_state, ready)
                 self._T += n * dt
                 self._cv.notify_all()
 
@@ -586,10 +591,11 @@ class Simulation:
         if self._store.n_masses == 0:
             raise RuntimeError("No masses have been added.")
         if self._structure_dirty:
-            # full pull (keeping the user's paused-time writes) + re-marshal
-            with self._cv:
-                self._sync_full_preserving_edits()
-                self._marshal()
+            # row-level surgery where possible, else a full re-marshal
+            # (pulling everything first) -- runtime/incremental.py
+            path = apply_structural_edits(self)
+            get_logger().debug("resume: structural edits applied via %s "
+                               "path", path)
         with self._cv:
             self._running = True
             self._cv.notify_all()
@@ -635,12 +641,89 @@ class Simulation:
         self._state = None
         self._chunk = None
 
+    def reset(self) -> None:
+        """Back to a fresh pre-start simulation (reference sim.cu:102-129):
+        ends and joins the worker, then initialises anew."""
+        with self._cv:
+            self._ended = True
+            self._cv.notify_all()
+        if self._worker is not None:
+            self._worker.join(timeout=30)
+        self.__init__(self.config)
+
     def time(self) -> float:
         with self._lock:
             return self._T
 
     def running(self) -> bool:
         return self._running
+
+    # ---- viewer camera (reference GRAPHICS-only API, sim.h:124-128), read
+    # by runtime/viewer.Recorder.export_html and runtime/live.LiveViewer
+    def setViewport(self, camera_position, target_location, up_vector) -> None:
+        """Reference sim.cu:1636-1648 (GRAPHICS builds)."""
+        if self._running:
+            raise RuntimeError("The simulation is running. Cannot modify "
+                               "viewport during simulation run.")
+        self._camera = (_np3(camera_position), _np3(target_location),
+                        _np3(up_vector))
+
+    def getProjectionMatrix(self) -> np.ndarray:
+        """The current model-view-projection matrix (reference sim.h:128,
+        graphics.cpp::getProjection): perspective 45 deg FOV, 4:3 aspect,
+        near 0.01 / far 200, looking from the setViewport camera.  A [4, 4]
+        row-major numpy array (the reference's glm::mat4 is the same matrix,
+        column-major)."""
+        cam, look, up = getattr(self, "_camera", _DEFAULT_CAMERA)
+        fovy, aspect, near, far = math.radians(45.0), 4.0 / 3.0, 0.01, 200.0
+        f = 1.0 / math.tan(fovy / 2)
+        proj = np.zeros((4, 4))
+        proj[0, 0] = f / aspect
+        proj[1, 1] = f
+        proj[2, 2] = (far + near) / (near - far)
+        proj[2, 3] = 2 * far * near / (near - far)
+        proj[3, 2] = -1.0
+        fwd = look - cam
+        fwd = fwd / np.linalg.norm(fwd)
+        s = np.cross(fwd, up / np.linalg.norm(up))
+        s = s / np.linalg.norm(s)
+        u = np.cross(s, fwd)
+        view = np.eye(4)
+        view[0, :3], view[0, 3] = s, -np.dot(s, cam)
+        view[1, :3], view[1, 3] = u, -np.dot(u, cam)
+        view[2, :3], view[2, 3] = -fwd, np.dot(fwd, cam)
+        return proj @ view
+
+    def moveViewport(self, displacement) -> None:
+        """Reference sim.cu:1651-1661."""
+        if self._running:
+            raise RuntimeError("The simulation is running. Cannot modify "
+                               "viewport during simulation run.")
+        cam, look, up = getattr(self, "_camera", _DEFAULT_CAMERA)
+        self._camera = (cam + _np3(displacement), look, up)
+
+    def fps(self) -> float:
+        """Render-rate counter (reference sim.cu:1201-1214): the capture
+        rate of an attached runtime/viewer.Recorder, else -1.0 like the
+        reference with no frames."""
+        rec = getattr(self, "_recorder", None)
+        return rec.fps() if rec is not None else -1.0
+
+    def printPositions(self) -> None:
+        self._check_not_ended("You cannot view parameters of the simulation "
+                              "after it has been stopped.")
+        st = self._store
+        for i in range(st.n_masses):
+            print(f"{i}: ({st.pos[i, 0]}, {st.pos[i, 1]}, {st.pos[i, 2]})")
+
+    def printSprings(self) -> None:
+        """Spring endpoints and rest lengths (reference printSprings,
+        sim.cu:2317-2332, its device branch's printSpring kernel)."""
+        self._check_not_ended("You cannot view parameters of the simulation "
+                              "after it has been stopped.")
+        st = self._store
+        for i in range(st.n_springs):
+            print(f"{i}: ({st.left[i]}, {st.right[i]}) rest {st.rest[i]}")
 
     # --------------------------------------------------------------- get / set
     def _snapshot(self) -> SimState:
@@ -817,23 +900,29 @@ class Simulation:
                     m, **{f: _set_cols(getattr(m, f), ti, self._tensor(v))
                           for f, v in vals.items()}))
 
-    def _push_springs(self, idx: np.ndarray) -> None:
-        """Push the 8 per-spring parameter fields of the given rows."""
+    def _push_springs(self, idx: np.ndarray,
+                      _incremental: bool = False) -> None:
+        """Push the 8 per-spring parameter fields of the given rows.
+        ``_incremental=True`` (runtime/incremental.py) skips the feature
+        and uniformity checks: the caller has recomputed the shape from the
+        whole store already."""
         if len(idx) == 0:
             return
         st = self._store
-        # a pushed spring may enable a feature the current shape lacks
-        needs_breathing = bool(np.any(
-            (st.s_type[idx] != PASSIVE_SOFT) & (st.s_type[idx] != PASSIVE_STIFF)))
-        needs_actuated = bool(np.any(
-            (st.s_type[idx] == ACTUATED_EXPAND)
-            | (st.s_type[idx] == ACTUATED_CONTRACT)))
-        needs_damping = bool(np.any(st.damping[idx] != 0.0))
-        if ((needs_breathing and not self._shape.has_breathing)
-                or (needs_actuated and not self._shape.has_actuated)
-                or (needs_damping and not self._shape.has_damping)):
-            self._upgrade_shape()
-        self._check_uniform_break(idx)
+        if not _incremental:
+            # a pushed spring may enable a feature the current shape lacks
+            needs_breathing = bool(np.any(
+                (st.s_type[idx] != PASSIVE_SOFT)
+                & (st.s_type[idx] != PASSIVE_STIFF)))
+            needs_actuated = bool(np.any(
+                (st.s_type[idx] == ACTUATED_EXPAND)
+                | (st.s_type[idx] == ACTUATED_CONTRACT)))
+            needs_damping = bool(np.any(st.damping[idx] != 0.0))
+            if ((needs_breathing and not self._shape.has_breathing)
+                    or (needs_actuated and not self._shape.has_actuated)
+                    or (needs_damping and not self._shape.has_damping)):
+                self._upgrade_shape()
+            self._check_uniform_break(idx)
         fam, slot = self._sp_family[idx], self._sp_slot[idx]
         in_st = fam >= 0
         in_rem = (fam < 0) & (slot >= 0)
@@ -933,6 +1022,27 @@ class Simulation:
             getattr(st, f)[rows_] = vals
         j.store_fresh = True
 
+    def _push_mass_rows_full(self, idx: np.ndarray) -> None:
+        """Push EVERY mass field of the given rows to the device (the
+        incremental edit path: new rows, and touched rows whose evolving
+        fields were refreshed first).  Unlike _push_masses this includes
+        acc and T and skips the feature-flip checks: the caller has
+        recomputed the shape."""
+        st = self._store
+        ti = torch.as_tensor(np.asarray(idx, dtype=np.int64))
+        m = self._state.masses
+        vals = {"pos": st.pos[idx].T, "vel": st.vel[idx].T,
+                "acc": st.acc[idx].T, "extern_force": st.extern_force[idx].T,
+                "m": st.m[idx], "T": st.T[idx], "fixed": st.fixed[idx],
+                "valid": st.valid[idx], "drag": st.drag[idx],
+                "mag_rad": st.mag_rad[idx],
+                "mag_stiffness": st.mag_stiffness[idx],
+                "mag_maxf": st.mag_maxf[idx], "mag_scale": st.mag_scale[idx]}
+        self._state = dataclasses.replace(
+            self._state, masses=dataclasses.replace(
+                m, **{f: _set_cols(getattr(m, f), ti, self._tensor(v))
+                      for f, v in vals.items()}))
+
     def _upgrade_shape(self) -> None:
         """Recompute the shape's feature flags from the host store (the
         parameters are host-authoritative) and pick the chunk function for
@@ -946,6 +1056,27 @@ class Simulation:
             self._timed_chunks = 0
 
     # -------------------------------------------------------------- compaction
+    def compact(self) -> None:
+        """Physically remove soft-deleted masses and springs and remap
+        containers and handles (reference invalidate + thrust::remove,
+        sim.cu:343-414).  Runs at re-marshal when the dead fraction reaches
+        ``config.compact_threshold``; callable at a pause.  Handles to
+        surviving entities keep working; handles to compacted ones raise on
+        their next use."""
+        self._check_can_edit()
+        self._sync_store_before_structural_edit()
+        # compaction rearranges store rows: pull the live device state in
+        # first (keeping journaled edits), then mark the store fresh so the
+        # full re-marshal at resume does not pull again through the now
+        # stale index maps
+        self._sync_full_preserving_edits()
+        self._compact_store()
+        if self._started:
+            self._structure_dirty = True
+            if self._journal is not None:
+                self._journal.force_full = True
+                self._journal.store_fresh = True
+
     def _compact_store(self) -> None:
         mass_remap, spring_remap = self._store.compact()
         if (mass_remap >= 0).all() and (spring_remap >= 0).all():
@@ -959,6 +1090,9 @@ class Simulation:
             si = c._spring_idx
             si = spring_remap[si[si < len(spring_remap)]]
             c._spring_idx = si[si >= 0]
+        self._env_gravity_delta = None  # stale per-row data, if any
+        get_logger().debug("compacted store to %d masses / %d springs",
+                           self._store.n_masses, self._store.n_springs)
 
     def _translate_index(self, gen: int, i: int, kind: str) -> int:
         """Translate a handle's row index from generation ``gen`` to now."""
@@ -971,42 +1105,73 @@ class Simulation:
         return i
 
     # ------------------------------------------------------------ struct edits
-    def _mark_dirty(self) -> None:
-        """A structural edit (or a global-constraint change) after start():
-        the next resume() re-marshals the scene."""
+    def _mark_dirty(self, gcon: bool = False) -> None:
+        """A structural edit after start(), or (``gcon``) a change of the
+        global constraints: the next resume() applies it
+        (runtime/incremental.py)."""
         if self._started:
             self._structure_dirty = True
+            if gcon and self._journal is not None:
+                self._journal.gcon_dirty = True
 
     def _mark_structure_dirty(self, mass_index: Optional[int] = None) -> None:
-        """A local-constraint record changed (entities.addConstraint)."""
+        """A local-constraint record changed (entities.addConstraint /
+        clearConstraints); journaled for the incremental lcon rebuild."""
         if self._started:
             self._check_can_edit()
+            self._sync_store_before_structural_edit()
             self._structure_dirty = True
-            if self._journal is not None and mass_index is not None:
-                self._journal.touched_m.add(int(mass_index))
+            j = self._journal
+            if j is not None:
+                j.lcon_dirty = True
+                if mass_index is not None:
+                    j.touched_m.add(int(mass_index))
 
+    def _sync_store_before_structural_edit(self) -> None:
+        """Guard: structural edits need a paused (or unstarted) simulation.
+        The edits are journaled and applied at the next resume()
+        (runtime/incremental.py); a full re-marshal pulls the live state
+        then, keeping every journaled row."""
+        if self._started and self._state is not None and self._running:
+            raise RuntimeError("The simulation is running. Stop the "
+                               "simulation to make changes.")
+
+    # -- journal recording (no-ops before start) ------------------------------
     def _touch_mass(self, rows, field: Optional[str] = None) -> None:
         j = self._journal
         if j is None or not self._started:
             return
         if np.isscalar(rows) or isinstance(rows, (int, np.integer)):
-            rows = np.array([int(rows)], np.int64)
-        rows = np.asarray(rows)
-        j.m_arrays.append(rows)
-        if field is not None and field in j.m_written:
-            j.m_written[field].append(rows)
+            j.touched_m.add(int(rows))
+            if field is not None and field in j.m_written:
+                j.m_written[field].append(np.array([int(rows)], np.int64))
+        else:
+            rows = np.asarray(rows)
+            j.m_arrays.append(rows)
+            if field is not None and field in j.m_written:
+                j.m_written[field].append(rows)
 
     def _touch_spring(self, rows, rest: bool = False) -> None:
         j = self._journal
-        if j is None or not self._started or not rest:
+        if j is None or not self._started:
             return
-        j.s_rest_written.append(np.atleast_1d(np.asarray(rows, np.int64)))
+        if np.isscalar(rows) or isinstance(rows, (int, np.integer)):
+            j.touched_s.add(int(rows))
+            if rest:
+                j.s_rest_written.append(np.array([int(rows)], np.int64))
+        else:
+            rows = np.asarray(rows)
+            j.s_arrays.append(rows)
+            if rest:
+                j.s_rest_written.append(rows)
 
     def _journal_bulk(self, *skip_pull_fields: str) -> None:
-        """A whole-store write: the pull before a re-marshal keeps it."""
+        """A whole-store write: the incremental path cannot express it, and
+        the pull before the re-marshal keeps it."""
         j = self._journal
         if j is None or not self._started:
             return
+        j.bulk = True
         j.skip_pull.update(skip_pull_fields)
 
     def _refresh_mass_rows(self, idx, skip=None) -> None:
@@ -1047,6 +1212,11 @@ def _set_cols(old: torch.Tensor, ti: torch.Tensor, vals: torch.Tensor):
     new = old.clone()
     new[..., ti.to(old.device)] = vals.to(old.dtype)
     return new
+
+
+# (camera position, look-at target, up) before any setViewport
+_DEFAULT_CAMERA = (np.array([15.0, 15.0, 7.0]), np.array([0.0, 0.0, 2.0]),
+                   np.array([0.0, 0.0, 1.0]))
 
 
 def _np3(v) -> np.ndarray:
@@ -1123,7 +1293,9 @@ def _remainder_degree_span(st: HostStore, rem_idx: np.ndarray, n: int):
 def _build_remainder_states(st: HostStore, rem_idx: np.ndarray, N: int,
                             S: int, max_degree: int, dt, cfg: SimConfig,
                             to_dev):
-    """Device SpringState + Topology of the remainder springs."""
+    """Device SpringState + Topology of the remainder springs, and each
+    remainder slot's host endpoints (int64 [S] left, right).  Shared by
+    _marshal and the incremental edit path's remainder rebuild."""
     s_rem = int(rem_idx.shape[0])
 
     def ssc(a, dtype=None):
@@ -1163,7 +1335,7 @@ def _build_remainder_states(st: HostStore, rem_idx: np.ndarray, N: int,
     topo = Topology(inc_idx=to_dev(inc_idx),
                     inc_sign=to_dev(inc_sign.astype(dt)),
                     seg_perm=to_dev(seg_perm), seg_ids=to_dev(seg_ids))
-    return springs, topo
+    return springs, topo, left.astype(np.int64), right.astype(np.int64)
 
 
 def _build_gcon(planes, balls, dt, to_dev) -> GlobalConstraints:
