@@ -368,6 +368,46 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      rounding of the snapshot of its time, each recorded frame bitwise its
      snapshot; steps/s with and without; and ROADMAP C7's scene on the
      card (a reused make_observe callback);
+  d1. the multi-device layer on DIST_SHARDS = 4 shards of the one card
+     (parallel.make_mesh(devices=[cuda:0] * 4)): phase o's landed 100^3
+     state through Simulation.distribute -> start -> wait (100 steps) ->
+     getAll -> stop with every count zeroed just before the wait and read
+     just after: route halo_tiled, exactly 4 x 100 per-step tiled launches,
+     every one on the plain-spring loop, no resident grid, no fused
+     launch, 0 eager; bitwise the single-device tiled chunk from the same
+     state; the distributed kernels against tiled_chunk_plain over 20
+     steps; one shard's launch timed (torch.profiler) beside the plain
+     version of the same launch and its bound, the distributed chunk
+     against the single device's (CUDA events);
+  d2. the distributed resident grid forced on (TITAN_DIST_MEGA=1: 16-step
+     segments over windows of KH = 16 h rows a side): exactly 4 x 6
+     resident-grid and 4 x 4 per-step launches, bitwise d1's per-step form
+     and within TOL_STATE of tiled_chunk_plain, timed;
+  d3. the 43^3 bench scene from phase 3's landed state on the halo route
+     (plain PyTorch per shard, no kernel) through Simulation.distribute,
+     against the single-device fused chunk within TOL_DIST_HALO, timed;
+  d4. grad_rollout(mesh=) from d1's state over DIST_GRAD_STEPS steps under
+     Euler, Verlet and RK2, every count zeroed just before and read just
+     after: exactly 4 x steps replay launches (x 2 RK2) and 4 x 2 B7
+     launches a step (x 5 RK2), no resident grid, no fused launch, 0
+     eager; every gradient finite and within TOL_DIST_GRAD of its max
+     against the single-device tiled_adjoint_rollout (bitwise printed
+     where it is); one shard's replay and B7 launches timed beside their
+     plain versions and bounds;
+  d5. the 64^3 soak glue scene (glue_sim: binned magnets, 50 links as
+     glue) through Simulation.distribute, DIST_GLUE_STEPS steps, against
+     the single-device tiled chunk within TOL_DIST_GLUE; grad_rollout
+     (mesh=) over DIST_GLUE_GRAD steps against tiled_adjoint_rollout
+     within TOL_DIST_GRAD;
+  d6. BatchedScenes(mesh=) (64 envs over the 4 shards) bitwise the
+     unsharded batch; the sharded catch-all (strict per-step external
+     force, route sharded) bitwise the single-device Simulation;
+  d7. 2 processes x 2 shards on cuda:0 over gloo (this script run again
+     with --dist-worker, each with a time limit; CUDA tensors staged
+     through host memory): the distributed tiled chunk and a gradient
+     through the distributed adjoint at 40^3, bitwise the in-process
+     4-shard run.  NCCL across processes and shards on distinct cards are
+     not run (one card);
   5. print the kernels line (one entry per kernel and path), the card's
      name and power limit, and last the result line.
 
@@ -6558,6 +6598,683 @@ def host_phases(titan, kernels, phase_done, bench_landed, stress_landed):
     phase_done("h5")
 
 
+# ---------------------------------------------------------------------------
+# The multi-device layer (phases d1-d7): Simulation.distribute over 4
+# shards of the one card (parallel/), the per-shard tiled route with its
+# kernels on each shard's window, the forced distributed resident grid, the
+# halo route, the distributed tiled adjoint, the glue scene, the sharded
+# batch and catch-all, and 2 processes x 2 shards over gloo
+# ---------------------------------------------------------------------------
+
+#: shards of the one card every distributed phase runs on, and steps
+DIST_SHARDS, DIST_STEPS = 4, 100
+#: phase d4's gradient steps from the landed 100^3 state (the default
+#: segment: the largest divisor of at most 64 steps)
+DIST_GRAD_STEPS = 100
+#: phase d5's glue scene: forward steps and gradient steps
+DIST_GLUE_STEPS, DIST_GLUE_GRAD = 50, 10
+#: phase d3: the halo route (plain PyTorch per shard, the JAX module's
+#: order of sums) against the fused kernel over DIST_STEPS steps from the
+#: landed 43^3 state, (pos m, vel m/s): f32 rounding in two orders of
+#: summation, amplified by the stiff contact with the plane (a first run
+#: on an H100 measured 3.6e-7 m and 7.7e-5 m/s)
+TOL_DIST_HALO = (1e-5, 5e-4)
+#: phase d4: the distributed adjoint (B7 per shard, every step) against
+#: the single-device tiled adjoint (B8 for Euler and Verlet), each
+#: gradient within this share of its largest |element|
+TOL_DIST_GRAD = 1e-4
+#: phase d5: the glue scene's distributed route against one device (the
+#: links as glue summed in a dropping scatter with atomic adds, in the
+#: kernel on one device)
+TOL_DIST_GLUE = 1e-5
+#: phase d7: the 2-process scene (bench.py's lattice at 40^3, the
+#: halo_tiled route), its forward and gradient steps
+DIST_MP_NX, DIST_MP_STEPS, DIST_MP_GRAD = 40, 50, 8
+
+
+def dist_mesh(shards=DIST_SHARDS):
+    """A mesh of `shards` shards, all on cuda:0."""
+    import torch
+    from titan_tpu_torch.parallel import make_mesh
+    return make_mesh(("shard",), devices=[torch.device("cuda", 0)] * shards)
+
+
+def store_from_state(sim, state):
+    """Write a marshalled state's pos, vel, acc and T into `sim`'s host
+    store (an f32 store round-trips them exactly)."""
+    st = sim._store
+    n = st.n_masses
+    m = state.masses
+    for f in ("pos", "vel", "acc"):
+        getattr(st, f)[:n] = getattr(m, f)[:, :n].T.cpu().numpy()
+    st.T[:n] = m.T[:n].cpu().numpy()
+
+
+def dist_drive(sim, name, mesh, route, steps=None):
+    """`sim` through the public API on `mesh`: distribute -> start -> wait
+    (`steps` steps) -> getAll -> stop, every count set to 0 just before
+    the wait and read just after.  Returns (shape, the state at start, the
+    state at the pause, counts, host s of the wait)."""
+    import torch
+    steps = steps or DIST_STEPS
+    sim.distribute(mesh)
+    sim.start()
+    shape, state0 = sim._shape, sim._state
+    check(sim._chunk.route == route, f"{name}: distributed route "
+          f"{sim._chunk.route}, not {route}")
+    torch.cuda.synchronize()
+    zero_adjoint_counts()
+    t0 = time.perf_counter()
+    sim.wait(steps * sim._dt)
+    sim.getAll()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_adjoint_counts()
+    out = sim._state
+    check(abs(sim.time() - steps * sim._dt) < 1e-9,
+          f"{name}: paused at {sim.time()}")
+    sim.stop()
+    print(f"main path {name}: route {route} over {mesh.shape['shard']} "
+          f"shards, {steps} steps in {wall:.3f} s (host, first chunks "
+          "included): " + ", ".join(f"{k} {v}" for k, v in counts.items()
+                                    if v))
+    check(counts["eager"] == 0 or route == "sharded",
+          f"{name}: {counts['eager']} eager steps")
+    return shape, state0, out, counts, wall
+
+
+def shard_kernels(shape, state, mesh, hw, trace=False):
+    """The staged windows of the per-shard tiled route from `state`
+    (parallel/halo_tiled.py::ShardKernels), for timing one shard's
+    launches."""
+    from titan_tpu_torch.parallel import halo_tiled as ht
+    from titan_tpu_torch.parallel import sharded
+    _, b = ht._geometry(shape, mesh.shape["shard"])
+    shards = sharded.shard_state(sharded.pad_state(
+        state, b * mesh.shape["shard"]), mesh, "shard", b)
+    fps = ht.global_fparams(mesh, shape, shards)
+    wins = ht.window_states(mesh, shards, hw)
+    return [ht.ShardKernels(shape, w, fp, hw, b, trace=trace)
+            for w, fp in zip(wins, fps)]
+
+
+def dist_step_entry(name, shape, state, mesh, launches, err, chunk_ms,
+                    single_ms, kernel="tiled_step_kernel"):
+    """The kernels-line entry of one shard's per-step launch on the
+    distributed route: its device time (torch.profiler over a 20-step
+    distributed chunk), the plain version of the same launch on the same
+    window (halo_tiled.pass_plain, CUDA events), its bound on the window."""
+    import torch
+    from titan_tpu_torch.ops import tiled_step as T
+    from titan_tpu_torch.parallel import halo_tiled as ht
+    from titan_tpu_torch.parallel import sharded
+    h, _ = ht._geometry(shape, mesh.shape["shard"])
+    run = ht.build_halo_tiled_chunk(shape, mesh)
+    chunk = sharded.DistributedChunk("halo_tiled", shape, mesh, "shard",
+                                     run.b, run)
+    with uncounted():
+        us = profile_groups(lambda: chunk(state, 20), {
+            kernel: lambda key: kernel in key})[kernel]
+        k = shard_kernels(shape, state, mesh, h)[1]
+        integ = shape.config.integrator.name
+        mode = {"EULER": T._EULER, "VERLET": T._VERLET}.get(integ, T._RK2A)
+        pos, vel, acc = (getattr(k.wstate.masses, f).float().contiguous()
+                         for f in ("pos", "vel", "acc"))
+        plain_ms = event_ms(lambda _: ht.pass_plain(
+            k.shape, k.inv, mode, 0, None, pos, vel, acc), 1)
+    m = {T._EULER: "euler", T._VERLET: "verlet"}.get(mode, "rk2a")
+    (b_ms, by), _, _ = tiled_bound_ms(k.shape, k.wstate, m, 1)
+    print(f"timing {name} {kernel}: "
+          + ("not measured (no device time recorded)" if us is None
+             else f"{us:.3f} us/launch on the device (one shard's window "
+                  f"of {k.n} rows)")
+          + f"; plain version {plain_ms * 1e3:.1f} us; bound "
+          f"{b_ms * 1e3:.4f} us by {by}; the distributed chunk "
+          f"{chunk_ms * 1e3:.3f} us/step against {single_ms * 1e3:.3f} on "
+          "one device (CUDA events)")
+    return dict(name=f"{kernel} ({name}, {mesh.shape['shard']} shards of "
+                "one card)", route="cuda",
+                source="titan_tpu_torch/csrc/tiled_step.cu",
+                replaces="titan_tpu/ops/pallas_tiled.py:205",
+                launches=launches, max_abs_err=err,
+                ms=None if us is None else us / 1e3, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, library_ms=None,
+                ms_per_step=chunk_ms, single_device_ms_per_step=single_ms)
+
+
+def dist_stress(titan, kernels, stress_landed):
+    """Phases d1 and d2: the landed 100^3 state of phase o through
+    Simulation.distribute (route halo_tiled, 0 eager steps, the tiled
+    launches exactly 4 shards x DIST_STEPS per-step launches, every one
+    on the plain-spring loop), bitwise the single-device tiled chunk from
+    the same state, the kernels against tiled_chunk_plain over 20 steps,
+    timed; then the distributed resident grid forced on
+    (TITAN_DIST_MEGA=1): bitwise the per-step form, timed.  Returns the
+    marshalled landed (shape, state)."""
+    import torch
+    from titan_tpu_torch.ops import tiled_step
+    from titan_tpu_torch.parallel import halo_tiled as ht
+    from titan_tpu_torch.parallel import sharded
+    mesh = dist_mesh()
+    sim = bench_scene(titan, STRESS_NX)
+    store_from_state(sim, stress_landed[1])
+    name = f"distributed {STRESS_NX}^3"
+    shape, state0, out, c, _ = dist_drive(sim, name, mesh, "halo_tiled")
+    want = dict(fwd_step=DIST_SHARDS * DIST_STEPS, fwd_mega=0,
+                fwd_plain=DIST_SHARDS * DIST_STEPS, fused=0, eager=0)
+    check({k: c[k] for k in want} == want,
+          f"{name}: counts {c}, want {want}")
+    with uncounted():
+        ref = tiled_step.tiled_chunk(shape, state0, DIST_STEPS)
+        diffs, same = state_diffs(out, ref, ("pos", "vel", "acc"))
+        print(f"{name} vs the single-device tiled chunk over {DIST_STEPS} "
+              f"steps: {'bitwise' if same else diffs}")
+        check(same, f"{name}: not bitwise the single-device chunk: {diffs}")
+        run = ht.build_halo_tiled_chunk(shape, mesh)
+        chunk = sharded.DistributedChunk("halo_tiled", shape, mesh, "shard",
+                                         run.b, run)
+        short = chunk(state0, 20)
+        plain = tiled_step.tiled_chunk_plain(shape, state0, 20)
+        err_d, _ = state_diffs(short, plain, ("pos", "vel", "acc"))
+        err = max(err_d.values())
+        print(f"{name}: the distributed kernels against tiled_chunk_plain "
+              f"over 20 steps: {err_d}")
+        check(err <= TOL_STATE, f"{name}: {err_d} off the plain version")
+        torch.cuda.synchronize()
+        ms = event_ms(lambda k: chunk(state0, k), DIST_STEPS)
+        single_ms = event_ms(lambda k: tiled_step.tiled_chunk(
+            shape, state0, k), DIST_STEPS)
+    kernels.append(dist_step_entry(name, shape, state0, mesh,
+                                   c["fwd_step"], err, ms, single_ms))
+
+    # d2: the distributed resident grid, forced on
+    os.environ["TITAN_DIST_MEGA"] = "1"
+    try:
+        run = ht.build_halo_tiled_chunk(shape, mesh)
+    finally:
+        del os.environ["TITAN_DIST_MEGA"]
+    check(run.k_seg == tiled_step.MEGA_SEG,
+          f"{name}: the forced plan is {run.k_seg, run.kh}")
+    chunk = sharded.DistributedChunk("halo_tiled", shape, mesh, "shard",
+                                     run.b, run)
+    zero_adjoint_counts()
+    got = chunk(state0, DIST_STEPS)
+    torch.cuda.synchronize()
+    c = read_adjoint_counts()
+    n_seg = DIST_STEPS // run.k_seg
+    want = dict(fwd_mega=DIST_SHARDS * n_seg,
+                fwd_step=DIST_SHARDS * (DIST_STEPS - n_seg * run.k_seg))
+    check({k: c[k] for k in want} == want,
+          f"{name} forced mega: counts {c}, want {want}")
+    diffs, same = state_diffs(got, out, ("pos", "vel", "acc"))
+    print(f"{name} forced mega (k {run.k_seg}, KH {run.kh}, window "
+          f"{run.b + 2 * run.kh} rows a shard) vs d1's per-step form: "
+          f"{'bitwise' if same else diffs}")
+    check(same, f"{name}: forced mega not bitwise the per-step form")
+    with uncounted():
+        mega_ms = event_ms(lambda k: chunk(state0, k), DIST_STEPS)
+        us = profile_groups(lambda: chunk(state0, 2 * run.k_seg), {
+            "mega": lambda key: "tiled_mega_kernel" in key})["mega"]
+        plain16 = tiled_step.tiled_chunk_plain(shape, state0, run.k_seg)
+        short = chunk(state0, run.k_seg)
+        err_d, _ = state_diffs(short, plain16, ("pos", "vel", "acc"))
+        kk = shard_kernels(shape, state0, mesh, run.kh)[1]
+        pos, vel, acc = (getattr(kk.wstate.masses, f).float().contiguous()
+                         for f in ("pos", "vel", "acc"))
+        plain_ms = run.k_seg * event_ms(lambda _: ht.plain_step(
+            kk, 0, None, pos, vel, acc), 1)
+    (b_ms, by), _, _ = tiled_bound_ms(kk.shape, kk.wstate, "euler",
+                                      run.k_seg)
+    err = max(err_d.values())
+    print(f"timing {name} forced mega: {mega_ms * 1e3:.3f} us/step "
+          f"(per-step form {ms * 1e3:.3f}, one device {single_ms * 1e3:.3f}"
+          f"); tiled_mega_kernel "
+          + ("not measured" if us is None else f"{us:.3f} us/launch")
+          + f" of {run.k_seg} steps on a window of {kk.n} rows; plain "
+          f"version {plain_ms * 1e3:.1f} us; bound {b_ms * 1e3:.3f} us by "
+          f"{by}; against tiled_chunk_plain over {run.k_seg} steps {err_d}")
+    check(err <= TOL_STATE, f"{name}: forced mega {err_d} off the plain "
+          "version")
+    kernels.append(dict(
+        name=f"tiled_mega_kernel ({name}, forced, {DIST_SHARDS} shards of "
+        "one card)", route="cuda",
+        source="titan_tpu_torch/csrc/tiled_step.cu",
+        replaces="titan_tpu/ops/pallas_tiled.py:205",
+        launches=c["fwd_mega"], max_abs_err=err,
+        ms=None if us is None else us / 1e3, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=None,
+        ms_per_step=mega_ms))
+    return shape, state0
+
+
+def dist_halo(titan, bench_landed):
+    """Phase d3: the 43^3 bench scene on the halo route (plain PyTorch per
+    shard) through Simulation.distribute from phase 3's landed state,
+    against the single-device fused chunk within TOL_DIST_HALO, timed."""
+    from titan_tpu_torch.ops import fused_step
+    mesh = dist_mesh()
+    sim = bench_scene(titan)
+    store_from_state(sim, bench_landed)
+    name = "distributed 43^3 halo"
+    shape, state0, out, c, _ = dist_drive(sim, name, mesh, "halo")
+    check(c["fused"] == 0 and c["fwd_step"] == 0,
+          f"{name}: kernel launches on the halo route: {c}")
+    with uncounted():
+        ref = fused_step.fused_chunk(shape, state0, DIST_STEPS)
+        diffs, _ = state_diffs(out, ref, ("pos", "vel", "acc"))
+    print(f"{name} vs the single-device fused chunk over {DIST_STEPS} "
+          f"steps: {diffs} (tolerance {TOL_DIST_HALO} on pos and vel)")
+    check(diffs["pos"] <= TOL_DIST_HALO[0]
+          and diffs["vel"] <= TOL_DIST_HALO[1], f"{name}: {diffs}")
+    from titan_tpu_torch.runtime.simulation import _dist_chunk_for
+    chunk = _dist_chunk_for(shape, mesh, "shard", "halo")
+    with uncounted():
+        ms = event_ms(lambda k: chunk(state0, k), 10, reps=2)
+        f_ms = event_ms(lambda k: fused_step.fused_chunk(shape, state0, k),
+                        DIST_STEPS)
+    print(f"timing {name}: {ms * 1e3:.1f} us/step (CUDA events over 10 "
+          f"steps), the fused kernel {f_ms * 1e3:.3f} us/step")
+
+
+def dist_grad_case(name, shape, state, mesh, integrator):
+    """Phase d4 for one integrator: grad_rollout(mesh=) over
+    DIST_GRAD_STEPS steps against tiled_adjoint_rollout, every count set
+    to 0 just before and read just after: the replay's per-step launches
+    exactly 4 shards x steps (x 2 under RK2), B7's 4 shards x 2 (5) a
+    step, no resident grid, no fused launch, no eager step."""
+    import torch
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    from titan_tpu_torch.parallel import halo_adjoint as ha
+    shp = integrator_shape(shape, getattr(type(shape.config.integrator),
+                                          integrator))
+    rk2 = integrator == "RK2"
+    label = f"{name} {integrator.lower()}"
+    check(ha.halo_adjoint_reject_reason(shp, DIST_SHARDS) is None,
+          f"{label}: {ha.halo_adjoint_reject_reason(shp, DIST_SHARDS)}")
+    seg = ha.default_segment(shp, DIST_SHARDS, DIST_GRAD_STEPS)
+    weights = grad_loss_weights(state)
+    zero_adjoint_counts()
+    t0 = time.perf_counter()
+    loss, grads = run_grad(shp, state, lambda sh, st, k: diff.grad_rollout(
+        sh, st, k, mesh=mesh), DIST_GRAD_STEPS, weights)
+    wall = time.perf_counter() - t0
+    c = read_adjoint_counts()
+    per = 2 if rk2 else 1
+    want = dict(fwd_step=DIST_SHARDS * DIST_GRAD_STEPS * per, fwd_mega=0,
+                trace_step=DIST_SHARDS * DIST_GRAD_STEPS * per,
+                trace_mega=0, bwd_step=DIST_SHARDS * DIST_GRAD_STEPS
+                * (5 if rk2 else 2), bwd_mega=0, fused=0, eager=0)
+    print(f"gradient path {label}: {DIST_GRAD_STEPS} steps in segments of "
+          f"{seg} over {DIST_SHARDS} shards: "
+          + ", ".join(f"{k} {v}" for k, v in c.items() if v)
+          + f"; {wall:.3f} s wall (first call)")
+    check({k: c[k] for k in want} == want,
+          f"{label}: counts {c}, want {want}")
+    with uncounted():
+        t1 = time.perf_counter()
+        _, ref = run_grad(shp, state, lambda sh, st, k:
+                          at.tiled_adjoint_rollout(sh, st, k),
+                          DIST_GRAD_STEPS, weights)
+        wall1 = time.perf_counter() - t1
+    worst, bitwise = 0.0, True
+    for nm, g, r in zip(GRAD_NAMES, grads, ref):
+        check(bool(torch.isfinite(g).all()), f"{label}: d loss / d {nm} "
+              "is not finite")
+        scale = float(r.abs().max()) or 1.0
+        rel = float((g - r).abs().max()) / scale
+        bitwise = bitwise and bool(torch.equal(g, r))
+        worst = max(worst, rel)
+        check(rel <= TOL_DIST_GRAD, f"{label}: d loss / d {nm} off the "
+              f"single-device adjoint by {rel:.3e} of its max")
+    print(f"gradient path {label} vs tiled_adjoint_rollout ({wall1:.3f} s "
+          f"wall): {'bitwise' if bitwise else f'worst {worst:.3e} of max'}")
+    return c, worst, wall
+
+
+def shard_vs_plain(shape, state, mesh, hw, mode, cts):
+    """One shard's replay launch and one reversed step of B7 on its window
+    of halo `hw` against their plain versions on the same inputs
+    (halo_tiled.pass_plain; halo_adjoint's sweep with the plain step), on
+    the centre rows, which the window alone determines: (max |replay -
+    plain| over its pos and vel, max |B7 - plain| over the carry, that
+    over max |plain|)."""
+    import copy
+    import torch
+    from titan_tpu_torch.parallel import halo_adjoint as ha
+    from titan_tpu_torch.parallel import halo_tiled as ht
+    k = shard_kernels(shape, state, mesh, hw, trace=True)[1]
+    pos, vel, acc = (getattr(k.wstate.masses, f).float().contiguous()
+                     for f in ("pos", "vel", "acc"))
+    entry = torch.empty((6, k.n), device=pos.device)
+    got = k.launch(mode, 0, None, pos, vel, acc, entry=entry)
+    want = ht.pass_plain(k.shape, k.inv, mode, 0, k.inv["const_f"], pos,
+                         vel, acc)
+    err_tr = max(float((k.centre(a) - k.centre(b)).abs().max())
+                 for a, b in zip(got[:2], want[:2]))
+    plain = copy.copy(k)
+    plain.kind = "cpu"          # the plain step, on the card's tensors
+    sweeps = [ha._ShardSweep(kk, entry[None], *(c.clone() for c in cts), 6,
+                             False) for kk in (k, plain)]
+    for sw in sweeps:
+        sw.step_all(0)
+    err, scale = 0.0, 0.0
+    for f in ("gp", "gv", "ga"):
+        a, b = (k.centre(getattr(sw, f)) for sw in sweeps)
+        err = max(err, float((a - b).abs().max()))
+        scale = max(scale, float(b.abs().max()))
+    return err_tr, err, err / (scale or 1.0)
+
+
+def dist_bwd_entries(name, shape, state, mesh, kernels, counts):
+    """Rows 5 and 9 on the distributed adjoint: one shard's replay launch
+    and B7 launches over one reversed step, device time per launch
+    (torch.profiler over a 4-step distributed gradient), against their
+    plain versions on the same window (shard_vs_plain: the replay within
+    TOL_STATE, B7 within TOL_BWD of max |plain|) and timed beside them,
+    the bounds."""
+    import torch
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import adjoint as A
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    from titan_tpu_torch.parallel import halo_adjoint as ha
+    from titan_tpu_torch.parallel import halo_tiled as ht
+    for integ in ("EULER", "VERLET", "RK2"):
+        shp = integrator_shape(shape, getattr(type(shape.config.integrator),
+                                              integ))
+        rk2 = integ == "RK2"
+        label = f"{name} {integ.lower()}"
+        _, hw, _ = ha._geom_dist(shp, DIST_SHARDS)
+        with uncounted():
+            dev = profile_groups(lambda: run_grad(
+                shp, state, lambda sh, st, k: diff.grad_rollout(
+                    sh, st, k, segment=4, mesh=mesh), 4), {
+                "trace": lambda k: "tiled_step_kernel" in k
+                and "true>" in k,
+                "bwd": lambda k: "<TiledBwdArgs," in k})
+            trace_us, b7_us = dev["trace"], dev["bwd"]
+            k = shard_kernels(shp, state, mesh, hw)[1]
+            P = at._plain_inputs(k.shape, k.inv)
+            rg, rs = A.torch_rolls()
+            pos, vel = (getattr(k.wstate.masses, f).float().contiguous()
+                        for f in ("pos", "vel"))
+            cts = [torch.randn_like(pos) for _ in range(3)]
+            bwd_plain = event_ms(lambda _: A.backward_step(
+                pos, vel, *cts, P, rg, rs, P["t0"], 0.0, cfs=[]), 1)
+            mode = ht.T._RK2A if rk2 else (
+                ht.T._VERLET if integ == "VERLET" else ht.T._EULER)
+            tr_plain = event_ms(lambda _: ht.pass_plain(
+                k.shape, k.inv, mode, 0, None, pos, vel, cts[2]), 1)
+            err_tr, err_b, rel_b = shard_vs_plain(shp, state, mesh, hw,
+                                                  mode, cts)
+        print(f"{label}: one shard's replay launch against its plain "
+              f"version {err_tr:.3e}, one reversed step of B7 {err_b:.3e} "
+              f"({rel_b:.3e} of max |plain|)")
+        check(err_tr <= TOL_STATE and rel_b <= TOL_BWD,
+              f"{label}: a shard's replay or B7 off its plain version")
+        per_step = 5 if rk2 else 2
+        (tb, tby), _, _ = tiled_adjoint_bound_ms(k.shape, k.wstate, "trace",
+                                                 1)
+        (bb, bby), _, _ = tiled_adjoint_bound_ms(k.shape, k.wstate, "bwd",
+                                                 1)
+        print(f"timing {label}: replay launch "
+              + ("not measured" if trace_us is None
+                 else f"{trace_us:.3f} us")
+              + f" (plain {tr_plain * 1e3:.1f} us, bound {tb * 1e3:.3f} us "
+              f"by {tby}); B7 "
+              + ("not measured" if b7_us is None else f"{b7_us:.3f} us")
+              + f"/launch (plain {bwd_plain * 1e3 / per_step:.1f} us, bound "
+              f"{bb * 1e3 / per_step:.3f} us by {bby}), one shard's window "
+              f"of {k.n} rows")
+        c = counts[integ]
+        kernels.append(dict(
+            name=f"tiled_step_kernel trace ({label} gradient, "
+            f"{DIST_SHARDS} shards of one card)", route="cuda",
+            source="titan_tpu_torch/csrc/tiled_adjoint.cu",
+            replaces="titan_tpu/ops/pallas_tiled.py:1305",
+            launches=c["trace_step"], max_abs_err=err_tr,
+            ms=None if trace_us is None else trace_us / 1e3,
+            plain_ms=tr_plain, bound_ms=tb, bound_by=tby, library_ms=None))
+        kernels.append(dict(
+            name=f"tiled_bwd B7 ({label} gradient, {DIST_SHARDS} shards "
+            "of one card)", route="cuda",
+            source="titan_tpu_torch/csrc/tiled_adjoint.cu",
+            replaces="titan_tpu/ops/adjoint_tiled.py:671",
+            launches=c["bwd_step"], max_abs_err=err_b,
+            ms=None if b7_us is None else b7_us / 1e3,
+            plain_ms=bwd_plain / per_step, bound_ms=bb / per_step,
+            bound_by=bby, library_ms=None))
+
+
+def profile_groups(fn, groups):
+    """{group: device us per launch} over fn() by torch.profiler, each
+    group a predicate on the profiler's kernel keys (summed over the keys
+    it takes); a group with no device time recorded maps to None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for g, pick in groups.items():
+        t = c = 0
+        for e in prof.key_averages():
+            dt = getattr(e, "self_device_time_total", 0.0) or 0.0
+            if pick(e.key) and e.count and dt:
+                t, c = t + dt, c + e.count
+        out[g] = t / c if c else None
+    return out
+
+
+def dist_grads(titan, kernels, shape, state):
+    """Phase d4: grad_rollout(mesh=) at 100^3 from the landed state under
+    Euler, Verlet and RK2 (dist_grad_case), then rows 5 and 9 timed."""
+    mesh = dist_mesh()
+    name = f"distributed {STRESS_NX}^3"
+    counts = {}
+    for integ in ("EULER", "VERLET", "RK2"):
+        counts[integ], _, _ = dist_grad_case(name, shape, state, mesh, integ)
+    dist_bwd_entries(name, shape, state, mesh, kernels, counts)
+
+
+def dist_glue(titan):
+    """Phase d5: the 64^3 soak glue scene (glue_sim: binned magnets and
+    50 links as per-pass glue) through Simulation.distribute, DIST_GLUE
+    steps, against the single-device tiled chunk, and grad_rollout(mesh=)
+    over DIST_GLUE_GRAD steps against tiled_adjoint_rollout, each within
+    TOL_DIST_GLUE / TOL_DIST_GRAD."""
+    import torch
+    from titan_tpu_torch import diff
+    from titan_tpu_torch.ops import adjoint_tiled as at
+    from titan_tpu_torch.ops import tiled_step
+    mesh = dist_mesh()
+    name = f"distributed {GLUE_NX}^3 glue"
+    sim = glue_sim(titan)
+    shape, state0, out, c, _ = dist_drive(sim, name, mesh, "halo_tiled",
+                                          DIST_GLUE_STEPS)
+    check(shape.has_magnets and shape.has_remainder,
+          f"{name}: not a glue scene")
+    check(c["fwd_step"] == DIST_SHARDS * DIST_GLUE_STEPS,
+          f"{name}: {c['fwd_step']} per-step launches")
+    with uncounted():
+        ref = tiled_step.tiled_chunk(shape, state0, DIST_GLUE_STEPS)
+        diffs, same = state_diffs(out, ref, ("pos", "vel", "acc"))
+    print(f"{name} vs the single-device tiled chunk over {DIST_GLUE_STEPS} "
+          f"steps: {'bitwise' if same else diffs} (tolerance "
+          f"{TOL_DIST_GLUE})")
+    check(max(diffs.values()) <= TOL_DIST_GLUE, f"{name}: {diffs}")
+    weights = grad_loss_weights(state0)
+    zero_adjoint_counts()
+    t0 = time.perf_counter()
+    _, grads = run_grad(shape, state0, lambda sh, st, k: diff.grad_rollout(
+        sh, st, k, mesh=mesh), DIST_GLUE_GRAD, weights)
+    wall = time.perf_counter() - t0
+    c = read_adjoint_counts()
+    check(c["bwd_step"] == DIST_SHARDS * DIST_GLUE_GRAD * 2
+          and c["eager"] == 0, f"{name} gradient: counts {c}")
+    with uncounted():
+        t1 = time.perf_counter()
+        _, ref = run_grad(shape, state0, lambda sh, st, k:
+                          at.tiled_adjoint_rollout(sh, st, k),
+                          DIST_GLUE_GRAD, weights)
+        wall1 = time.perf_counter() - t1
+    worst = 0.0
+    for nm, g, r in zip(GRAD_NAMES, grads, ref):
+        check(bool(torch.isfinite(g).all()), f"{name}: d loss / d {nm}")
+        rel = float((g - r).abs().max()) / (float(r.abs().max()) or 1.0)
+        worst = max(worst, rel)
+        check(rel <= TOL_DIST_GRAD, f"{name}: d loss / d {nm} off by "
+              f"{rel:.3e} of its max")
+    print(f"gradient path {name}: {DIST_GLUE_GRAD} steps in {wall:.3f} s "
+          f"(one device {wall1:.3f} s), worst {worst:.3e} of max; counts "
+          + ", ".join(f"{k} {v}" for k, v in c.items() if v))
+
+
+def dist_batched(titan):
+    """Phase d6: BatchedScenes(mesh=) (the env axis over 4 shards) bitwise
+    the unsharded batch; the sharded catch-all (strict per-step external
+    force) bitwise the single-device Simulation."""
+    import torch
+    from titan_tpu_torch.parallel import BatchedScenes
+    mesh = dist_mesh()
+    envs = BatchedScenes.from_simulation(rl_template(titan), 64, mesh=mesh)
+    flat = BatchedScenes.from_simulation(rl_template(titan), 64)
+    envs.run(50)
+    flat.run(50)
+    same = bool(torch.equal(envs.positions(), flat.positions()))
+    print(f"BatchedScenes(mesh=) 64 envs over {DIST_SHARDS} shards, 50 "
+          f"steps: {'bitwise' if same else 'differs from'} the unsharded "
+          "batch")
+    check(same, "BatchedScenes(mesh=) differs from the unsharded batch")
+
+    def strict():
+        sim = titan.Simulation(titan.SimConfig(
+            persistent_extern_force=False, host_store_dtype="float32"))
+        sim.createLattice(titan.Vec(0, 0, 2), titan.Vec(1, 1, 1), 12, 12,
+                          12)
+        sim.createPlane(titan.Vec(0, 0, 1), 0)
+        sim.setTimeStep(1e-4)
+        return sim
+    _, _, out, _, _ = dist_drive(strict(), "distributed catch-all", mesh,
+                                 "sharded", 50)
+    one = strict()
+    one.start()
+    one.wait(50 * one._dt)
+    one.getAll()
+    ref = one._state
+    one.stop()
+    diffs, same = state_diffs(out, ref, ("pos", "vel", "acc"))
+    print(f"the sharded catch-all vs one device over 50 steps: "
+          f"{'bitwise' if same else diffs}")
+    check(same, f"sharded catch-all: {diffs}")
+
+
+def dist_mp_scene(titan):
+    """Phase d7's scene: bench.py's lattice at DIST_MP_NX^3 on the card,
+    marshalled (the halo_tiled route)."""
+    sim = bench_scene(titan, DIST_MP_NX)
+    sim._T = 0.0
+    sim._marshal()
+    return sim._shape, sim._state
+
+
+def dist_mp_run(titan, mesh):
+    """Phase d7's legs over `mesh`: the distributed tiled chunk over
+    DIST_MP_STEPS steps and a gradient over DIST_MP_GRAD steps through the
+    distributed adjoint; host arrays."""
+    from titan_tpu_torch.parallel import halo_adjoint as ha
+    from titan_tpu_torch.parallel import halo_tiled as ht
+    from titan_tpu_torch.parallel import sharded
+    shape, state = dist_mp_scene(titan)
+    run = ht.build_halo_tiled_chunk(shape, mesh)
+    out = sharded.DistributedChunk("halo_tiled", shape, mesh, "shard",
+                                   run.b, run)(state, DIST_MP_STEPS)
+    _, grads = run_grad(shape, state, lambda sh, st, k:
+                        ha.halo_adjoint_rollout(sh, st, mesh, k, segment=4),
+                        DIST_MP_GRAD)
+    res = {"pos": out.masses.pos.cpu().numpy(),
+           "vel": out.masses.vel.cpu().numpy()}
+    for nm, g in zip(GRAD_NAMES, grads):
+        res[f"g_{nm}"] = g.cpu().numpy()
+    return res
+
+
+def dist_worker(port, rank, path):
+    """One process of phase d7: 2 of the 4 shards, on cuda:0, gloo."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    import titan_tpu_torch as titan
+    from titan_tpu_torch.parallel import multihost
+    multihost.initialize(f"localhost:{port}", 2, int(rank))
+    mesh = multihost.make_global_mesh(
+        ("shard",), devices=[torch.device("cuda", 0)] * 2)
+    res = dist_mp_run(titan, mesh)
+    if int(rank) == 0:
+        np.savez(path, **res)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    print(f"chip_smoke dist worker {rank}: done", flush=True)
+    return 0
+
+
+def dist_multiprocess(titan):
+    """Phase d7: 2 processes x 2 shards on cuda:0 over gloo (CUDA tensors
+    staged through host memory), bitwise the in-process 4-shard run; each
+    process with a time limit, both stopped on any failure."""
+    import socket
+    import tempfile
+    import numpy as np
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dist_mp.npz")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             str(port), str(r), path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            for r, p in enumerate(procs):
+                out, _ = p.communicate(timeout=300)
+                check(p.returncode == 0,
+                      f"d7 worker {r} failed:\n{out[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        with np.load(path) as f:
+            got = {k: f[k] for k in f.files}
+    wall = time.perf_counter() - t0
+    ref = dist_mp_run(titan, dist_mesh())
+    bad = [k for k in ref if not np.array_equal(got[k], ref[k])]
+    print(f"2 processes x 2 shards (gloo, cuda:0) in {wall:.1f} s wall: "
+          + (f"bitwise the in-process {DIST_SHARDS}-shard run ("
+             f"{', '.join(sorted(ref))})" if not bad else f"differ in {bad}")
+          + "; NCCL across processes is not run (one card)")
+    check(not bad, f"d7: the 2-process run differs in {bad}")
+
+
+def dist_phases(titan, kernels, phase_done, bench_landed, stress_landed):
+    """Phases d1-d7, ``phase_done(label)`` after each."""
+    shape, state = dist_stress(titan, kernels, stress_landed)
+    phase_done("d1-d2")
+    dist_halo(titan, bench_landed)
+    phase_done("d3")
+    dist_grads(titan, kernels, shape, state)
+    phase_done("d4")
+    dist_glue(titan)
+    phase_done("d5")
+    dist_batched(titan)
+    phase_done("d6")
+    dist_multiprocess(titan)
+    phase_done("d7")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6713,6 +7430,13 @@ def main() -> int:
     # 3's landed state) and 100^3 (from phase o's), the live viewer
     host_phases(titan, kernels, phase_done, landed[0][2], landed_stress[1])
 
+    # d1-d7. the multi-device layer on 4 shards of the one card: the
+    # landed 100^3 state through Simulation.distribute on the per-shard
+    # tiled kernels (and the distributed resident grid forced on), the
+    # 43^3 halo route, the distributed adjoint, the glue scene, the
+    # sharded batch and catch-all, 2 processes x 2 shards over gloo
+    dist_phases(titan, kernels, phase_done, landed[0][2], landed_stress)
+
     # 5. result lines
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6727,4 +7451,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(*sys.argv[2:5]))
     sys.exit(main())

@@ -1,8 +1,8 @@
 """The port's control plane (``runtime/simulation.py``: viewport, debug
 prints, ``reset``, ``compact``) against titan_tpu's.
 
-- Every public method of ``titan_tpu.Simulation`` but ``distribute``
-  (multi-device, ROADMAP A9) exists on the port's, with the same
+- Every public method of ``titan_tpu.Simulation`` exists on the port's,
+  ``distribute`` (the multi-device layer) included, with the same
   signature.
 - ``getProjectionMatrix`` after ``setViewport`` and ``moveViewport``
   equals JAX's at atol 1e-12; ``printPositions`` and ``printSprings``
@@ -45,7 +45,7 @@ def test_every_public_method_but_distribute_exists():
     public = {n for n in dir(titan_tpu.Simulation) if not n.startswith("_")}
     port = {n for n in dir(titan_tpu_torch.Simulation)
             if not n.startswith("_")}
-    assert public - port == {"distribute"}
+    assert public - port == set()
     for name in sorted(public & port):
         a = getattr(titan_tpu.Simulation, name)
         b = getattr(titan_tpu_torch.Simulation, name)

@@ -266,8 +266,13 @@ def test_grad_rollout_routing(monkeypatch, caplog, x64):
     assert calls == ["tiled_adjoint_rollout"]
     assert tdiff.grad_route(_lattice_shape(43)) == ("adjoint", None)
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        tdiff.grad_rollout(shape, state, 4, mesh=object())
+    # with a mesh, an f64 scene is outside the distributed adjoint and
+    # outside both single-device adjoints: refused rather than recomputed
+    # on one device (titan_tpu/diff.py:144-170)
+    from titan_tpu_torch.parallel import make_mesh
+    with pytest.raises(RuntimeError, match="outside every fused"):
+        tdiff.grad_rollout(shape, state, 4,
+                           mesh=make_mesh(("shard",), devices=["cpu"] * 2))
 
 
 def test_adjoint_rollout_rejects(x64):

@@ -27,8 +27,11 @@ The horizons are shorter than ``test_topology_edit.py``'s (0.01 s before
 the edits and after each, in place of 0.03 and 0.05): the port's CPU
 chunk costs ~1.2-1.9 ms a step, and the 17 cases run three simulations
 each.  The JAX chunks are compiled once per scene shape with
-``FAST_XLA``.  The mesh cases of ``test_topology_edit.py`` wait for the
-port's multi-device layer (ROADMAP A9).
+``FAST_XLA``.  The mesh cases of ``test_topology_edit.py`` (:407-496) run
+on the port over 2 CPU shards (``Simulation.distribute``): a spring
+deleted and a remainder spring created at a pause take the incremental
+path and agree with the forced full path within that file's 5e-5, and an
+edit that keeps the scene's shape keeps the distributed chunk.
 """
 
 import torch_threads  # noqa: F401  (before torch)
@@ -442,3 +445,58 @@ def test_uniform_break_while_structure_dirty():
     assert got[titan_tpu_torch] == got[titan_tpu]
     uniform, fam, _, k = got[titan_tpu_torch]
     assert not uniform[0] and fam >= 0 and k == 50.0
+
+
+# ------------------------------------------------------- the mesh cases
+def _run_mesh_pair(edit, t0=0.01, t1=0.01):
+    """``test_topology_edit.py::_run_mesh_pair`` on the port over 2 CPU
+    shards: the incremental leg must take the incremental path, the full
+    leg is forced."""
+    from titan_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(("shard",), devices=["cpu"] * 2)
+    out = []
+    for force_full in (False, True):
+        with recording_paths(titan_tpu_torch) as paths:
+            sim = build_scene(titan_tpu_torch)
+            sim.distribute(mesh)
+            sim.start()
+            sim.wait(t0)
+            edit(sim)
+            if force_full and sim._journal is not None:
+                sim._journal.force_full = True
+            sim.resume()
+            sim.wait(t1)
+            assert sim._chunk.route == "halo"
+            out.append(snapshot(sim))
+            sim.stop()
+        want = "full" if force_full else "incremental"
+        assert paths and all(p == want for p in paths), paths
+    return out
+
+
+def test_mesh_incremental_delete_matches_full():
+    assert_pair_equal(_run_mesh_pair(
+        lambda sim: sim.deleteSpring(sim.springs[10])), atol=5e-5)
+
+
+def test_mesh_incremental_create_matches_full():
+    def edit(sim):
+        s = sim.createSpring(sim.masses[0], sim.masses[37])
+        s._k = 500.0
+    assert_pair_equal(_run_mesh_pair(edit), atol=5e-5)
+
+
+def test_mesh_incremental_chunk_cache_hit():
+    from titan_tpu_torch.parallel import make_mesh
+    sim = build_scene(titan_tpu_torch)
+    sim.distribute(make_mesh(("shard",), devices=["cpu"] * 2))
+    sim.start()
+    sim.wait(0.01)
+    chunk_before = sim._chunk
+    sim.masses[3].pos = titan_tpu_torch.Vec(0.1, 0.1, 5.2)   # a row write
+    sim.deleteSpring(sim.springs[10])       # mask-bit surgery, same shape
+    assert port_try(sim)
+    assert sim._chunk is chunk_before
+    sim.resume()
+    sim.wait(0.01)
+    sim.stop()

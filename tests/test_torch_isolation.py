@@ -45,6 +45,10 @@ HOST_SLICE = ("titan_tpu_torch/native/", "titan_tpu_torch/stl.py",
               "titan_tpu_torch/runtime/incremental.py",
               "titan_tpu_torch/runtime/live.py",
               "titan_tpu_torch/runtime/viewer.py")
+# the multi-device layer's modules, held by test_torch_isolation_parallel.py
+PARALLEL_SLICE = tuple(f"titan_tpu_torch/parallel/{m}.py" for m in (
+    "comm", "halo", "halo_adjoint", "halo_tiled", "mesh", "multihost",
+    "sharded"))
 
 
 def _all_port_files():
@@ -53,14 +57,17 @@ def _all_port_files():
             + sorted((ROOT / "scripts").glob("cuda_*.py")))
 
 
-def _port_files(rl_slice=False, host_slice=False):
-    """The port's files outside the RL and host slices, or those in the RL
-    slice (``rl_slice``) or in the host slice (``host_slice``)."""
+def _port_files(rl_slice=False, host_slice=False, parallel_slice=False):
+    """The port's files outside the RL, host and multi-device slices, or
+    those in the RL slice (``rl_slice``), the host slice (``host_slice``)
+    or the multi-device slice (``parallel_slice``)."""
     def group(p):
         rel = str(p.relative_to(ROOT))
-        return ("rl" if rel.startswith(RL_SLICE)
+        return ("parallel" if rel in PARALLEL_SLICE
+                else "rl" if rel.startswith(RL_SLICE)
                 else "host" if rel.startswith(HOST_SLICE) else "core")
-    want = "rl" if rl_slice else "host" if host_slice else "core"
+    want = ("rl" if rl_slice else "host" if host_slice
+            else "parallel" if parallel_slice else "core")
     return [p for p in _all_port_files() if group(p) == want]
 
 

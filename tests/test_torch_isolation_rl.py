@@ -23,13 +23,16 @@ def test_no_jax_import(path):
 
 def test_the_two_files_cover_every_port_file():
     """The RL slice's files here, the host slice's in
-    test_torch_isolation_host.py and the rest in test_torch_isolation.py:
-    together every port file, each once."""
-    rl, host, rest = (_port_files(rl_slice=True),
-                      _port_files(host_slice=True), _port_files())
-    assert len(rl) == 8 and not set(rl) & (set(rest) | set(host))
-    assert not set(host) & set(rest)
-    assert sorted(rl + host + rest) == sorted(_all_port_files())
+    test_torch_isolation_host.py, the multi-device slice's in
+    test_torch_isolation_parallel.py and the rest in
+    test_torch_isolation.py: together every port file, each once."""
+    rl, host, par, rest = (_port_files(rl_slice=True),
+                           _port_files(host_slice=True),
+                           _port_files(parallel_slice=True), _port_files())
+    assert len(rl) == 8 and not set(rl) & (set(rest) | set(host) | set(par))
+    assert not set(host) & (set(rest) | set(par))
+    assert not set(par) & set(rest)
+    assert sorted(rl + host + par + rest) == sorted(_all_port_files())
     assert all(any(str(p.relative_to(ROOT)).startswith(prefix)
                    for p in rl) for prefix in RL_SLICE)
 

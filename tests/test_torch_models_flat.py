@@ -296,6 +296,9 @@ def test_batched_randomize_is_seeded():
     assert torch.equal(runs[0], runs[1])
     assert not torch.equal(runs[0], runs[2])
     assert len(set(runs[0][:, 2].tolist())) == 4
-    with pytest.raises(NotImplementedError):
-        BatchedScenes.from_simulation(_template(titan_tpu_torch), 2,
-                                      mesh=object())
+    # the same randomized batch with its env axis over 2 shards
+    from titan_tpu_torch.parallel import make_mesh
+    b = BatchedScenes.from_simulation(_template(titan_tpu_torch), 4,
+                                      mesh=make_mesh(devices=["cpu"] * 2))
+    b.randomize(kick, 7)
+    assert torch.equal(b.state.g, runs[0])

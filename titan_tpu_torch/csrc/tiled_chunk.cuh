@@ -410,6 +410,57 @@ inline bool plain_ok(const TiledChunk* c) {
   return !c->plain_springs || c->a.bits != nullptr;
 }
 
+// One resident-grid launch of c->k_seg steps, steps step0 .. step0 +
+// k_seg - 1 of the chunk, from `cur`, through buf_b, into buf_a (k_seg is
+// even), with TRACE each step's input to its entry of `tr`.
+template <bool TRACE>
+cudaError_t launch_segment(const TiledChunk* c, int step0, State3 cur,
+                           State3 buf_a, State3 buf_b, float* tr,
+                           cudaStream_t st) {
+  const bool plain = c->plain_springs != 0;
+  void* entry_fn = plain ? mega_entry<true, TRACE>(c->integrator)
+                         : mega_entry<false, TRACE>(c->integrator);
+  const int threads = mega_threads(plain);
+  const int limit = coop_blocks_of(entry_fn, threads, c->device);
+  if (limit <= 0) {
+    return static_cast<cudaError_t>(limit < 0 ? -limit
+                                              : cudaErrorNotSupported);
+  }
+  const int want = (c->a.n + threads - 1) / threads;
+  const int blocks = want < limit ? want : limit;
+  TiledArgs args = c->a;
+  int s0 = step0;
+  int k_seg = c->k_seg;
+  float* ph = c->pos_half;
+  float* vh = c->vel_half;
+  float* v1 = c->vel_v1;
+  void* params_ee[] = {&args, &s0, &k_seg, &cur, &buf_a, &buf_b, &tr};
+  void* params_rk[] = {&args, &s0, &k_seg, &cur, &buf_a, &buf_b,
+                       &ph,   &vh, &v1,    &tr};
+  return cudaLaunchCooperativeKernel(entry_fn, dim3(blocks), dim3(threads),
+                                     c->integrator == 2 ? params_rk
+                                                        : params_ee,
+                                     0, st);
+}
+
+// One resident-grid segment of a distributed shard: c->k_seg steps from
+// absolute step index step0 of the chunk (the segment's actuation and time
+// count from the chunk's start), *_in into *_out through *_tmp.  Returns
+// 0 or the launch's CUDA error.
+inline int enqueue_segment(const TiledChunk* c, int step0, void* stream) {
+  if (!plain_ok(c) || c->k_seg <= 0 || c->k_seg % 2 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(c->device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  State3 cur = {const_cast<float*>(c->pos_in), const_cast<float*>(c->vel_in),
+                const_cast<float*>(c->acc_in)};
+  State3 out = {c->pos_out, c->vel_out, c->acc_out};
+  State3 tmp = {c->pos_tmp, c->vel_tmp, c->acc_tmp};
+  return static_cast<int>(launch_segment<false>(
+      c, step0, cur, out, tmp, nullptr, static_cast<cudaStream_t>(stream)));
+}
+
 // Enqueue c->n_steps steps on `stream`: n_steps / k_seg resident-grid
 // launches, then one launch per remaining step (two for RK2).  The final
 // state lands in the *_out buffers; the inputs are never written.  With
@@ -438,27 +489,10 @@ int enqueue_tiled_chunk(const TiledChunk* c, float* trace, void* stream) {
     // write: out for an even tail, tmp for an odd one
     State3 buf_a = tail % 2 == 0 ? out : tmp;
     State3 buf_b = tail % 2 == 0 ? tmp : out;
-    void* entry_fn = plain ? mega_entry<true, TRACE>(c->integrator)
-                           : mega_entry<false, TRACE>(c->integrator);
-    const int threads = mega_threads(plain);
-    const int limit = coop_blocks_of(entry_fn, threads, c->device);
-    if (limit <= 0) return limit < 0 ? -limit : cudaErrorNotSupported;
-    const int want = (a.n + threads - 1) / threads;
-    const int blocks = want < limit ? want : limit;
-    TiledArgs args = a;
-    int k_seg = c->k_seg;
-    float* ph = c->pos_half;
-    float* vh = c->vel_half;
-    float* v1 = c->vel_v1;
     for (int seg = 0; seg < n_seg; ++seg) {
-      int step0 = seg * c->k_seg;
+      const int step0 = seg * c->k_seg;
       float* tr = TRACE ? trace + static_cast<size_t>(step0) * entry : nullptr;
-      void* params_ee[] = {&args, &step0, &k_seg, &cur, &buf_a, &buf_b, &tr};
-      void* params_rk[] = {&args, &step0, &k_seg, &cur, &buf_a, &buf_b,
-                           &ph,   &vh,    &v1,    &tr};
-      err = cudaLaunchCooperativeKernel(entry_fn, dim3(blocks),
-                                        dim3(threads),
-                                        rk2 ? params_rk : params_ee, 0, st);
+      err = launch_segment<TRACE>(c, step0, cur, buf_a, buf_b, tr, st);
       if (err != cudaSuccess) return static_cast<int>(err);
       cur = buf_a;
     }

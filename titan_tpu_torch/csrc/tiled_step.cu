@@ -121,6 +121,14 @@ extern "C" int titan_tiled_chunk(const TiledChunk* c, void* stream) {
   return titan_tiled::enqueue_tiled_chunk<false>(c, nullptr, stream);
 }
 
+// One resident-grid launch of c->k_seg steps starting at the chunk's step
+// step0 (a distributed shard's segment over its halo'd window).  Returns 0
+// or the launch's CUDA error.
+extern "C" int titan_tiled_segment(const TiledChunk* c, int step0,
+                                   void* stream) {
+  return titan_tiled::enqueue_segment(c, step0, stream);
+}
+
 // One per-step launch of a magnet scene with its pass's constant force
 // (TiledPass).  Returns 0 or the launch's CUDA error.
 extern "C" int titan_tiled_pass(const TiledChunk* c,

@@ -30,6 +30,11 @@ masses', the stencil families' and the remainder springs' parameters).  Routes:
   takes the fused adjoint, a larger magnet lattice the tiled one with its
   glue); ``fast_rollout`` with a one-line warning naming both adjoints'
   reasons where neither accepts the scene (a spring-less magnet swarm).
+  With ``mesh``, the distributed tiled adjoint
+  (``parallel/halo_adjoint.py``) where it accepts the scene; else, with a
+  warning, the single-device adjoint ``grad_route`` picks; a scene outside
+  every adjoint raises rather than take ``fast_rollout`` on one device
+  (``titan_tpu/diff.py:144-170``).
 
 Every eager step here is built from ``xla_only_shape(shape)``: the grid
 magnet kernel has no backward, so a differentiated step takes the binned
@@ -157,16 +162,39 @@ def grad_route(shape: SceneShape):
 
 
 def grad_rollout(shape: SceneShape, state: SimState, n_steps: int,
-                 segment: Optional[int] = None, mesh=None) -> SimState:
+                 segment: Optional[int] = None, mesh=None,
+                 axis: str = "shard") -> SimState:
     """The best differentiable rollout for the scene, by ``grad_route``:
     ``adjoint_rollout``, ``tiled_adjoint_rollout``, or ``fast_rollout``
     with a one-line warning naming the envelope conditions that failed.
-    On the card an adjoint route runs its kernels or raises."""
+    On the card an adjoint route runs its kernels or raises.
+
+    With ``mesh``, the distributed adjoint
+    (``parallel/halo_adjoint.py::halo_adjoint_rollout``) shards both
+    passes over the mesh's ``axis``; a scene outside its envelope takes
+    the single-device adjoint with a one-line warning, and a scene outside
+    every adjoint raises: the user asked to distribute it, and the
+    eager-recompute backward on one device is the wrong answer for a scene
+    that large (``titan_tpu/diff.py:144-170``)."""
+    rd = None
     if mesh is not None:
-        raise NotImplementedError(
-            "grad_rollout(mesh=...): the distributed adjoint is not ported "
-            "to titan_tpu_torch yet (ROADMAP A9, multi-device)")
+        from .parallel.halo_adjoint import (halo_adjoint_reject_reason,
+                                            halo_adjoint_rollout)
+        rd = halo_adjoint_reject_reason(shape, mesh.shape[axis])
+        if rd is None:
+            return halo_adjoint_rollout(shape, state, mesh, n_steps,
+                                        segment=segment, axis=axis)
+        get_logger().warning(
+            "grad_rollout: scene outside the distributed adjoint "
+            "envelope (%s); running the single-device adjoint", rd)
     route, reason = grad_route(shape)
+    if route == "fast" and mesh is not None:
+        raise RuntimeError(
+            "grad_rollout: scene requested a mesh but is outside every "
+            f"fused adjoint envelope (distributed: {rd}; {reason}). "
+            "Refusing the implicit single-device eager-recompute fallback; "
+            "run without mesh= to opt into fast_rollout explicitly if the "
+            "scene fits one device.")
     if route == "adjoint":
         return adjoint_rollout(shape, state, n_steps, segment=segment)
     if route == "tiled_adjoint":

@@ -421,16 +421,14 @@ tiled_trace_run.step_launches = 0
 tiled_trace_run.plain_launches = 0
 
 
-def _tiled_bwd_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
-                    gacc, inv: dict, mega: bool) -> dict:
-    """B8 (``mega``; Euler and Verlet) or B7's per-step launches."""
-    reason = tiled_adjoint_reject_reason(shape)
-    if reason is not None:
-        raise ValueError(f"tiled_bwd_run: scene outside the envelope: "
-                         f"{reason}")
-    if mega and not mega_adjoint_ok(shape):
-        raise ValueError(f"tiled_bwd_run: no resident-grid backward for "
-                         f"{shape.config.integrator.name}")
+def bwd_args(shape: SceneShape, state: SimState, trace, gpos, gvel, gacc,
+             inv: dict, mega: bool, np_rows: int = None):
+    """(``_TiledBwdArgs`` of the sweep over ``trace`` from the cotangents
+    (gpos, gvel, gacc), the gradient dict its accumulators and carry are
+    views of, the scratch and the other tensors it points into) for
+    ``tiled_bwd_run``'s kernels; ``np_rows`` overrides the trace's rows (a
+    distributed shard's trace carries its glue's constant forces though
+    its window's shape has no magnets)."""
     cfg = shape.config
     dev = state.masses.pos.device
     n, nf = shape.n_masses, len(shape.stencil_deltas)
@@ -479,6 +477,8 @@ def _tiled_bwd_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
     binned = shape.has_magnets and bool(shape.magnet_binned)
     if binned:          # the glue's transpose runs between the parts
         a.mag = a.gmag = None
+    if np_rows is not None:
+        a.np = np_rows
     a.trace = _checked("trace", trace, (seg, a.np, n), kernel=kern)
     a.gpos_in = _checked("gpos", gpos, vec, kernel=kern)
     a.gvel_in = _checked("gvel", gvel, vec, kernel=kern)
@@ -499,9 +499,28 @@ def _tiled_bwd_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
     if grem is not None:
         a.grem = grem.data_ptr()
         g.update(rem_g, rem_ok=inv["rem"]["ok"])
+    return a, g, scratch, keep + [grem]
+
+
+def _tiled_bwd_cuda(shape: SceneShape, state: SimState, trace, gpos, gvel,
+                    gacc, inv: dict, mega: bool) -> dict:
+    """B8 (``mega``; Euler and Verlet) or B7's per-step launches."""
+    reason = tiled_adjoint_reject_reason(shape)
+    if reason is not None:
+        raise ValueError(f"tiled_bwd_run: scene outside the envelope: "
+                         f"{reason}")
+    if mega and not mega_adjoint_ok(shape):
+        raise ValueError(f"tiled_bwd_run: no resident-grid backward for "
+                         f"{shape.config.integrator.name}")
+    a, g, scratch, keep = bwd_args(shape, state, trace, gpos, gvel, gacc,
+                                   inv, mega)
+    cfg = shape.config
+    seg = a.seg
+    plain = bool(a.plain_springs)
+    binned = shape.has_magnets and bool(shape.magnet_binned)
     gf_odd = scratch[5].data_ptr() if mega else None
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(trace.device).cuda_stream
     passes = 2 if cfg.integrator is Integrator.RK2 else 1
     if binned:
         _glue_sweep(shape, state, a, g, scratch, trace,

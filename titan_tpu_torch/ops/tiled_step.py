@@ -470,6 +470,9 @@ def _lib():
                                      ctypes.POINTER(_TiledPass),
                                      ctypes.c_void_p]
     lib.titan_tiled_pass.restype = ctypes.c_int
+    lib.titan_tiled_segment.argtypes = [ctypes.POINTER(_TiledChunk),
+                                        ctypes.c_int, ctypes.c_void_p]
+    lib.titan_tiled_segment.restype = ctypes.c_int
     lib.titan_tiled_coop_blocks.argtypes = [ctypes.c_int] * 3
     lib.titan_tiled_coop_blocks.restype = ctypes.c_int
     lib.titan_tiled_kernel_info.argtypes = [ctypes.c_int] * 5 + [

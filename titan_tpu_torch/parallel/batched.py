@@ -14,8 +14,11 @@ not a fallback.  For identical scene topologies prefer
 stencil scene stepped by the fused (or tiled) CUDA kernels; use this path
 for per-env scene globals, or small batches.
 
-The multi-device placement (``shard_batched_state``, a mesh) is ROADMAP
-A9 and not ported yet.
+With a mesh (``from_simulation(mesh=...)``, ``shard_batched_state``) the
+env axis is cut into contiguous blocks, one per shard, each stepped on its
+shard's device by the same vmapped step: pure data parallelism, no traffic
+between shards (``titan_tpu/parallel/batched.py:48-54``).  The env count
+must be a multiple of the shard count, as a JAX sharding requires.
 """
 
 from __future__ import annotations
@@ -40,6 +43,29 @@ def make_batched_state(state: SimState, n_envs: int) -> SimState:
     ``BatchedScenes.randomize``."""
     return pytree.tree_map(
         lambda x: x.unsqueeze(0).repeat((n_envs,) + (1,) * x.dim()), state)
+
+
+def shard_batched_state(state: SimState, mesh, axis: str = "dp") -> list:
+    """This process's blocks of a batched state's env axis, one per local
+    shard, each on its shard's device (``titan_tpu/parallel/batched.py:
+    48-54``)."""
+    from .comm import _to
+    n_envs = state.t.shape[0]
+    d_all = mesh.shape[axis]
+    if n_envs % d_all:
+        raise ValueError(f"{n_envs} envs do not split over {d_all} shards")
+    e = n_envs // d_all
+    return [pytree.tree_map(lambda x, i=i, dev=dev: _to(x[i * e:(i + 1) * e],
+                                                        dev), state)
+            for i, dev in zip(mesh.local, mesh.local_devices)]
+
+
+def gather_batched_state(blocks: list, mesh) -> SimState:
+    """The batched state from this process's env blocks, on the mesh's
+    home device (in one process, every env)."""
+    from .comm import _to
+    return pytree.tree_map(
+        lambda *xs: torch.cat([_to(x, mesh.home) for x in xs]), *blocks)
 
 
 def build_batched_step(shape: SceneShape) -> Callable[[SimState], SimState]:
@@ -70,19 +96,20 @@ class BatchedScenes:
     state: SimState
     n_envs: int
     _step: Callable = None
+    mesh: object = None
 
     @classmethod
     def from_simulation(cls, sim, n_envs: int, mesh=None) -> "BatchedScenes":
-        """The batch on ``sim``'s device (its ``config.device``)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "BatchedScenes(mesh=...): sharding the env axis over devices "
-                "is not ported to titan_tpu_torch yet (ROADMAP A9)")
+        """The batch on ``sim``'s device (its ``config.device``), or with
+        ``mesh`` its env axis sharded over the mesh's first axis."""
         sim._T = 0.0
         sim._marshal()
         shape = sim._shape
+        if mesh is not None and n_envs % mesh.shape[mesh.axis_names[0]]:
+            raise ValueError(f"{n_envs} envs do not split over "
+                             f"{mesh.shape[mesh.axis_names[0]]} shards")
         return cls(shape=shape, state=make_batched_state(sim._state, n_envs),
-                   n_envs=n_envs, _step=build_batched_step(shape))
+                   n_envs=n_envs, _step=build_batched_step(shape), mesh=mesh)
 
     def randomize(self, fn: Callable[[SimState, int], SimState],
                   key: int) -> None:
@@ -97,7 +124,16 @@ class BatchedScenes:
         self.state = pytree.tree_map(lambda *xs: torch.stack(xs), *envs)
 
     def run(self, steps: int) -> None:
-        self.state = run_eager(self._step, self.state, int(steps))
+        """``steps`` steps of every env; with a mesh, each shard's block of
+        envs on its own device, then gathered back into ``state``."""
+        if self.mesh is None:
+            self.state = run_eager(self._step, self.state, int(steps))
+            return
+        blocks = shard_batched_state(self.state, self.mesh,
+                                     self.mesh.axis_names[0])
+        self.state = gather_batched_state(
+            [run_eager(self._step, b, int(steps)) for b in blocks],
+            self.mesh)
 
     def positions(self) -> torch.Tensor:
         return self.state.masses.pos

@@ -400,8 +400,13 @@ def _try_incremental(sim) -> bool:
                 sim._state, gcon=_build_gcon(sim._planes, sim._balls, dt,
                                              sim._tensor))
 
+        if sim._mesh is not None:
+            # the distributed chunk for the possibly new shape; it places
+            # the edited global state afresh (incremental.py:419-425)
+            sim._place_distributed(new_shape, sim._mesh)
         if new_shape != shape:
-            sim._chunk = _chunk_for(new_shape)
+            if sim._mesh is None:
+                sim._chunk = _chunk_for(new_shape)
             # only a change of cost class makes the learned step rate
             # stale; capacity growth (S, max_degree, span, constraint
             # caps) keeps it and times the next chunk

@@ -16,8 +16,16 @@
 - Structural edits made at a pause are journaled and applied at resume by
   row-level surgery on the device state where the JAX package applies them
   so, else by a full re-marshal (``runtime/incremental.py``).
-
-Not ported yet (ROADMAP queue A9): ``distribute`` (multi-device).
+- ``distribute(mesh)`` runs the scene block-sharded over the shards of a
+  mesh (``parallel/``): the control plane keeps the global state it reads
+  and writes, and each chunk places it into the shards, steps them on the
+  route ``_place_distributed`` picks, and gathers the result back
+  (``parallel/sharded.py::DistributedChunk``).  A feature flip, a
+  uniform-breaking push or a topology edit re-picks the distributed chunk
+  for the new shape, where the JAX package re-marshals and re-places its
+  sharded state (its ``simulation.py:1159``, :1214, :1284,
+  ``incremental.py:419-425``): here the state the pushes write is global,
+  and the next chunk places it afresh.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ from .logging import get_logger
 
 # chunk-function cache: one chunk fn per static scene shape
 _CHUNK_CACHE: Dict[SceneShape, object] = {}
+# distributed chunk cache: one per (shape, mesh, axis, route, env hook)
+_DIST_CHUNK_CACHE: Dict[tuple, object] = {}
 
 _UNIFORM_FIELDS = ("k", "rest", "damping", "type", "omega")
 
@@ -62,6 +72,34 @@ def _chunk_for(shape: SceneShape):
         fn = build_chunk_fn(shape)
         _CHUNK_CACHE[shape] = fn
     return fn
+
+
+def _dist_chunk_for(shape: SceneShape, mesh, axis: str, kind: str):
+    """The distributed chunk of route ``kind`` ("halo_tiled", "halo" or
+    "sharded") for ``shape`` over ``mesh``, one per (shape, mesh, axis,
+    route, ``TITAN_DIST_MEGA``) (``simulation.py:120-145``), so that an
+    edit that keeps the shape keeps the chunk.  Simulations may share one:
+    the shards it keeps are reused only for the very state it returned."""
+    import os
+
+    from ..parallel import halo, halo_tiled, sharded
+    key = (shape, mesh, axis, kind, os.environ.get("TITAN_DIST_MEGA", ""))
+    chunk = _DIST_CHUNK_CACHE.get(key)
+    if chunk is not None:
+        return chunk
+    n = shape.n_masses
+    d_all = mesh.shape[axis]
+    if kind == "halo_tiled":
+        run = halo_tiled.build_halo_tiled_chunk(shape, mesh, axis)
+        b = run.b
+    elif kind == "halo":
+        run, b = halo.build_halo_chunk(shape, mesh, axis), n // d_all
+    else:
+        run = sharded.build_sharded_chunk(shape, mesh, axis)
+        b = sharded.block_size(n, d_all)
+    chunk = sharded.DistributedChunk(kind, shape, mesh, axis, b, run)
+    _DIST_CHUNK_CACHE[key] = chunk
+    return chunk
 
 
 class Simulation:
@@ -104,6 +142,8 @@ class Simulation:
         # runtime/live.LiveViewer copies that state on a side stream
         self._state_ready = None
         self._chunk = None
+        self._mesh = None                    # set by distribute()
+        self._mesh_axis = "shard"
         self._rate: Optional[float] = None   # measured steps/s of _chunk
         self._timed_chunks = 0               # dispatches since _chunk built
         self._worker: Optional[threading.Thread] = None
@@ -463,7 +503,7 @@ class Simulation:
             masses=masses, springs=springs, stencil=stencil,
             gcon=_build_gcon(self._planes, self._balls, dt, self._tensor),
             lcon=_marshal_local(st, N, shape, dt, self._tensor), topo=topo)
-        self._chunk = _chunk_for(shape)
+        self._install_chunk(shape)
         self._rate = None
         self._timed_chunks = 0
         # mirrors and a fresh journal for the incremental edit path
@@ -477,6 +517,63 @@ class Simulation:
         self._journal = EditJournal()
         self._structure_dirty = False
         get_logger().debug("marshalled scene shape: %s", shape)
+
+    def _install_chunk(self, shape: SceneShape) -> None:
+        """The chunk for ``shape``: on the mesh ``distribute`` chose, else
+        on one device."""
+        if self._mesh is not None:
+            self._place_distributed(shape, self._mesh)
+        else:
+            self._chunk = _chunk_for(shape)
+
+    def _place_distributed(self, shape: SceneShape, mesh) -> None:
+        """The distributed chunk for ``shape`` on ``mesh``
+        (``titan_tpu/runtime/simulation.py:616-661``): the per-shard tiled
+        kernels (``parallel/halo_tiled.py``) for a scene inside their
+        envelope that one device would not step on the fused kernel
+        (``ops/step.py::chunk_route``); else the halo-exchange route
+        (``parallel/halo.py``); else, with a warning naming the failed
+        condition, the sharded catch-all (``parallel/sharded.py``: the
+        single-device chunk on the gathered state)."""
+        from ..ops.step import chunk_route
+        from ..parallel.halo import halo_reject_reason
+        from ..parallel.halo_tiled import halo_tiled_reject_reason
+        axis = self._mesh_axis
+        d_all = mesh.shape[axis]
+        ht_reason = halo_tiled_reject_reason(shape, d_all)
+        if ht_reason is None and chunk_route(shape)[0] != "fused":
+            kind = "halo_tiled"
+        elif halo_reject_reason(shape, d_all) is None:
+            kind = "halo"
+        else:
+            get_logger().warning(
+                "scene is outside the halo-exchange envelope; stepping the "
+                "gathered state on one device (the sharded catch-all, no "
+                "faster than one device): %s",
+                halo_reject_reason(shape, d_all))
+            kind = "sharded"
+        self._chunk = _dist_chunk_for(shape, mesh, axis, kind)
+        get_logger().info("distributed over %d shards via the %s route",
+                          d_all, kind)
+
+    def distribute(self, mesh=None, axis: str = "shard") -> None:
+        """Run this simulation block-sharded across the shards of a mesh
+        (``titan_tpu/runtime/simulation.py:663-682``): the same control
+        plane (start / wait / get / set / edits) drives the scene; each
+        chunk steps the shards and gathers the state back for readback.
+        Call before start(), or at a pause.  With no argument, a mesh of
+        one shard on each visible CUDA device (``parallel.make_mesh``).
+        The shards may share a device: ``make_mesh(devices=[dev] * 4)``."""
+        self._check_not_ended()
+        if mesh is None:
+            from ..parallel.mesh import make_mesh
+            mesh = make_mesh((axis,))
+        self._mesh = mesh
+        self._mesh_axis = axis
+        if self._state is not None and self._shape is not None:
+            self._place_distributed(self._shape, mesh)
+            self._rate = None
+            self._timed_chunks = 0
 
     # ----------------------------------------------------------------- control
     def start(self) -> None:
@@ -524,10 +621,14 @@ class Simulation:
                 n = int(math.ceil((nxt - self._T) / dt - 1e-9))
                 n = max(1, min(n, self.config.max_chunk_steps))
                 # wall-time cap per chunk (config.max_chunk_seconds): a fresh
-                # chunk fn runs probe-sized chunks until its rate is known
-                if self._rate is None:
+                # chunk fn runs probe-sized chunks until its rate is known.
+                # A control plane replicated over processes sizes its
+                # chunks by breakpoints alone, the same in every process,
+                # so that each chunk's collectives pair up
+                timed = self._mesh is None or not self._mesh.multiprocess
+                if timed and self._rate is None:
                     n = min(n, self.config.probe_chunk_steps)
-                else:
+                elif timed:
                     n = min(n, max(1, int(self._rate
                                           * self.config.max_chunk_seconds)))
                 state, chunk = self._state, self._chunk
@@ -984,7 +1085,7 @@ class Simulation:
             return
         self._shape = dataclasses.replace(shape,
                                           stencil_uniform=tuple(uniform))
-        self._chunk = _chunk_for(self._shape)
+        self._install_chunk(self._shape)
         self._rate = None
         self._timed_chunks = 0
 
@@ -1051,7 +1152,7 @@ class Simulation:
             self._shape, **_feature_flags(self._store, self.config))
         if new_shape != self._shape:
             self._shape = new_shape
-            self._chunk = _chunk_for(new_shape)
+            self._install_chunk(new_shape)
             self._rate = None
             self._timed_chunks = 0
 
